@@ -1,0 +1,73 @@
+"""The port stands alone: no module of lesionvae_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package, and its entry points target
+the card unless the caller asks for the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lesionvae_tpu")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import lesionvae_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {forbidden!r})
+print(len(names), bad)
+"""
+
+
+def test_importing_every_module_loads_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=set(FORBIDDEN))],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 15 and bad == "[]", proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    [*(REPO / "lesionvae_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+def test_source_imports_no_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), (path, ast.dump(node))
+
+
+def test_entry_point_defaults_to_cuda(tmp_path):
+    """Called without ``device``, the stage targets the card: on a host
+    without one that is a CUDA error, never a quiet CPU run."""
+    import torch
+
+    from lesionvae_tpu_torch.io import synth
+    from lesionvae_tpu_torch.pipeline import lesion_run
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only host")
+    cfg = synth.tiny_config(n_per_group=1)
+    root = synth.generate_cohort(tmp_path, cfg, seed=2,
+                                 volume_shape=(20, 20, 20),
+                                 subjects={"TBI": ["9101"]})
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        lesion_run.analyze_single_lesion("9101", "9d", root / "data",
+                                         num_samples=200,
+                                         rng=np.random.default_rng(0))
+    with pytest.raises(ValueError, match="float32 on cuda"):
+        lesion_run.run_lesion_analysis(cfg, data_dir=root / "data",
+                                       output_dir=tmp_path / "out",
+                                       dtype=torch.float64)
