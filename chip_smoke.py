@@ -6,15 +6,34 @@
 Phases; any failure exits non-zero before the result line is printed:
 
 1. environment: torch/CUDA versions, the card's name and power limit, and a
-   build of every kernel from the sources in this checkout (timed);
-2. every kernel against its plain PyTorch version on the card, float32, at
-   the test shapes and at the full-scale shape (B=104, D=2000, N=2000);
-3. the main path: the ``lesion`` CLI stage on ``cuda`` over the full-scale
-   synthetic cohort (26 TBI/PTE subjects x 4 timepoints, 48^3 volumes,
-   2000 directions, L=6), with each kernel's launch count reset before and
-   read after; its CSV checked and held against a CPU float32 run;
-4. kernel timings (CUDA events) at the shapes the main path gave each kernel,
-   beside each kernel's bound, printed as one ``{"kernels": [...]}`` line.
+   build of every kernel from the sources in this checkout (one ``nvcc``
+   per source, all started together; timed);
+2. every kernel against its plain PyTorch version on the card:
+   - radius, float32, at the test shapes, the full-scale shape (B=104,
+     D=2000, N=2000) and two NaN cases (a counted NaN point gives NaN, a
+     NaN pad row changes nothing);
+   - resident Adam, bf16, at ragged totals (not multiples of 8) and
+     K in {0, 1, 3, 30}: bit-equal in p, m and v (the two round at the
+     same places);
+3. the main paths, each with every kernel's launch count set to 0 just
+   before it and read just after:
+   a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
+      cohort (26 TBI/PTE subjects x 4 timepoints, 48^3 volumes, 2000
+      directions, L=6); its CSV checked and held against a CPU float32 run;
+   b. the optimizer probe (``benchmarks/opt_probe.py``) at its full size,
+      T=64 members x P=2,867,200 bf16 parameters, K in {1, 10, 30}: the
+      kernel's whole output bit-equal to the plain loop's, and both timed;
+   c. the ``vae`` CLI stage on ``cuda`` at full width (seq 100, 13 + 3
+      channels, latent 10, batch 64, 40 epochs) over a full-scale profiles
+      cohort for one tract (37 subjects x 4 timepoints, 925 rows each); the
+      eval forward, z-scores and a 2-epoch training run held against the CPU
+      in float32, and the same three again with TF32 on as a control that
+      must exceed every one of those bounds; then the
+      ``score`` CLI stage on ``cuda`` serving a saved model, held against a
+      CPU float32 ``score_subjects``;
+4. kernel timings (CUDA events) at the shapes the main paths gave each
+   kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
+   line (the resident kernel per K).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -22,7 +41,6 @@ The last line of stdout is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -32,6 +50,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lesionvae_tpu_torch.utils.profiling import device_ms
+
 # NVIDIA H100 SXM data sheet, dense: FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -39,6 +59,17 @@ KERNEL_TOL = 1e-5     # |kernel - plain| <= KERNEL_TOL * max(1, |plain|)
 PATH_TOL = 1e-4       # cuda vs cpu float32 stage, same form
 SEED = 0
 NUM_SAMPLES, MAX_L, VOLUME = 2000, 6, 48
+RESIDENT_KS = [0, 1, 3, 30]
+RESIDENT_TOTALS = [1, 7, 9, 4096, 65539, 1_000_003]   # all but one ragged
+PROBE_KS = [1, 10, 30]
+# the VAE path: configs/tract_config.json model_params; the cohort of
+# bench.py:66-74 (n_streamlines=100 -> 25 profile streamlines a subject)
+VAE_EPOCHS, VAE_BATCH, VAE_LATENT, VAE_SEED = 40, 64, 10, 42
+VAE_STREAMLINES, VAE_ROWS = 100, 925
+# cuda vs cpu float32, 2-epoch history: sound runs read 1.1e-4 (cuDNN and
+# the CPU sum convolutions in other orders and 30 Adam steps carry it), the
+# TF32 control 4.3e-4 (see tf32_control)
+HIST_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -88,6 +119,30 @@ def radius_error(inputs) -> float:
     return float(err.max())
 
 
+def radius_nan_check() -> None:
+    """A NaN surface point that is counted gives NaN in every direction, as
+    jnp.max does; a NaN in a pad row (beyond the count) changes nothing."""
+    from lesionvae_tpu_torch.ops import radius
+
+    surface, counts, cens, dirs = radius_case(512, 200, 3, seed=99)
+    counts[:] = torch.tensor([200, 120, 0], dtype=torch.int32)
+    clean = radius.sample_radii(surface, counts, cens, dirs)
+    surface[0, 57, 1] = float("nan")      # counted
+    surface[1, 150, :] = float("nan")     # pad row of lesion 1
+    surface[2, 0, 0] = float("nan")       # lesion 2 counts none
+    got = radius.sample_radii(surface, counts, cens, dirs)
+    want = radius.sample_radii_plain(surface, counts, cens, dirs)
+    torch.cuda.synchronize()
+    if not (bool(torch.isnan(got[0]).all()) and bool(torch.isnan(want[0]).all())):
+        fail("radius: a counted NaN point does not give NaN")
+    if not (torch.equal(got[1], clean[1]) and bool((got[2] == 0).all())):
+        fail("radius: a NaN pad row changed the result")
+    if float((got[1:] - want[1:]).abs().max()) > KERNEL_TOL * float(want[1].abs().max()):
+        fail("radius: kernel and plain version disagree beside NaN rows")
+    print("[kernels] radius NaN cases: counted NaN -> NaN in all 512 directions; "
+          "NaN pad row and NaN in an empty lesion ignored")
+
+
 def radius_bound_ms(inputs) -> tuple[float, str]:
     """Least time for this run's work: Σ_b min(count_b, N)·D pairs of 3 FMA
     + 1 max (7 FP32 operations) against the bytes each input and output
@@ -102,25 +157,60 @@ def radius_bound_ms(inputs) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
-    """Median over ``reps`` of the device time per call of ``inner``
-    back-to-back calls between two CUDA events.  A sleep kernel queued first
-    lets the host enqueue all the calls before the device reaches them, so
-    the host's launch cost does not enter the time."""
-    fn()
+# ---------------------------------------------------------------- resident Adam
+def resident_case(n: int, seed: int):
+    """bf16 (p, m, v) on the card: p ~ 0.02 N(0,1), m ~ 1e-3 N(0,1),
+    v ~ 1e-6 |N(0,1)|."""
+    g = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(x).to("cuda").to(torch.bfloat16) for x in (
+        g.normal(size=n) * 0.02, g.normal(size=n) * 1e-3,
+        np.abs(g.normal(size=n)) * 1e-6))
+
+
+def resident_errors() -> dict:
+    """The kernel against its plain version at every (total, K): the two
+    round at the same places, so every element of p, m and v must be equal.
+    The JAX probe's rtol/atol is printed beside, as the probe checks."""
+    from lesionvae_tpu_torch.benchmarks import opt_probe
+    from lesionvae_tpu_torch.ops import resident_adam as ra
+
+    worst = {"max_abs_err": 0.0, "share_differing": 0.0}
+    for i, n in enumerate(RESIDENT_TOTALS):
+        p, m, v = resident_case(n, seed=i)
+        for k in RESIDENT_KS:
+            agree = opt_probe.compare(ra.resident_adam(p, m, v, k, opt_probe.GC),
+                                      ra.resident_adam_plain(p, m, v, k, opt_probe.GC))
+            if agree["share_differing"] != 0:
+                fail(f"resident Adam kernel differs from its plain version at "
+                     f"n={n} K={k} in a share {agree['share_differing']:.3e} of "
+                     f"elements: max abs err {agree['max_abs_err']:.3e}")
+            for key in worst:
+                worst[key] = max(worst[key], agree[key])
+    print(f"[kernels] resident Adam vs plain at totals {RESIDENT_TOTALS} x K "
+          f"{RESIDENT_KS}: bit-equal in p, m and v (max abs err "
+          f"{worst['max_abs_err']:.3e}; also within the probe's rtol="
+          f"{opt_probe.RTOL}, atol={opt_probe.ATOL})")
+    return worst
+
+
+def check_probe():
+    """The probe path at full size; returns its per-K results."""
+    from lesionvae_tpu_torch.benchmarks import opt_probe
+    from lesionvae_tpu_torch.ops import radius, resident_adam as ra
+
+    radius.sample_radii.launches = ra.resident_adam.launches = 0
+    results = opt_probe.main(PROBE_KS)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    launches = ra.resident_adam.launches
+    if launches < 1 or sum(r["launches"] for r in results) != launches:
+        fail(f"the probe path launched the resident kernel {launches} times")
+    for r in results:
+        if r["share_differing"] != 0:
+            fail(f"probe at K={r['k']}: the kernel differs from the plain loop "
+                 f"in a share {r['share_differing']:.3e} of elements")
+    print(f"[path] optimizer probe on cuda: resident launches {launches}; "
+          f"kernel bit-equal to the plain loop at K {PROBE_KS}")
+    return results, launches
 
 
 # ---------------------------------------------------------------- the path
@@ -164,12 +254,12 @@ def check_path(root: Path):
 
     from lesionvae_tpu_torch import cli
     from lesionvae_tpu_torch.core.config import load_config
-    from lesionvae_tpu_torch.ops import radius
+    from lesionvae_tpu_torch.ops import radius, resident_adam as ra
     from lesionvae_tpu_torch.pipeline import lesion_run
     from lesionvae_tpu_torch.utils import profiling
 
     profiling.reset()
-    radius.sample_radii.launches = 0
+    radius.sample_radii.launches = ra.resident_adam.launches = 0
     rc = cli.main(["lesion", "--base-path", str(root), "--seed", str(SEED),
                    "--num-samples", str(NUM_SAMPLES), "--max-l", str(MAX_L),
                    "--device", "cuda"])
@@ -209,6 +299,177 @@ def check_path(root: Path):
     return launches, main_path_radius_inputs(cfg, root / "data")
 
 
+# ---------------------------------------------------------------- the VAE path
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))))
+
+
+def z_scaled_err(z_g, z_c, std_c) -> float:
+    """z is the residual X - xh - mean over the Sham std (floored at 1e-6):
+    where that std is below 1 the residual's float32 error grows by 1/std,
+    so z is held to the tolerance in units of max(1, std)."""
+    return float(np.max(np.abs(z_g - z_c) * np.minimum(1.0, std_c)[None]
+                        / np.maximum(1.0, np.abs(z_c))))
+
+
+def train_2_epochs(Xz, Xl, device) -> np.ndarray:
+    """The history of a 2-epoch training run from ``VAE_SEED``."""
+    from lesionvae_tpu_torch.train.trainer import train_lesion_vae
+
+    return train_lesion_vae(Xz, Xl, latent_dim=VAE_LATENT, epochs=2,
+                            batch_size=VAE_BATCH, seed=VAE_SEED,
+                            device=device)[1].to_numpy()
+
+
+def tf32_control(model, Xz, Xl, sham, eps, cpu) -> None:
+    """Control for the cuda-vs-cpu bounds: the eval forward, z-scores and
+    2-epoch training on the card again with TF32 on for cuDNN and cuBLAS,
+    against the same CPU float32 results ``cpu`` = (forward, z, Sham std,
+    history).  Lower precision must exceed every bound a sound run is held
+    to, or the bound could not tell it from float32."""
+    from lesionvae_tpu_torch.train import trainer
+    from lesionvae_tpu_torch.train.normative import normative_zscores_fused
+
+    def tf32(_device) -> None:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+
+    fwd_c, z_c, std_c, h_c = cpu
+    sound = trainer.full_fp32
+    trainer.full_fp32 = tf32     # every VAE entry point calls it first
+    try:
+        fwd = max(rel_err(a.cpu(), b) for a, b in zip(model.apply(Xz, Xl, eps=eps), fwd_c))
+        z_err = z_scaled_err(normative_zscores_fused(model, Xz, Xl, sham,
+                                                     seed=VAE_SEED)[2], z_c, std_c)
+        hist_err = rel_err(train_2_epochs(Xz, Xl, "cuda"), h_c)
+    finally:
+        trainer.full_fp32 = sound
+        sound("cuda")
+    line = (f"forward max rel err {fwd:.3e} (bound {PATH_TOL}), Z scaled by "
+            f"min(1, std) {z_err:.3e} (bound {PATH_TOL}), 2-epoch history "
+            f"{hist_err:.3e} (bound {HIST_TOL})")
+    if fwd <= PATH_TOL or z_err <= PATH_TOL or hist_err <= HIST_TOL:
+        fail(f"a cuda-vs-cpu bound does not catch TF32: {line}")
+    print(f"[control] TF32 on for the card's convolutions and products, against "
+          f"the same cpu float32 results, exceeds every bound: {line}")
+
+
+def check_vae(root: Path, cfg, tract: str) -> None:
+    """``vae`` then ``score`` through the CLI on cuda, each held against the
+    CPU in float32."""
+    import pandas as pd
+
+    from lesionvae_tpu_torch import cli
+    from lesionvae_tpu_torch.ops import radius, resident_adam as ra
+    from lesionvae_tpu_torch.pipeline.infer import load_normative, score_subjects
+    from lesionvae_tpu_torch.train import data as vdata
+    from lesionvae_tpu_torch.train.checkpoint import load_vae, save_vae
+    from lesionvae_tpu_torch.train.normative import normative_zscores_fused
+    from lesionvae_tpu_torch.train.trainer import train_lesion_vae
+    from lesionvae_tpu_torch.utils import profiling
+
+    cfg_path = root / "config.json"
+    cfg_path.write_text(json.dumps(cfg.to_json_dict()))
+    common = ["--config", str(cfg_path), "--base-path", str(root),
+              "--seed", str(VAE_SEED), "--device", "cuda"]
+    profiling.reset()
+    radius.sample_radii.launches = ra.resident_adam.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["vae", "--tract", tract, "--epochs", str(VAE_EPOCHS),
+                   "--batch-size", str(VAE_BATCH), "--latent-dim",
+                   str(VAE_LATENT), "--no-plots", *common])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = profiling.report()
+    if rc != 0:
+        fail(f"vae stage exited {rc}")
+    out = root / "results" / "vae_analysis" / tract
+    keys = ["Z", "magnitude", "subj_ids", "group_labels", "latents",
+            "lesion_burden", "norm_mean", "norm_std"]
+    for tp in cfg.timepoints:
+        hist = pd.read_csv(out / f"training_history_{tp}.csv")
+        if (len(hist) != VAE_EPOCHS or not np.isfinite(hist.to_numpy()).all()
+                or not hist["loss"].iloc[-1] < hist["loss"].iloc[0]):
+            fail(f"training_history_{tp}.csv: {len(hist)} rows, loss "
+                 f"{hist['loss'].iloc[0]:.4f} -> {hist['loss'].iloc[-1]:.4f}")
+        z = np.load(out / f"zscores_{tp}.npz", allow_pickle=True)
+        if (z.files != keys or z["Z"].shape != (VAE_ROWS, 100, 13)
+                or not np.isfinite(z["Z"]).all()):
+            fail(f"zscores_{tp}.npz: keys {z.files}, Z {z['Z'].shape}")
+    steps = len(cfg.timepoints) * VAE_EPOCHS * -(-VAE_ROWS // VAE_BATCH)
+    print(f"[path] vae stage on cuda: {len(cfg.timepoints)} timepoints x "
+          f"{VAE_ROWS} rows, {VAE_EPOCHS} epochs, {steps} train steps in "
+          f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
+          f"stage {wall:.2f}s; kernel launches radius "
+          f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}")
+    print("[path] vae spans on cuda (s): " + json.dumps(spans))
+
+    # one model of the path, trained again on cuda for the comparisons and
+    # saved with its normalization stats for serving
+    groups = {g: list(s) for g, s in cfg.subjects_by_group().items()}
+    subjects = [s for subs in groups.values() for s in subs]
+    Xm, Xl, _sids, glabels, _ = vdata.build_tensor_with_lesion_context(
+        root, tract, "9d", subjects, cfg.microstructure_features,
+        cfg.lesion_features, groups)
+    stats = vdata.fit_normalization_stats(Xm, Xl, cfg.microstructure_features)
+    Xz, Xl = vdata.apply_normalization(Xm, Xl, stats)
+    model, _ = train_lesion_vae(Xz, Xl, latent_dim=VAE_LATENT, epochs=VAE_EPOCHS,
+                                batch_size=VAE_BATCH, seed=VAE_SEED, device="cuda")
+    save_vae(root / "ckpt", model, stats)
+    cpu_model, _ = load_vae(root / "ckpt", device="cpu")
+
+    # eval forward and z-scores: same weights, same noise
+    sham = glabels == "Sham"
+    eps = torch.randn((len(Xz), VAE_LATENT), generator=torch.Generator().manual_seed(7))
+    fwd_c = cpu_model.apply(Xz, Xl, eps=eps)
+    fwd = [rel_err(a.cpu(), b) for a, b in zip(model.apply(Xz, Xl, eps=eps), fwd_c)]
+    mean_g, std_g, z_g, mag_g = normative_zscores_fused(model, Xz, Xl, sham,
+                                                        seed=VAE_SEED)
+    mean_c, std_c, z_c, mag_c = normative_zscores_fused(cpu_model, Xz, Xl, sham,
+                                                        seed=VAE_SEED)
+    stats_err = [rel_err(mean_g, mean_c), rel_err(std_g, std_c), rel_err(mag_g, mag_c)]
+    z_err = z_scaled_err(z_g, z_c, std_c)
+    if max(fwd + stats_err + [z_err]) > PATH_TOL:
+        fail(f"cuda vs cpu float32 eval: forward (xh, mu, logv) {fwd}, normative "
+             f"(mean, std, magnitude) {stats_err}, Z scaled by min(1, std) {z_err}")
+    print(f"[path] cuda vs cpu float32, one trained model: forward (xh, mu, logv) "
+          f"max rel err {max(fwd):.3e}; normative mean, std, magnitude "
+          f"{max(stats_err):.3e}; Z {rel_err(z_g, z_c):.3e} raw, {z_err:.3e} "
+          f"scaled by min(1, std) (Sham std min {float(std_c.min()):.3e}) "
+          f"(tol {PATH_TOL} x max(1,|x|))")
+
+    # a short training run from the same seed on both
+    h_cpu = train_2_epochs(Xz, Xl, "cpu")
+    hist_err = rel_err(train_2_epochs(Xz, Xl, "cuda"), h_cpu)
+    if hist_err > HIST_TOL:
+        fail(f"cuda vs cpu float32 2-epoch history: max rel err {hist_err:.3e}")
+    print(f"[path] cuda vs cpu float32, 2-epoch training from one seed: history "
+          f"max rel err {hist_err:.3e} (tol {HIST_TOL})")
+    tf32_control(model, Xz, Xl, sham, eps, (fwd_c, z_c, std_c, h_cpu))
+
+    # serving on cuda through the CLI, against the CPU
+    norm = load_normative(out / "zscores_9d.npz")
+    profiling.reset()
+    rc = cli.main(["score", "--checkpoint", str(root / "ckpt"), "--normative",
+                   str(out / "zscores_9d.npz"), "--tract", tract,
+                   "--timepoint", "1mo", *common])
+    if rc != 0:
+        fail(f"score stage exited {rc}")
+    served = pd.read_csv(root / "results" / "serving" / f"scores_{tract}_1mo.csv")
+    cpu = score_subjects(root / "ckpt", norm["mean"], norm["std"], root, tract,
+                         "1mo", subjects, config=cfg, seed=VAE_SEED, device="cpu")
+    cols = ["mean", "std", "max", "count"]
+    score_err = rel_err(served[cols].to_numpy(float), cpu[cols].to_numpy(float))
+    if (list(served.columns) != ["subject_id", "group"] + cols
+            or len(served) != len(subjects) or score_err > PATH_TOL
+            or not served["subject_id"].astype(str).equals(cpu["subject_id"].astype(str))):
+        fail(f"score on cuda: {len(served)} rows, max rel err vs cpu {score_err:.3e}")
+    print(f"[path] score stage on cuda: {len(served)} subjects; cuda vs cpu "
+          f"float32 max rel err {score_err:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -223,7 +484,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}, card {kind}, devices {torch.cuda.device_count()}")
     print(f"[env] nvidia-smi: {card}")
     t0 = time.perf_counter()
-    built = cuda_build.build(["radius"])
+    built = cuda_build.build(["radius", "resident_adam"])
     print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
 
     # 2. kernels against their plain versions
@@ -237,12 +498,14 @@ def main() -> int:
     full_bound, full_by = radius_bound_ms(full)
     print(f"[kernels] radius vs plain at {len(shapes)} shapes: max abs err "
           f"{max(errs):.3e} (tol {KERNEL_TOL} x max(1,|plain|))")
+    radius_nan_check()
+    resident_worst = resident_errors()
     print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
           + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
                         "bound_ms": full_bound, "bound_by": full_by,
                         "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
 
-    # 3. the main path
+    # 3. the main paths
     cfg = load_config()
     with tempfile.TemporaryDirectory(prefix="lesionvae_smoke_") as tmp:
         root = Path(tmp)
@@ -251,8 +514,19 @@ def main() -> int:
                         subjects=cfg.subjects_by_group(only=("TBI", "PTE")))
         print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
         launches, path_inputs = check_path(root)
+    probe, probe_launches = check_probe()
+    with tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_") as tmp:
+        root = Path(tmp)
+        tract = cfg.tracts[0]
+        t0 = time.perf_counter()
+        generate_cohort(root, cfg, seed=SEED, volume_shape=(8,) * 3,
+                        with_profiles=True, n_streamlines=VAE_STREAMLINES,
+                        tracts=[tract])
+        print(f"[path] profiles cohort ({tract}, 37 subjects x 4 timepoints) "
+              f"written in {time.perf_counter() - t0:.1f}s")
+        check_vae(root, cfg, tract)
 
-    # 4. kernel timings at the main path's shapes
+    # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)
     ms = device_ms(lambda: radius.sample_radii(*path_inputs))
     plain_ms = device_ms(lambda: radius.sample_radii_plain(*path_inputs))
@@ -261,6 +535,10 @@ def main() -> int:
     print(f"[kernels] main-path radius inputs: B={surface.shape[0]} "
           f"N={surface.shape[1]} D={directions.shape[0]} "
           f"points={int(counts.sum())}")
+    per_k = [{key: r[key] for key in ("k", "launches", "max_abs_err",
+                                      "share_differing", "bound_ms", "bound_by")}
+             | {"ms": r["resident_ms"], "plain_ms": r["plain_ms"]} for r in probe]
+    k1 = per_k[0]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "radius", "route": "cuda",
@@ -268,7 +546,16 @@ def main() -> int:
         "replaces": "lesionvae_tpu/ops/pallas_radius.py:29",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "resident_adam", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/resident_adam.cu",
+        "replaces": "benchmarks/pallas_opt_probe.py:118",
+        "launches": probe_launches,
+        "max_abs_err": max([resident_worst["max_abs_err"]]
+                           + [r["max_abs_err"] for r in per_k]),
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None, "k": k1["k"],
+        "per_k": per_k}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

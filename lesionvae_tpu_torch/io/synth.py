@@ -1,15 +1,17 @@
 """Deterministic synthetic lesion cohort.
 
-Writes the volumes the lesion SH + heme stage reads, in the directory
-contract the reference expects (reference: README.md:128-141,
+Writes the volumes the lesion SH + heme stage reads and, with
+``with_profiles=True``, the per-subject tract-profile CSVs the VAE stage
+reads, in the directory contract the reference expects (reference:
+README.md:128-141, src/vae/data_loader.py:10-24,
 src/lesion/lesion_sh_heme_comprehensive.py:228,273,327):
 
     data/{sid}/{tp}/lesion_cleaned.nii.gz | tissue.nii.gz | heme.nii.gz | dti_FA.nii.gz
+    results/{sid}/timepoint_analysis_{sid}_{tp}/comprehensive_tract_data_{sid}_{tp}.csv
 
-Every volume is drawn from a generator seeded per (kind, sid, tp), so the
-files are byte-identical to the ones the JAX package's synth writes for the
-same seed; tract bundles and profile CSVs belong to later stages and are not
-written here.
+Every file is drawn from a generator seeded per (kind, sid, tp), so it is
+byte-identical to the one the JAX package's synth writes for the same seed;
+tract bundles belong to a later slice and are not written here.
 """
 
 from __future__ import annotations
@@ -52,14 +54,59 @@ def make_brain_volume(shape=(32, 32, 32), radius_frac: float = 0.45) -> np.ndarr
     return (r <= 1.0).astype(np.float32)
 
 
+def write_profile_csv(path: Path, rng: np.random.Generator, tracts: Sequence[str],
+                      micro_feats: Sequence[str], lesion_feats: Sequence[str],
+                      n_streamlines: int, n_points: int = 100,
+                      include_lesion_cols: bool = True,
+                      lesion_shift: float = 0.0) -> None:
+    """Long-format per-subject tract-profile CSV (schema implied by
+    data_loader.py:63-117: tract_id, streamline_id, point_id,
+    position_along_tract, then feature columns)."""
+    import pandas as pd
+
+    frames = []
+    pos = np.linspace(0, 1, n_points)
+    for tract in tracts:
+        for s_id in range(n_streamlines):
+            base = {
+                "tract_id": tract,
+                "streamline_id": s_id,
+                "point_id": np.arange(n_points),
+                "position_along_tract": pos,
+            }
+            for j, feat in enumerate(micro_feats):
+                profile = (np.sin(2 * np.pi * (pos + 0.1 * j)) * 0.5
+                           + rng.normal(scale=0.1, size=n_points)
+                           + lesion_shift * np.exp(-((pos - 0.5) ** 2) / 0.02))
+                base[feat] = profile.astype(np.float32)
+            if include_lesion_cols:
+                in_lesion = ((pos > 0.4) & (pos < 0.6) & (lesion_shift > 0))
+                base["in_lesion"] = in_lesion.astype(np.float32)
+                base["in_cavity"] = np.zeros(n_points, dtype=np.float32)
+                dist = np.abs(pos - 0.5) * 30.0 + (0.0 if lesion_shift > 0 else 15.0)
+                base["lesion_distance"] = dist.astype(np.float32)
+            frames.append(pd.DataFrame(base))
+    df = pd.concat(frames, ignore_index=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    df.to_csv(path, index=False)
+
+
 def generate_cohort(root: str | Path, config: Config, seed: int = 0,
                     volume_shape=(32, 32, 32),
-                    subjects: Optional[Dict[str, List[str]]] = None) -> Path:
+                    subjects: Optional[Dict[str, List[str]]] = None,
+                    with_profiles: bool = False, n_streamlines: int = 30,
+                    tracts: Optional[Sequence[str]] = None) -> Path:
     """Write tissue, heme and FA volumes for every subject x timepoint under
     ``root/data``, and a lesion mask for TBI/PTE subjects at every timepoint
     but 2d (exercising the zero-row contract at
-    lesion_sh_heme_comprehensive.py:354-357)."""
+    lesion_sh_heme_comprehensive.py:354-357).
+
+    ``with_profiles``: also write each subject's profile CSV for ``tracts``
+    (default: the config's geometry tracts) with ``max(4, n_streamlines // 4)``
+    streamlines a tract; Sham CSVs lack the lesion columns (exercising the
+    imputation at data_loader.py:77-88)."""
     root = Path(root)
+    tracts = list(tracts if tracts is not None else config.geometry_tracts)
     groups = subjects if subjects is not None else config.subjects_by_group()
     affine = np.diag([0.5, 0.5, 0.5, 1.0])
     affine[:3, 3] = -np.array(volume_shape) * 0.25
@@ -77,10 +124,21 @@ def generate_cohort(root: str | Path, config: Config, seed: int = 0,
                 fa = (brain * rng.uniform(0.05, 0.9, size=volume_shape)).astype(np.float32)
                 nifti.save(ddir / "dti_FA.nii.gz", fa, affine)
 
-                if group in ("TBI", "PTE") and tp != "2d":
+                has_lesion = group in ("TBI", "PTE") and tp != "2d"
+                if has_lesion:
                     rng = _rng(seed, "lesion", sid, tp)
                     lesion = make_lesion_volume(rng, volume_shape)
                     nifti.save(ddir / "lesion_cleaned.nii.gz", lesion, affine)
+
+                if with_profiles:
+                    rng = _rng(seed, "profiles", sid, tp)
+                    write_profile_csv(
+                        root / "results" / sid / f"timepoint_analysis_{sid}_{tp}"
+                        / f"comprehensive_tract_data_{sid}_{tp}.csv",
+                        rng, tracts, config.microstructure_features,
+                        config.lesion_features, n_streamlines=max(4, n_streamlines // 4),
+                        include_lesion_cols=(group != "Sham"),
+                        lesion_shift=(0.8 if has_lesion else 0.0))
     return root
 
 

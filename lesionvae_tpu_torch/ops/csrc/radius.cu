@@ -20,6 +20,11 @@
 // a point with one 16-byte broadcast load, then keeps a running max in a
 // register.  The (D, N) projection never exists anywhere.
 //
+// NaN: the running max propagates a NaN projection of a counted point, as
+// jnp.max and torch.amax do (fmaxf would skip it): PTX max.NaN (sm_80+) is
+// one instruction, as fmaxf is.  Pad rows are never read, so a NaN there
+// changes nothing.
+//
 // C interface (loaded with ctypes): returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
@@ -29,6 +34,13 @@ namespace {
 
 constexpr int TD = 128;      // directions (threads) per block
 constexpr int CHUNK = 1024;  // points staged in shared memory at a time (16 KB)
+
+// max(a, b), NaN if either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 __global__ void __launch_bounds__(TD)
 radius_kernel(const float* __restrict__ surface,     // (B, N, 3)
@@ -66,7 +78,7 @@ radius_kernel(const float* __restrict__ surface,     // (B, N, 3)
 #pragma unroll 8
     for (int j = 0; j < m; ++j) {
       const float4 q = pts[j];
-      r = fmaxf(r, fmaf(dz, q.z, fmaf(dy, q.y, dx * q.x)));
+      r = max_nan(r, fmaf(dz, q.z, fmaf(dy, q.y, dx * q.x)));
     }
   }
   if (d < D) out[static_cast<size_t>(b) * D + d] = n > 0 ? r : 0.f;

@@ -15,7 +15,7 @@ Radius sampling, the step between surface points and the fit, lives in
 ops/radius.py (the CUDA kernel and its plain version).
 
 Float32 products on the card stay full float32: TF32 is switched off before
-any product runs on a CUDA device (``_full_fp32``).
+any product runs on a CUDA device (``utils.precision.full_fp32``).
 """
 
 from __future__ import annotations
@@ -27,11 +27,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-
-def _full_fp32(device: torch.device) -> None:
-    """TF32 keeps ~3 decimal digits; the fit and its Pearson r need float32."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+from ..utils.precision import full_fp32
 
 
 def fibonacci_sphere(num_samples: int = 2000, dtype=torch.float64,
@@ -106,7 +102,7 @@ def real_sh_basis(theta: torch.Tensor, phi: torch.Tensor,
 @functools.lru_cache(maxsize=8)
 def _cached_basis(max_l: int, num_samples: int, dtype: torch.dtype,
                   device: torch.device):
-    _full_fp32(device)
+    full_fp32(device)
     directions, theta, phi = fibonacci_sphere(num_samples, dtype=dtype,
                                               device=device)
     A = real_sh_basis(theta, phi, max_l).to(dtype)
@@ -150,7 +146,7 @@ def sh_fit_batch(radii: torch.Tensor, basis: torch.Tensor, chol_c: torch.Tensor,
     reconstruction (B, D) and its Pearson r vs the input (reference
     computes these at :190-223, :433-434).
     """
-    _full_fp32(radii.device)
+    full_fp32(radii.device)
     Atb = basis.T @ radii.T                                          # (K, B)
     coeffs = torch.cholesky_solve(Atb, chol_c, upper=True).T         # (B, K)
 

@@ -5,11 +5,13 @@ first-class here because the headline metric is full-cohort wall-clock).
   into a process-global report (and the log).
 - ``trace(dir, device)``: optional ``torch.profiler`` trace around a region,
   written as a Chrome trace (view in Perfetto or chrome://tracing).
+- ``device_ms(fn)``: the card's time per call of ``fn``, from CUDA events.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -42,6 +44,30 @@ def report() -> Dict[str, float]:
 
 def reset() -> None:
     _STAGES.clear()
+
+
+def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
+    """Median over ``reps`` of the device time per call of ``inner``
+    back-to-back calls of ``fn`` between two CUDA events.  A sleep kernel
+    queued first lets the host enqueue all the calls (and their output
+    allocations) before the device reaches them, so the host's launch cost
+    does not enter the time.  The first call is a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
 
 
 @contextlib.contextmanager
