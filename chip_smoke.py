@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--skip-vae]
 
 Phases; any failure exits non-zero before the result line is printed:
 
-1. environment: torch/CUDA versions, the card's name and power limit, and a
+1. environment: torch/CUDA versions, the card's name and power limit, a
    build of every kernel from the sources in this checkout (one ``nvcc``
-   per source, all started together; timed);
+   per source, all started together; timed), and one ``[sass]`` line per
+   kernel function: the instructions of its hot loop by class, per
+   element-step or per point-direction pair, counted in the machine code;
 2. every kernel against its plain PyTorch version on the card:
-   - radius, float32, at the test shapes, the full-scale shape (B=104,
-     D=2000, N=2000) and two NaN cases (a counted NaN point gives NaN, a
-     NaN pad row changes nothing);
-   - resident Adam, bf16, at ragged totals (not multiples of 8) and
-     K in {0, 1, 3, 30}: bit-equal in p, m and v (the two round at the
-     same places);
+   - radius, float32, at the test shapes, at N, counts and D on and beside
+     the kernel's chunk and tile edges, the full-scale shape (B=104,
+     D=2000, N=2000), two NaN cases (a counted NaN point gives NaN, a
+     NaN pad row changes nothing), and the same bits on repeated calls;
+   - resident Adam, bf16, in the IEEE and the fast-math form, at ragged
+     totals (not multiples of 8), at zero, subnormal, huge, infinite and
+     NaN values and from the probe's m = v = 0, K in {0, 1, 3, 30}:
+     bit-equal in p, m and v (the two round at the same places);
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
       cohort (26 TBI/PTE subjects x 4 timepoints, 48^3 volumes, 2000
       directions, L=6); its CSV checked and held against a CPU float32 run;
    b. the optimizer probe (``benchmarks/opt_probe.py``) at its full size,
-      T=64 members x P=2,867,200 bf16 parameters, K in {1, 10, 30}: the
-      kernel's whole output bit-equal to the plain loop's, and both timed;
+      T=64 members x P=2,867,200 bf16 parameters, K in {1, 10, 30}, in both
+      forms: the kernel's whole output bit-equal to the plain loop's, and
+      both timed;
    c. the ``vae`` CLI stage on ``cuda`` at full width (seq 100, 13 + 3
       channels, latent 10, batch 64, 40 epochs) over a full-scale profiles
       cohort for one tract (37 subjects x 4 timepoints, 925 rows each); the
@@ -33,14 +38,17 @@ Phases; any failure exits non-zero before the result line is printed:
       CPU float32 ``score_subjects``;
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
-   line (the resident kernel per K).
+   line (the resident kernel per K and form, with the nominal bound and
+   the bound that counts the instructions the card must issue).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,6 +58,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lesionvae_tpu_torch.io.synth import generate_cohort
 from lesionvae_tpu_torch.utils.profiling import device_ms
 
 # NVIDIA H100 SXM data sheet, dense: FP32 outside the tensor cores, HBM3.
@@ -83,6 +92,46 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------- machine code
+# per kernel: the instruction that occurs once per unit of work in its hot
+# loop, and what that unit is
+SASS_UNITS = {"radius": (r"^FMNMX", "pair"),
+              "resident_adam": (r"^MUFU\.RSQ", "element-step")}
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and template arguments out of its mangled symbol;
+    the resident kernel's one argument is its form."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    if m.group(1) == "resident_adam_kernel" and args in (["0"], ["1"]):
+        args = ["fastmath" if args == ["1"] else "ieee"]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_lines() -> None:
+    """One ``[sass]`` line per kernel function: the instructions of its hot
+    loop (the K-step body of resident Adam, the point loop of radius) by
+    class, per element-step or per pair, counted in the machine code that
+    ``cuobjdump -sass`` shows.  The count is static: a slow path that sits
+    inside the loop counts whether or not it is taken."""
+    from lesionvae_tpu_torch.ops import cuda_build
+
+    for name, (unit, what) in SASS_UNITS.items():
+        loops = cuda_build.inner_loops(cuda_build.sass(name), unit)
+        if not any(f["units"] for f in loops.values()):
+            fail(f"no {unit} instruction in the machine code of {name}")
+        for fn, f in loops.items():
+            if not f["units"]:
+                continue
+            print(f"[sass] {name}:{short_name(fn)} per {what} ({'loop' if f['loop'] else 'whole function'}"
+                  f" of {f['instructions']} instructions, {f['units']} {what}s): "
+                  + json.dumps({k: round(v, 3) for k, v in f["per_unit"].items()})
+                  + " opcodes " + json.dumps(f["opcodes"]))
+
+
 # ---------------------------------------------------------------- radius kernel
 def radius_case(D: int, N: int, B: int, seed: int):
     """Float32 inputs on the card: surfaces, counts in [0, N] covering 0,
@@ -96,6 +145,9 @@ def radius_case(D: int, N: int, B: int, seed: int):
         counts[1] = 0
     if B > 2:
         counts[2] = max(N // 2, 1)
+    if B > 4:       # a count on a chunk edge of the kernel and one beyond it
+        from lesionvae_tpu_torch.ops.radius import CHUNK
+        counts[3], counts[4] = min(CHUNK, N), min(CHUNK + 1, N)
     dev = torch.device("cuda")
     return (torch.from_numpy(g.normal(size=(B, N, 3)).astype(np.float32)).to(dev),
             torch.from_numpy(counts).to(dev),
@@ -117,6 +169,19 @@ def radius_error(inputs) -> float:
              f"B,N,D={tuple(inputs[0].shape[:2]) + (inputs[3].shape[0],)}: "
              f"max err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def radius_same_bits(inputs) -> None:
+    """The chunks' partial maxima are merged with atomics in whatever order
+    the blocks arrive; max is exact, so every call must give the same bits."""
+    from lesionvae_tpu_torch.ops import radius
+
+    first = radius.sample_radii(*inputs)
+    for _ in range(5):
+        if not torch.equal(radius.sample_radii(*inputs), first):
+            fail("radius: two calls on the same inputs gave different bits")
+    print("[kernels] radius: 6 calls on the same inputs (B=104, D=2000, N=2000) "
+          "gave the same bits")
 
 
 def radius_nan_check() -> None:
@@ -167,49 +232,83 @@ def resident_case(n: int, seed: int):
         np.abs(g.normal(size=n)) * 1e-6))
 
 
+def resident_special_case(n: int = 4099):
+    """bf16 (p, m, v) holding what the in-range quotient and root of the IEEE
+    form do not take, scattered among ordinary values so that some threads
+    hold one special element and others none: v = 0 (with m = 0: the probe's
+    own starting state), a subnormal v, a huge v, inf and NaN in p, an
+    infinite m, and a p for which the gradient cancels to zero."""
+    p, m, v = (t.float() for t in resident_case(n, seed=77))
+    v[0::13] = 0.0
+    m[0::13] = 0.0
+    v[3::29] = 1e-39                # subnormal in float32 and in bf16
+    v[5::31] = 3e38
+    p[7::37] = float("inf")
+    p[11::41] = float("nan")
+    m[17::43] = float("-inf")
+    p[19::47] = -1.0 / 0.999 * 1e-3   # GA*p + c ~ 0: m' and v' tiny or zero
+    v[23::53] = 1e-30               # below 2^-63, above the subnormals
+    return tuple(t.to(torch.bfloat16) for t in (p, m, v))
+
+
 def resident_errors() -> dict:
-    """The kernel against its plain version at every (total, K): the two
-    round at the same places, so every element of p, m and v must be equal.
-    The JAX probe's rtol/atol is printed beside, as the probe checks."""
+    """The kernel against its plain version at every (total, K), in both
+    forms, and at the special values.  Both forms round at the same places
+    as the plain loop, and the fast-math form's rsqrt is the card's
+    special-function unit in the kernel as in ``torch.rsqrt``, so every
+    element of p, m and v must be equal (two NaNs are equal).  The JAX
+    probe's rtol/atol is printed beside, as the probe checks."""
     from lesionvae_tpu_torch.benchmarks import opt_probe
     from lesionvae_tpu_torch.ops import resident_adam as ra
 
     worst = {"max_abs_err": 0.0, "share_differing": 0.0}
-    for i, n in enumerate(RESIDENT_TOTALS):
-        p, m, v = resident_case(n, seed=i)
-        for k in RESIDENT_KS:
-            agree = opt_probe.compare(ra.resident_adam(p, m, v, k, opt_probe.GC),
-                                      ra.resident_adam_plain(p, m, v, k, opt_probe.GC))
-            if agree["share_differing"] != 0:
-                fail(f"resident Adam kernel differs from its plain version at "
-                     f"n={n} K={k} in a share {agree['share_differing']:.3e} of "
-                     f"elements: max abs err {agree['max_abs_err']:.3e}")
-            for key in worst:
-                worst[key] = max(worst[key], agree[key])
-    print(f"[kernels] resident Adam vs plain at totals {RESIDENT_TOTALS} x K "
-          f"{RESIDENT_KS}: bit-equal in p, m and v (max abs err "
-          f"{worst['max_abs_err']:.3e}; also within the probe's rtol="
-          f"{opt_probe.RTOL}, atol={opt_probe.ATOL})")
+    cases = [(f"n={n}", resident_case(n, seed=i))
+             for i, n in enumerate(RESIDENT_TOTALS)]
+    cases += [("special values n=4099", resident_special_case(4099)),
+              ("special values n=8", resident_special_case(8)),
+              ("probe start n=4099", (resident_case(4099, seed=5)[0],
+                                      torch.zeros(4099, dtype=torch.bfloat16, device="cuda"),
+                                      torch.zeros(4099, dtype=torch.bfloat16, device="cuda")))]
+    for form in ra.FORMS:
+        for label, (p, m, v) in cases:
+            for k in RESIDENT_KS:
+                agree = opt_probe.compare(
+                    ra.resident_adam(p, m, v, k, opt_probe.GC, form),
+                    ra.resident_adam_plain(p, m, v, k, opt_probe.GC, form))
+                if agree["share_differing"] != 0:
+                    fail(f"resident Adam kernel ({form}) differs from its plain "
+                         f"version at {label} K={k} in a share "
+                         f"{agree['share_differing']:.3e} of elements: max abs err "
+                         f"{agree['max_abs_err']:.3e}, {agree['max_ulps']:.2f} bf16 ulps")
+                for key in worst:
+                    worst[key] = max(worst[key], agree[key])
+    print(f"[kernels] resident Adam vs plain, forms {list(ra.FORMS)}, at totals "
+          f"{RESIDENT_TOTALS}, at zero, subnormal, huge, infinite and NaN values "
+          f"and from m = v = 0, x K {RESIDENT_KS}: bit-equal in p, m and v (NaN = "
+          f"NaN; max abs err {worst['max_abs_err']:.3e}; also within the probe's "
+          f"rtol={opt_probe.RTOL}, atol={opt_probe.ATOL})")
     return worst
 
 
 def check_probe():
-    """The probe path at full size; returns its per-K results."""
+    """The probe path at full size, in both forms; returns its per-K
+    results (IEEE first) and the kernel's launches."""
     from lesionvae_tpu_torch.benchmarks import opt_probe
     from lesionvae_tpu_torch.ops import radius, resident_adam as ra
 
     radius.sample_radii.launches = ra.resident_adam.launches = 0
-    results = opt_probe.main(PROBE_KS)
+    results = opt_probe.main(PROBE_KS) + opt_probe.main(PROBE_KS, form="fastmath")
     torch.cuda.synchronize()
     launches = ra.resident_adam.launches
     if launches < 1 or sum(r["launches"] for r in results) != launches:
         fail(f"the probe path launched the resident kernel {launches} times")
     for r in results:
         if r["share_differing"] != 0:
-            fail(f"probe at K={r['k']}: the kernel differs from the plain loop "
-                 f"in a share {r['share_differing']:.3e} of elements")
-    print(f"[path] optimizer probe on cuda: resident launches {launches}; "
-          f"kernel bit-equal to the plain loop at K {PROBE_KS}")
+            fail(f"probe ({r['form']}) at K={r['k']}: the kernel differs from the "
+                 f"plain loop in a share {r['share_differing']:.3e} of elements, "
+                 f"at most {r['max_ulps']:.2f} bf16 ulps")
+    print(f"[path] optimizer probe on cuda: resident launches {launches}; kernel "
+          f"bit-equal to the plain loop at K {PROBE_KS} in both forms")
     return results, launches
 
 
@@ -470,10 +569,27 @@ def check_vae(root: Path, cfg, tract: str) -> None:
           f"float32 max rel err {score_err:.3e}")
 
 
-def main() -> int:
+def run_vae_paths(cfg) -> None:
+    with tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_") as tmp:
+        root = Path(tmp)
+        tract = cfg.tracts[0]
+        t0 = time.perf_counter()
+        generate_cohort(root, cfg, seed=SEED, volume_shape=(8,) * 3,
+                        with_profiles=True, n_streamlines=VAE_STREAMLINES,
+                        tracts=[tract])
+        print(f"[path] profiles cohort ({tract}, 37 subjects x 4 timepoints) "
+              f"written in {time.perf_counter() - t0:.1f}s")
+        check_vae(root, cfg, tract)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--skip-vae", action="store_true",
+                    help="leave out the vae and score paths (a shorter run "
+                         "while working on a kernel; not the full check)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    from lesionvae_tpu_torch.io.synth import generate_cohort
     from lesionvae_tpu_torch.core.config import load_config
     from lesionvae_tpu_torch.ops import cuda_build, radius
 
@@ -486,13 +602,20 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda_build.build(["radius", "resident_adam"])
     print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
+    sass_lines()
 
     # 2. kernels against their plain versions
     shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
               for B in (1, 3, 13)] + [(2000, 2000, 104)]
+    # N and counts on and beside the kernel's chunk of points, D on and beside
+    # its tile of directions
+    chunk = radius.CHUNK
+    shapes += [(D, N, 5) for D in (1023, 1024, 1025)
+               for N in (chunk - 1, chunk, chunk + 1, 2 * chunk, 3 * chunk + 7)]
     errs = [radius_error(radius_case(D, N, B, seed=i))
             for i, (D, N, B) in enumerate(shapes)]
     full = radius_case(2000, 2000, 104, seed=1234)
+    radius_same_bits(full)
     full_ms = device_ms(lambda: radius.sample_radii(*full))
     full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
     full_bound, full_by = radius_bound_ms(full)
@@ -515,16 +638,10 @@ def main() -> int:
         print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
         launches, path_inputs = check_path(root)
     probe, probe_launches = check_probe()
-    with tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_") as tmp:
-        root = Path(tmp)
-        tract = cfg.tracts[0]
-        t0 = time.perf_counter()
-        generate_cohort(root, cfg, seed=SEED, volume_shape=(8,) * 3,
-                        with_profiles=True, n_streamlines=VAE_STREAMLINES,
-                        tracts=[tract])
-        print(f"[path] profiles cohort ({tract}, 37 subjects x 4 timepoints) "
-              f"written in {time.perf_counter() - t0:.1f}s")
-        check_vae(root, cfg, tract)
+    if args.skip_vae:
+        print("[path] vae and score paths skipped (--skip-vae)")
+    else:
+        run_vae_paths(cfg)
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)
@@ -535,8 +652,9 @@ def main() -> int:
     print(f"[kernels] main-path radius inputs: B={surface.shape[0]} "
           f"N={surface.shape[1]} D={directions.shape[0]} "
           f"points={int(counts.sum())}")
-    per_k = [{key: r[key] for key in ("k", "launches", "max_abs_err",
-                                      "share_differing", "bound_ms", "bound_by")}
+    per_k = [{key: r[key] for key in ("k", "form", "launches", "max_abs_err",
+                                      "share_differing", "bound_ms", "bound_by",
+                                      "issue_bound_ms")}
              | {"ms": r["resident_ms"], "plain_ms": r["plain_ms"]} for r in probe]
     k1 = per_k[0]
     print(card)

@@ -5,6 +5,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 with ``ctypes``.  The file name carries a hash of the source, so an edited
 kernel is rebuilt and a stale library is never loaded.  Nothing here runs at
 import time: the CPU tests import every module on hosts without ``nvcc``.
+
+``sass(name)`` disassembles a built library with the toolkit's ``cuobjdump``
+and ``inner_loops(text, unit)`` counts, per kernel function, the instructions
+of its hottest loop by class: what the card issues per unit of work, read
+from the machine code where no hardware profiler is at hand.
 """
 
 from __future__ import annotations
@@ -13,10 +18,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 from ..utils.logging import get_logger
 
@@ -79,3 +85,115 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built on first use."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def sass(name: str) -> str:
+    """The machine code (SASS) of the library of ``csrc/<name>.cu``, built
+    on first use, as ``cuobjdump -sass`` prints it."""
+    build([name])
+    cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
+    return subprocess.run([cuobjdump, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+
+
+# instruction classes of a Hopper SASS listing, by opcode stem
+SASS_CLASSES = ("fp32", "mufu", "convert", "alu", "shared", "global", "control")
+_FP32 = {"FADD", "FMUL", "FFMA"}
+_SHARED = {"LDS", "STS", "LDSM", "STSM", "ATOMS"}
+_GLOBAL = {"LDG", "STG", "LD", "ST", "LDGSTS", "LDGDEPBAR", "ATOM", "ATOMG",
+           "RED", "LDL", "STL", "LDC", "ULDC"}
+_CONTROL = {"BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
+            "BREAK", "BAR", "WARPSYNC", "YIELD", "NOP", "DEPBAR", "BMOV", "KILL",
+            "NANOSLEEP", "ERRBAR", "MEMBAR", "CCTL"}
+_INSTRUCTION = re.compile(
+    r"^\s*/\*([0-9a-fA-F]{4,})\*/\s+\{?\s*(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_]*)"
+    r"((?:\.[A-Za-z0-9_]+)*)\s*([^;]*);")
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+
+
+def sass_class(opcode: str) -> str:
+    """The class of one opcode stem (``FFMA``, ``MUFU``, ``F2FP``, ...):
+    fp32 = FADD/FMUL/FFMA, mufu = the special-function unit, convert =
+    F2F*/F2FP*/I2F*/F2I*, shared and global = loads, stores and atomics,
+    control = branches, calls, barriers; alu = every other instruction
+    (integer, logic, moves, FMNMX, FCHK, FSETP, ...)."""
+    if opcode in _FP32:
+        return "fp32"
+    if opcode == "MUFU":
+        return "mufu"
+    if opcode.startswith(("F2F", "I2F", "F2I", "I2I", "FRND")):
+        return "convert"
+    if opcode in _SHARED:
+        return "shared"
+    if opcode in _GLOBAL:
+        return "global"
+    if opcode in _CONTROL:
+        return "control"
+    return "alu"
+
+
+def sass_functions(text: str) -> Dict[str, List[tuple]]:
+    """``cuobjdump -sass`` text -> {function: [(address, opcode stem, full
+    opcode with modifiers, operands), ...]} in listing order."""
+    functions: Dict[str, List[tuple]] = {}
+    current = None
+    for line in text.splitlines():
+        f = _FUNCTION.match(line)
+        if f:
+            current = functions.setdefault(f.group(1), [])
+            continue
+        m = _INSTRUCTION.match(line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2),
+                            m.group(2) + m.group(3), m.group(4).strip()))
+    return functions
+
+
+def inner_loops(text: str, unit: str) -> Dict[str, dict]:
+    """Per kernel function of a SASS listing, the instruction counts of its
+    hottest loop.  ``unit`` is a regular expression on the full opcode
+    (``MUFU\\.RSQ``, ``FMNMX``) of the instruction that occurs once per unit
+    of work (an element-step, a point-direction pair).  A loop is the span
+    from a backward branch's target to the branch; the hottest is the
+    innermost loop (one that holds no other) with the most units, or the
+    whole function when no loop holds one.  Returns {function: {"units",
+    "instructions", "per_unit": {class: count / units, "total": ...},
+    "counts": {class: count}, "opcodes": {full opcode: count}, "span":
+    [first address, last address], "loop": bool}}."""
+    unit_re = re.compile(unit)
+    out = {}
+    for name, code in sass_functions(text).items():
+        spans = []
+        for addr, op, _full, operands in code:
+            target = re.findall(r"0x[0-9a-fA-F]+", operands)
+            if op == "BRA" and target and int(target[-1], 16) <= addr:
+                spans.append((int(target[-1], 16), addr))
+        innermost = [s for s in spans
+                     if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
+                                for o in spans)]
+
+        def body(span):
+            return [i for i in code if span[0] <= i[0] <= span[1]]
+
+        def units(instructions):
+            return sum(1 for i in instructions if unit_re.search(i[2]))
+
+        best = max(innermost, key=lambda s: units(body(s)), default=None)
+        loop = best is not None and units(body(best)) > 0
+        instructions = body(best) if loop else code
+        n = units(instructions)
+        counts = {c: 0 for c in SASS_CLASSES}
+        opcodes: Dict[str, int] = {}
+        for _addr, op, full, _operands in instructions:
+            counts[sass_class(op)] += 1
+            opcodes[full] = opcodes.get(full, 0) + 1
+        per_unit = {c: v / n for c, v in counts.items()} if n else {}
+        if n:
+            per_unit["total"] = len(instructions) / n
+        out[name] = {"units": n, "instructions": len(instructions),
+                     "per_unit": per_unit, "counts": counts,
+                     "opcodes": dict(sorted(opcodes.items())),
+                     "span": [instructions[0][0], instructions[-1][0]]
+                     if instructions else [0, 0], "loop": loop}
+    return out

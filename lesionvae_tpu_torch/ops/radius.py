@@ -6,8 +6,9 @@
 hand-written Hopper kernel ``csrc/radius.cu`` (which replaces
 ``lesionvae_tpu/ops/pallas_radius.py::_radius_kernel``) and raises on inputs
 the kernel does not take; on a CPU tensor it computes ``sample_radii_plain``.
-There is no other route.  The kernel is bound by FP32 FMA work (K = 3 per
-point-direction pair), not by bytes: see the note at the top of the source.
+There is no other route.  The kernel is bound by the instructions it issues
+(a multiply, two FMAs and a max per point-direction pair), not by bytes: see
+the note at the top of the source.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ import torch
 
 from .cuda_build import load
 
-# CUDA's limit on gridDim.y, which carries the lesion index
+# CUDA's limit on gridDim.y and gridDim.z, which carry a lesion's chunks of
+# CHUNK points (csrc/radius.cu) and the lesion index
 _MAX_BATCH = 65535
+CHUNK = 64
+_MAX_POINTS = 65535 * CHUNK
 
 
 def sample_radii_plain(surface: torch.Tensor, counts: torch.Tensor,
@@ -67,6 +71,9 @@ def _check(surface, counts, centroids, directions) -> None:
             f"{tuple(directions.shape)}")
     if B > _MAX_BATCH:
         raise ValueError(f"radius kernel takes at most {_MAX_BATCH} lesions, got {B}")
+    if surface.shape[1] > _MAX_POINTS:
+        raise ValueError(f"radius kernel takes at most {_MAX_POINTS} points a "
+                         f"lesion, got {surface.shape[1]}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -60,6 +60,49 @@ def test_wrapper_matches_pallas_interpret_f32(D, N, B):
     assert radius.sample_radii.launches == 0
 
 
+CHUNK = radius.CHUNK
+# N around the kernel's chunk of points: below, on and above one and two
+# chunks, none a multiple of it but 256 and 512
+CHUNK_NS = [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK - 1, 2 * CHUNK, 2 * CHUNK + 3, 777]
+
+
+@pytest.mark.parametrize("N", CHUNK_NS)
+def test_wrapper_matches_jax_at_chunk_edges(N):
+    """Counts exactly on a chunk edge, one either side of it, 0, 1 and N,
+    with N itself on and off the chunk, through ``sample_radii`` on the CPU
+    against the JAX ``sample_radii`` in float64."""
+    D = 300
+    edge = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK, N - 1, N]
+    counts = np.asarray(sorted({min(c, N) for c in edge}), np.int32)
+    B = len(counts)
+    rng = np.random.default_rng(N)
+    pts = rng.normal(size=(B, N, 3))
+    cens = rng.normal(scale=0.3, size=(B, 3))
+    dirs = np.asarray(jsh.fibonacci_sphere(D, dtype=jnp.float64)[0])
+    want = np.asarray(jsh.sample_radii(jnp.asarray(pts), jnp.asarray(counts),
+                                       jnp.asarray(cens), jnp.asarray(dirs)))
+    got = radius.sample_radii(*_torch(pts, counts, cens, dirs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert (got[counts == 0] == 0).all()
+    # a point just past a count on the chunk edge never enters the maximum
+    far = pts.copy()
+    for b, c in enumerate(counts):
+        if c < N:
+            far[b, c] = 1e6
+    again = radius.sample_radii(*_torch(far, counts, cens, dirs)).numpy()
+    np.testing.assert_array_equal(again, got)
+
+
+def test_kernel_limits_are_checked_before_launch():
+    """More points a lesion than the grid can carry in chunks is refused."""
+    assert radius._MAX_POINTS == 65535 * radius.CHUNK
+    big = torch.empty((1, radius._MAX_POINTS + 1, 3), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="points"):
+        radius._check(big, torch.empty(1, dtype=torch.int32, device="meta"),
+                      torch.empty((1, 3), dtype=torch.float32, device="meta"),
+                      torch.empty((4, 3), dtype=torch.float32, device="meta"))
+
+
 def test_cuda_wrapper_rejects_wrong_inputs_before_launch():
     """The kernel route validates device, dtype, shape and contiguity
     itself; nothing here reaches a card."""
