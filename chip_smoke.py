@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--skip-vae]
+    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3c and 3d)
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -9,7 +9,9 @@ Phases; any failure exits non-zero before the result line is printed:
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together; timed), and one ``[sass]`` line per
    kernel function: the instructions of its hot loop by class, per
-   element-step or per point-direction pair, counted in the machine code;
+   element-step or per point-direction pair, counted in the machine code.
+   Worker processes write the profiles cohort of 3c and 3d meanwhile (host
+   work only) and have ended before the first timed call and the first path;
 2. every kernel against its plain PyTorch version on the card:
    - radius, float32, at the test shapes, at N, counts and D on and beside
      the kernel's chunk and tile edges, the full-scale shape (B=104,
@@ -19,6 +21,13 @@ Phases; any failure exits non-zero before the result line is printed:
      totals (not multiples of 8), at zero, subnormal, huge, infinite and
      NaN values and from the probe's m = v = 0, K in {0, 1, 3, 30}:
      bit-equal in p, m and v (the two round at the same places);
+   - stochastic-rounding Adam (the fleet's bf16-storage optimizer pass),
+     at ragged row lengths, T in {1, 3, 64}, a member that skips, gradient
+     norms above and below the clip, values that saturate at bf16-max, inf
+     and NaN gradients, zero moments, step counts 1 and large: bit-equal in
+     p, m and v (float32 IEEE in the same order, integer rounding); and
+     again, in phase 4, at the cohort path's shape (64 members x the weight
+     elements of a full-width member, the model's own index table);
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -29,13 +38,23 @@ Phases; any failure exits non-zero before the result line is printed:
       forms: the kernel's whole output bit-equal to the plain loop's, and
       both timed;
    c. the ``vae`` CLI stage on ``cuda`` at full width (seq 100, 13 + 3
-      channels, latent 10, batch 64, 40 epochs) over a full-scale profiles
-      cohort for one tract (37 subjects x 4 timepoints, 925 rows each); the
+      channels, latent 10, batch 64; 10 epochs, a quarter of the config's
+      depth) over the first tract of the full-scale profiles cohort (37
+      subjects x 4 timepoints, 925 rows each); the
       eval forward, z-scores and a 2-epoch training run held against the CPU
       in float32, and the same three again with TF32 on as a control that
       must exceed every one of those bounds; then the
       ``score`` CLI stage on ``cuda`` serving a saved model, held against a
       CPU float32 ``score_subjects``;
+   d. the cohort fleet at full width: a profiles cohort for the 16 geometry
+      tracts (37 subjects x 4 timepoints, 925 rows a member), the
+      ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
+      trained as one program, 40 epochs = 600 fleet steps, each one launch
+      of the stochastic-rounding Adam kernel) and ``score-cohort`` over the
+      saved members; then, at full width and small depth, the float32 fleet
+      held against the CPU (normalization, a 1-epoch history, the normative
+      summary, serving), one member of the fleet against the same member
+      trained alone on the card, and a uint16-upload and a bf16-compute run;
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
@@ -47,7 +66,11 @@ The last line of stdout is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -74,15 +97,47 @@ PROBE_KS = [1, 10, 30]
 # the VAE path: configs/tract_config.json model_params; the cohort of
 # bench.py:66-74 (n_streamlines=100 -> 25 profile streamlines a subject)
 VAE_EPOCHS, VAE_BATCH, VAE_LATENT, VAE_SEED = 40, 64, 10, 42
+# the single-tract path runs at a quarter of the depth since the cohort path
+# (3d) joined the script; the cohort path keeps all 40 epochs
+SINGLE_EPOCHS = 10
 VAE_STREAMLINES, VAE_ROWS = 100, 925
 # cuda vs cpu float32, 2-epoch history: sound runs read 1.1e-4 (cuDNN and
 # the CPU sum convolutions in other orders and 30 Adam steps carry it), the
 # TF32 control 4.3e-4 (see tf32_control)
 HIST_TOL = 2e-4
+# the cohort path: 16 tracts x 4 timepoints, rows padded 925 -> 960
+COHORT_MEMBERS, COHORT_PAD, COHORT_STEPS = 64, 960, 40 * 15
+# a member of the float32 fleet against the same member trained alone on the
+# card, same weights and draws, 2 epochs (30 steps).  The stacked model's
+# convolutions are batched products in cuBLAS, the single model's run in
+# cuDNN, so the two sum in other orders.  Adam divides every gradient by its
+# own running size: where a gradient is of the size of its rounding error the
+# step is ±lr on either side, and BatchNorm's running statistics follow such
+# weights (a convolution's bias ahead of a BatchNorm has no gradient at all
+# but for rounding, and moves by it alone).  So single elements are not
+# held; each tensor is held, in L2, to ALONE_MOVE of the distance it moved
+# from its start (read 5.1e-2 and 4.4e-4 for the worst tensor in two runs:
+# some backward kernels sum with atomics, so runs differ), the history to
+# ALONE_TOL (read 1.8e-4 and 6.0e-8; on the CPU in float64 the two agree to
+# 1e-10), and another member of the same fleet must lie outside both (read
+# 7.8e-2 and 79)
+ALONE_TOL, ALONE_MOVE = 5e-4, 0.2
+# stochastic-rounding Adam: rows (ragged but for 4096) x members
+SR_ROWS = [1, 7, 9, 4096, 65539, 1_000_003]
+SR_MEMBERS = [1, 3, 64]
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    from lesionvae_tpu_torch.ops import radius, resident_adam, sr_adam
+
+    radius.sample_radii.launches = 0
+    resident_adam.resident_adam.launches = 0
+    sr_adam.sr_adam_step.launches = 0
 
 
 def card_line() -> str:
@@ -96,7 +151,8 @@ def card_line() -> str:
 # per kernel: the instruction that occurs once per unit of work in its hot
 # loop, and what that unit is
 SASS_UNITS = {"radius": (r"^FMNMX", "pair"),
-              "resident_adam": (r"^MUFU\.RSQ", "element-step")}
+              "resident_adam": (r"^MUFU\.RSQ", "element-step"),
+              "sr_adam": (r"^MUFU\.RSQ", "element")}
 
 
 def short_name(mangled: str) -> str:
@@ -296,7 +352,7 @@ def check_probe():
     from lesionvae_tpu_torch.benchmarks import opt_probe
     from lesionvae_tpu_torch.ops import radius, resident_adam as ra
 
-    radius.sample_radii.launches = ra.resident_adam.launches = 0
+    reset_launches()
     results = opt_probe.main(PROBE_KS) + opt_probe.main(PROBE_KS, form="fastmath")
     torch.cuda.synchronize()
     launches = ra.resident_adam.launches
@@ -310,6 +366,148 @@ def check_probe():
     print(f"[path] optimizer probe on cuda: resident launches {launches}; kernel "
           f"bit-equal to the plain loop at K {PROBE_KS} in both forms")
     return results, launches
+
+
+# ---------------------------------------------------------------- SR Adam
+def sr_case(members: int, n: int, seed: int, special: bool):
+    """Inputs of one stochastic-rounding Adam step on the card: bf16 p ~
+    0.02 N(0,1), m ~ 1e-3 N(0,1), v ~ 1e-6 |N(0,1)|, g ~ 1e-2 N(0,1) in the
+    kernel's row layout; a random index table; per member a gradient norm
+    below (0.5) or above (7) the clip of 2, a step count of 1 or 123,457, a
+    salt near 2^32, and member 1 skipping.  ``special`` scatters zero
+    moments, ±bf16-max in p, m and g together (m' then lies between bf16-max
+    and the float32 maximum, so its rounding carries into the infinity
+    pattern and must saturate), and ±inf and NaN gradients."""
+    from lesionvae_tpu_torch.ops import sr_adam
+
+    g = np.random.default_rng(seed)
+    big = sr_adam.BF16_MAX
+    rows = [g.normal(size=(members, n)) * 0.02, g.normal(size=(members, n)) * 1e-3,
+            np.abs(g.normal(size=(members, n))) * 1e-6,
+            g.normal(size=(members, n)) * 1e-2]
+    if special:
+        p, m, v, gr = rows
+        m[:, 0::13] = 0.0
+        v[:, 0::13] = 0.0
+        for x in (p, m, gr):
+            x[:, 3::29] = big
+            x[:, 5::31] = -big
+        gr[:, 7::37] = np.inf
+        gr[:, 11::41] = -np.inf
+        gr[:, 17::43] = np.nan
+    tensors = []
+    for x in rows:
+        t = sr_adam.alloc_rows(members, n, torch.bfloat16, "cuda")
+        t.copy_(torch.from_numpy(x))
+        tensors.append(t)
+    count = torch.tensor([1 if t % 2 == 0 else 123_457 for t in range(members)],
+                         dtype=torch.float32, device="cuda")
+    scalars = (
+        torch.tensor([0.5 if t % 3 else 7.0 for t in range(members)],
+                     dtype=torch.float32, device="cuda"),
+        1 - torch.pow(torch.tensor(0.9, device="cuda"), count),
+        1 - torch.pow(torch.tensor(0.999, device="cuda"), count),
+        torch.from_numpy(g.integers(2 ** 32 - 1000, 2 ** 32, size=members)).to("cuda"),
+        torch.tensor([t != 1 for t in range(members)], device="cuda"))
+    base = torch.from_numpy(g.integers(-2 ** 31, 2 ** 31, size=n).astype(np.int32)).to("cuda")
+    return tensors, base, scalars
+
+
+def sr_same_bits(got, plain, before, where: str) -> float:
+    """Fails unless p, m and v of the kernel (``got``) are the plain
+    version's bits (two NaNs count as equal) and member 1, which skips,
+    kept its bits.  Returns the largest |kernel - plain|."""
+    worst = 0.0
+    for name, g, want, old in zip("pmv", got, plain, before):
+        same = ((g.view(torch.int16) == want.view(torch.int16))
+                | (torch.isnan(g) & torch.isnan(want)))
+        if not bool(same.all()):
+            fail(f"SR Adam kernel differs from its plain version in {name} at "
+                 f"{where}: {int((~same).sum())} of {same.numel()} elements")
+        if g.shape[0] > 1 and not torch.equal(g[1].view(torch.int16),
+                                              old[1].view(torch.int16)):
+            fail(f"SR Adam kernel wrote {name} of a member that skips at {where}")
+        d = torch.nan_to_num((g.float() - want.float()).abs(), nan=0.0, posinf=0.0)
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def sr_adam_errors() -> float:
+    """The kernel against its plain version at every small case: every bf16
+    of p, m and v must be the same bits, and a skipping member must keep its
+    bits.  Returns the largest |kernel - plain|."""
+    from lesionvae_tpu_torch.ops import sr_adam
+
+    c = sr_adam.consts(2e-4, 1e-3, 2.0)
+    worst, cases = 0.0, 0
+    for members in SR_MEMBERS:
+        for i, n in enumerate(SR_ROWS):
+            if members * n > 8_000_000:
+                continue
+            for special in (False, True):
+                (p, m, v, gr), base, scalars = sr_case(members, n, 100 * members + i,
+                                                       special)
+                before = [t.clone() for t in (p, m, v)]
+                plain = [t.clone() for t in (p, m, v)]
+                sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c)
+                sr_adam.sr_adam_step_plain(*plain, gr, base, *scalars, c)
+                torch.cuda.synchronize()
+                worst = max(worst, sr_same_bits(
+                    (p, m, v), plain, before, f"T={members} n={n} special={special}"))
+                # member 2 is below the clip: at elements 3 and 5 its m'
+                # lies above bf16-max and must come back as ±bf16-max
+                if (special and members > 2 and n > 5
+                        and m[2, [3, 5]].float().tolist()
+                        != [sr_adam.BF16_MAX, -sr_adam.BF16_MAX]):
+                    fail(f"SR Adam: m' above bf16-max did not saturate: "
+                         f"{m[2, [3, 5]].float().tolist()}")
+                cases += 1
+    print(f"[kernels] SR Adam vs plain at T {SR_MEMBERS} x rows {SR_ROWS}, plain and "
+          f"with zero moments, ±bf16-max, ±inf and NaN gradients; norms above and "
+          f"below the clip, counts 1 and 123457, one member skipping ({cases} "
+          f"cases): bit-equal in p, m and v; max abs err {worst:.3e}")
+    return worst
+
+
+def sr_adam_at_path_shape(members: int, lay) -> dict:
+    """The kernel at the cohort path's shape, ``members`` rows of the weight
+    elements of one full-width member with the model's own index table:
+    first held against its plain version bit for bit in p, m and v, with the
+    special values and without (norms above and below the clip, counts 1 and
+    123457, one member skipping), then both timed on the ordinary values,
+    beside the bounds of ``ops.sr_adam.bound_ms``."""
+    from lesionvae_tpu_torch.ops import sr_adam
+    from lesionvae_tpu_torch.train.lowmem import sr_index_table
+
+    n = lay.n_weights
+    c = sr_adam.consts(2e-4, 1e-3, 2.0)
+    base = sr_index_table(lay).to("cuda")
+    worst = 0.0
+    # the special values last but one: the timed calls below go on from the
+    # ordinary case (infinities and NaNs take the quotient's slow paths)
+    for special in (True, False):
+        (p, m, v, gr), _random_table, scalars = sr_case(members, n, 7, special)
+        before = [t.clone() for t in (p, m, v)]
+        plain = [t.clone() for t in (p, m, v)]
+        sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c)
+        sr_adam.sr_adam_step_plain(*plain, gr, base, *scalars, c)
+        torch.cuda.synchronize()
+        worst = max(worst, sr_same_bits(
+            (p, m, v), plain, before,
+            f"the cohort path's shape T={members} n={n} special={special}"))
+        del before, plain
+    print(f"[kernels] SR Adam vs plain at the cohort path's shape, T={members} x "
+          f"n={n} (row stride {p.stride(0)}) with the model's index table, plain "
+          f"and special values: bit-equal in p, m and v; max abs err {worst:.3e}")
+    scalars = scalars[:4] + (torch.ones(members, dtype=torch.bool, device="cuda"),)
+    ms = device_ms(lambda: sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c))
+    plain_ms = device_ms(lambda: sr_adam.sr_adam_step_plain(p, m, v, gr, base,
+                                                            *scalars, c),
+                         reps=3, inner=2)
+    bound, by, issue = sr_adam.bound_ms(members * n)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "issue_bound_ms": issue, "members": members, "row": n,
+            "max_abs_err": worst}
 
 
 # ---------------------------------------------------------------- the path
@@ -358,7 +556,7 @@ def check_path(root: Path):
     from lesionvae_tpu_torch.utils import profiling
 
     profiling.reset()
-    radius.sample_radii.launches = ra.resident_adam.launches = 0
+    reset_launches()
     rc = cli.main(["lesion", "--base-path", str(root), "--seed", str(SEED),
                    "--num-samples", str(NUM_SAMPLES), "--max-l", str(MAX_L),
                    "--device", "cuda"])
@@ -474,9 +672,9 @@ def check_vae(root: Path, cfg, tract: str) -> None:
     common = ["--config", str(cfg_path), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
     profiling.reset()
-    radius.sample_radii.launches = ra.resident_adam.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
-    rc = cli.main(["vae", "--tract", tract, "--epochs", str(VAE_EPOCHS),
+    rc = cli.main(["vae", "--tract", tract, "--epochs", str(SINGLE_EPOCHS),
                    "--batch-size", str(VAE_BATCH), "--latent-dim",
                    str(VAE_LATENT), "--no-plots", *common])
     torch.cuda.synchronize()
@@ -489,7 +687,7 @@ def check_vae(root: Path, cfg, tract: str) -> None:
             "lesion_burden", "norm_mean", "norm_std"]
     for tp in cfg.timepoints:
         hist = pd.read_csv(out / f"training_history_{tp}.csv")
-        if (len(hist) != VAE_EPOCHS or not np.isfinite(hist.to_numpy()).all()
+        if (len(hist) != SINGLE_EPOCHS or not np.isfinite(hist.to_numpy()).all()
                 or not hist["loss"].iloc[-1] < hist["loss"].iloc[0]):
             fail(f"training_history_{tp}.csv: {len(hist)} rows, loss "
                  f"{hist['loss'].iloc[0]:.4f} -> {hist['loss'].iloc[-1]:.4f}")
@@ -497,9 +695,9 @@ def check_vae(root: Path, cfg, tract: str) -> None:
         if (z.files != keys or z["Z"].shape != (VAE_ROWS, 100, 13)
                 or not np.isfinite(z["Z"]).all()):
             fail(f"zscores_{tp}.npz: keys {z.files}, Z {z['Z'].shape}")
-    steps = len(cfg.timepoints) * VAE_EPOCHS * -(-VAE_ROWS // VAE_BATCH)
+    steps = len(cfg.timepoints) * SINGLE_EPOCHS * -(-VAE_ROWS // VAE_BATCH)
     print(f"[path] vae stage on cuda: {len(cfg.timepoints)} timepoints x "
-          f"{VAE_ROWS} rows, {VAE_EPOCHS} epochs, {steps} train steps in "
+          f"{VAE_ROWS} rows, {SINGLE_EPOCHS} epochs, {steps} train steps in "
           f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
           f"stage {wall:.2f}s; kernel launches radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}")
@@ -514,7 +712,7 @@ def check_vae(root: Path, cfg, tract: str) -> None:
         cfg.lesion_features, groups)
     stats = vdata.fit_normalization_stats(Xm, Xl, cfg.microstructure_features)
     Xz, Xl = vdata.apply_normalization(Xm, Xl, stats)
-    model, _ = train_lesion_vae(Xz, Xl, latent_dim=VAE_LATENT, epochs=VAE_EPOCHS,
+    model, _ = train_lesion_vae(Xz, Xl, latent_dim=VAE_LATENT, epochs=SINGLE_EPOCHS,
                                 batch_size=VAE_BATCH, seed=VAE_SEED, device="cuda")
     save_vae(root / "ckpt", model, stats)
     cpu_model, _ = load_vae(root / "ckpt", device="cpu")
@@ -569,17 +767,239 @@ def check_vae(root: Path, cfg, tract: str) -> None:
           f"float32 max rel err {score_err:.3e}")
 
 
-def run_vae_paths(cfg) -> None:
-    with tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_") as tmp:
-        root = Path(tmp)
-        tract = cfg.tracts[0]
-        t0 = time.perf_counter()
-        generate_cohort(root, cfg, seed=SEED, volume_shape=(8,) * 3,
-                        with_profiles=True, n_streamlines=VAE_STREAMLINES,
-                        tracts=[tract])
-        print(f"[path] profiles cohort ({tract}, 37 subjects x 4 timepoints) "
-              f"written in {time.perf_counter() - t0:.1f}s")
-        check_vae(root, cfg, tract)
+# ---------------------------------------------------------------- the cohort fleet
+COHORT_NPZ_KEYS = ["magnitude", "subj_ids", "group_labels", "norm_mean",
+                   "norm_std", "subj_profile", "subj_order"]
+
+
+def check_cohort_cli(root: Path, cfg, common) -> int:
+    """``vae-cohort`` (bf16 storage, 64 members, 40 epochs) then
+    ``score-cohort`` through the CLI on cuda; returns the SR Adam kernel's
+    launches on that path."""
+    import pandas as pd
+
+    from lesionvae_tpu_torch import cli
+    from lesionvae_tpu_torch.ops import radius, resident_adam as ra, sr_adam
+    from lesionvae_tpu_torch.utils import profiling
+
+    profiling.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["vae-cohort", "--store", "bf16", "--dtype", "f32",
+                   "--save-checkpoints", "--epochs", str(VAE_EPOCHS),
+                   "--batch-size", str(VAE_BATCH), "--latent-dim",
+                   str(VAE_LATENT), *common])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sr_adam.sr_adam_step.launches
+    spans = profiling.report()
+    if rc != 0:
+        fail(f"vae-cohort stage exited {rc}")
+    if launches != COHORT_STEPS:
+        fail(f"vae-cohort with bf16 storage launched the SR Adam kernel {launches} "
+             f"times in {COHORT_STEPS} fleet steps")
+    out = root / "results" / "vae_cohort"
+    members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
+    for tract, tp in members:
+        hist = pd.read_csv(out / f"training_history_{tract}_{tp}.csv")
+        if (len(hist) != VAE_EPOCHS or not np.isfinite(hist.to_numpy()).all()
+                or not hist["loss"].iloc[-1] < hist["loss"].iloc[0]):
+            fail(f"training_history_{tract}_{tp}.csv: {len(hist)} rows, loss "
+                 f"{hist['loss'].iloc[0]:.4f} -> {hist['loss'].iloc[-1]:.4f}")
+        z = np.load(out / f"zscores_{tract}_{tp}.npz", allow_pickle=True)
+        if (z.files != COHORT_NPZ_KEYS or z["magnitude"].shape != (VAE_ROWS,)
+                or z["subj_profile"].shape != (37, 100)
+                or not np.isfinite(z["magnitude"]).all()
+                or not np.isfinite(z["subj_profile"]).all()):
+            fail(f"zscores_{tract}_{tp}.npz: keys {z.files}, magnitude "
+                 f"{z['magnitude'].shape}, profile {z['subj_profile'].shape}")
+        if not (out / "checkpoints" / f"{tract}_{tp}" / "state.pt").exists():
+            fail(f"no checkpoint for {tract}_{tp}")
+    print(f"[path] vae-cohort stage on cuda, bf16 storage: {len(members)} members x "
+          f"{VAE_ROWS} rows (padded {COHORT_PAD}), {VAE_EPOCHS} epochs, "
+          f"{COHORT_STEPS} fleet steps in {spans['vae_cohort.train']:.2f}s "
+          f"({COHORT_STEPS / spans['vae_cohort.train']:.2f} fleet steps/s, upload, "
+          f"normalization and summary included); stage {wall:.2f}s; kernel "
+          f"launches sr_adam {launches}, radius {radius.sample_radii.launches}, "
+          f"resident {ra.resident_adam.launches}")
+    print("[path] vae-cohort spans on cuda (s): " + json.dumps(spans))
+
+    profiling.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["score-cohort", *common])
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"score-cohort stage exited {rc}")
+    served = pd.read_csv(root / "results" / "serving" / "cohort_scores.csv")
+    cols = ["tract", "timepoint", "subject_id", "group", "mean", "std", "max", "count"]
+    if (list(served.columns) != cols or len(served) != len(members) * 37
+            or not np.isfinite(served[["mean", "std", "max"]].to_numpy()).all()
+            or served.groupby(["tract", "timepoint"]).ngroups != len(members)):
+        fail(f"cohort_scores.csv: {len(served)} rows, columns {list(served.columns)}")
+    print(f"[path] score-cohort stage on cuda: {len(served)} rows = {len(members)} "
+          f"members x 37 subjects in {time.perf_counter() - t0:.2f}s")
+    return launches
+
+
+def check_cohort_against_cpu(root: Path, cfg) -> None:
+    """The fleet at full width and small depth: four members (four tracts at
+    9d) in float32, cuda against cpu and against single training."""
+    from lesionvae_tpu_torch.models.fleet import FleetState, layout
+    from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
+    from lesionvae_tpu_torch.pipeline.infer import score_cohort
+    from lesionvae_tpu_torch.train import batched, data as vdata, normative
+    from lesionvae_tpu_torch.train.checkpoint import load_vae
+    from lesionvae_tpu_torch.train.trainer import train_module
+
+    groups = {g: list(s) for g, s in cfg.subjects_by_group().items()}
+    subjects = [s for subs in groups.values() for s in subs]
+    tracts, tp = list(cfg.geometry_tracts[:4]), "9d"
+    cache: dict = {}
+    built = [vdata.build_tensor_with_lesion_context(
+        root, t, tp, subjects, cfg.microstructure_features, cfg.lesion_features,
+        groups, csv_cache=cache) for t in tracts]
+    Xm, Xl, n_real = batched.pad_datasets([(b[0], b[1]) for b in built], VAE_BATCH)
+    T, n_pad = Xm.shape[:2]
+    sham = np.zeros((T, n_pad), np.float32)
+    seg = np.full((T, n_pad), 37, np.int64)
+    for i, b in enumerate(built):
+        sham[i, :n_real[i]] = b[3] == "Sham"
+        seg[i, :n_real[i]] = np.searchsorted(np.unique(b[2]), b[2])
+
+    # (iii) normalization on the device, cuda vs cpu
+    norm = {}
+    for dev in ("cuda", "cpu"):
+        norm[dev] = vdata.normalize_on_device(
+            torch.from_numpy(Xm).to(dev), torch.from_numpy(Xl).to(dev),
+            torch.from_numpy(n_real.astype(np.int64)).to(dev))
+    err = max([rel_err(norm["cuda"][0].cpu(), norm["cpu"][0])]
+              + [rel_err(norm["cuda"][2][k].cpu(), norm["cpu"][2][k])
+                 for k in ("median", "mean", "std")])
+    if err > PATH_TOL:
+        fail(f"normalize_on_device cuda vs cpu: max rel err {err:.3e}")
+    print(f"[path] normalize_on_device, {T} members x {n_pad} rows, cuda vs cpu "
+          f"float32: stats and normalized block max rel err {err:.3e} (tol {PATH_TOL})")
+
+    # (i) one epoch of the float32 fleet from one seed, cuda vs cpu
+    kw = dict(latent_dim=VAE_LATENT, batch_size=VAE_BATCH, seed=VAE_SEED,
+              normalize_on_device=True)
+    hist = {dev: batched.launch_many_vaes(Xm, Xl, n_real, epochs=1, device=dev,
+                                          **kw).fetch()[1] for dev in ("cuda", "cpu")}
+    err = rel_err(hist["cuda"], hist["cpu"])
+    if err > HIST_TOL or not np.isfinite(hist["cuda"]).all():
+        fail(f"float32 fleet, 1 epoch, cuda vs cpu: history max rel err {err:.3e}")
+    print(f"[path] float32 fleet, {T} members x 1 epoch from one seed, cuda vs cpu: "
+          f"history max rel err {err:.3e} (tol {HIST_TOL})")
+
+    # (ii) a member of the cuda fleet against the same member trained alone
+    lay = layout(100, 13, 3, VAE_LATENT)
+    sds = batched.init_state_dicts(T, lay.hyper, VAE_SEED)
+    perms, noise = batched.draw_fleet(T, n_pad, 2, VAE_BATCH, VAE_LATENT,
+                                      torch.Generator().manual_seed(VAE_SEED))
+    handle = batched.launch_many_vaes(Xm, Xl, n_real, epochs=2, device="cuda",
+                                      state_dicts=sds, perms=perms, noise=noise, **kw)
+    models, h_fleet = handle.fetch()
+    i = 2
+    alone = LesionConditionedVAE(**lay.hyper)
+    alone.load_state_dict(sds[i])
+    alone.to("cuda")
+    h_alone = train_module(alone, handle.Xm[i], handle.Xl[i], int(n_real[i]),
+                           perms[i], noise[i], 2, VAE_BATCH, 2e-4, 1e-3, 2.0)
+    h_err = rel_err(h_fleet[i], h_alone)
+
+    def off(member):
+        """(largest L2 distance of a tensor of ``member`` from the member
+        trained alone over the distance that tensor moved from its start,
+        that tensor's name)."""
+        return max((float((a.cpu() - b.cpu()).norm()) / float((b.cpu() - s0).norm()),
+                    name)
+                   for (name, a), b, s0 in zip(member.module.state_dict().items(),
+                                               alone.state_dict().values(),
+                                               sds[i].values()))
+
+    w_err, w_name = off(models[i])
+    other = (i + 1) % T
+    control = (rel_err(h_fleet[other], h_alone), off(models[other])[0])
+    if (h_err > ALONE_TOL or w_err > ALONE_MOVE or control[0] <= ALONE_TOL
+            or control[1] <= ALONE_MOVE):
+        fail(f"fleet member {i} vs the same member trained alone on cuda, 2 epochs: "
+             f"history {h_err:.3e} (tol {ALONE_TOL}), tensors off by {w_err:.3e} of "
+             f"their movement (tol {ALONE_MOVE}); member {other} as a control: "
+             f"{control[0]:.3e}, {control[1]:.3e}")
+    print(f"[path] member {i} of the float32 cuda fleet vs train_module alone on "
+          f"cuda, same weights, permutations and noise, 2 epochs: history max rel "
+          f"err {h_err:.3e} (tol {ALONE_TOL}), weights and BatchNorm statistics off "
+          f"by at most {w_err:.3e} of the distance each moved ({w_name}; tol "
+          f"{ALONE_MOVE})")
+    print(f"[control] member {other} of the same fleet against that single run "
+          f"exceeds both: history {control[0]:.3e}, tensors {control[1]:.3e}")
+
+    # (iii) the normative summary of four trained members of the path, and
+    # serving them, cuda vs cpu
+    ckpt = root / "results" / "vae_cohort" / "checkpoints"
+    trained = [load_vae(ckpt / f"{t}_{tp}", device="cpu")[0].module.state_dict()
+               for t in tracts]
+    summ = {}
+    for dev in ("cuda", "cpu"):
+        state = FleetState.from_state_dicts(trained, lay, device=dev)
+        summ[dev] = normative.member_summary(
+            state, norm[dev][0], norm[dev][1], torch.from_numpy(sham).to(dev),
+            torch.from_numpy(seg).to(dev), 38, seed=VAE_SEED)
+    errs = [rel_err(a.cpu(), b) for a, b in zip(summ["cuda"], summ["cpu"])]
+    if max(errs) > PATH_TOL:
+        fail(f"member_summary cuda vs cpu (mean, std, magnitude, profile, counts): {errs}")
+    keys = [(t, tp) for t in tracts]
+    served = {dev: score_cohort(root / "results" / "vae_cohort", root, subjects,
+                                config=cfg, keys=keys, seed=VAE_SEED, device=dev)
+              for dev in ("cuda", "cpu")}
+    cols = ["mean", "std", "max", "count"]
+    s_err = rel_err(served["cuda"][cols].to_numpy(float),
+                    served["cpu"][cols].to_numpy(float))
+    if s_err > PATH_TOL or len(served["cuda"]) != T * 37:
+        fail(f"score_cohort cuda vs cpu: {len(served['cuda'])} rows, max rel err {s_err:.3e}")
+    print(f"[path] {T} trained members of the path, cuda vs cpu float32: "
+          f"member_summary (mean, std, magnitude, profile, counts) max rel err "
+          f"{max(errs):.3e}; score_cohort {s_err:.3e} (tol {PATH_TOL})")
+
+    # (iv) the uint16 upload and bf16 compute, 3 epochs each
+    ref = batched.launch_many_vaes(Xm, Xl, n_real, epochs=3, device="cuda", **kw)
+    for label, extra in (("uint16 upload", dict(quantize_upload=True)),
+                         ("bf16 compute", dict(compute_dtype=torch.bfloat16))):
+        run = batched.launch_many_vaes(Xm, Xl, n_real, epochs=3, device="cuda",
+                                       **kw, **extra)
+        h = run.fetch()[1]
+        block = float((run.Xm - ref.Xm).abs().max())
+        if (not np.isfinite(h).all() or not (h[:, -1, 0] < h[:, 0, 0]).all()
+                or block > 1e-3):
+            fail(f"fleet with {label}: loss {h[:, 0, 0]} -> {h[:, -1, 0]}, normalized "
+                 f"block off the float32 upload's by {block:.3e}")
+        print(f"[path] float32-storage fleet with {label}, {T} members x 3 epochs on "
+              f"cuda: loss {h[:, 0, 0].mean():.4f} -> {h[:, -1, 0].mean():.4f} (float32 "
+              f"run {ref.fetch()[1][:, -1, 0].mean():.4f}); normalized block within "
+              f"{block:.3e} of the float32 upload's (tol 1e-3)")
+
+
+def start_profiles_cohort(root: Path, cfg, pool):
+    """Write the full-scale profiles cohort (16 tracts, 37 subjects x 4
+    timepoints) under ``root``, one subject a task on ``pool``.  A subject's
+    files depend on the seed, the subject and the timepoint alone, so the
+    cohort is the one a single call writes."""
+    return [pool.submit(generate_cohort, root, cfg, seed=SEED, volume_shape=(8,) * 3,
+                        subjects={group: [sid]}, with_profiles=True,
+                        n_streamlines=VAE_STREAMLINES)
+            for group, sids in cfg.subjects_by_group().items() for sid in sids]
+
+
+def run_vae_paths(root: Path, cfg) -> int:
+    """Paths 3c and 3d over the profiles cohort under ``root``; returns the
+    SR Adam kernel's launches on the cohort path."""
+    check_vae(root, cfg, cfg.tracts[0])
+    common = ["--config", str(root / "config.json"), "--base-path", str(root),
+              "--seed", str(VAE_SEED), "--device", "cuda"]
+    launches = check_cohort_cli(root, cfg, common)
+    check_cohort_against_cpu(root, cfg)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -593,55 +1013,79 @@ def main(argv=None) -> int:
     from lesionvae_tpu_torch.core.config import load_config
     from lesionvae_tpu_torch.ops import cuda_build, radius
 
-    # 1. environment + build
+    # 1. environment + build.  The profiles cohort of paths 3c and 3d is
+    # host work only (~4 minutes on one core): worker processes write it
+    # beside the build and the kernel checks, which time nothing, and are
+    # waited for before the first timing, so that no timed call and no path
+    # shares the host with them.
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, card {kind}, devices {torch.cuda.device_count()}")
     print(f"[env] nvidia-smi: {card}")
-    t0 = time.perf_counter()
-    built = cuda_build.build(["radius", "resident_adam"])
-    print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
-    sass_lines()
-
-    # 2. kernels against their plain versions
-    shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
-              for B in (1, 3, 13)] + [(2000, 2000, 104)]
-    # N and counts on and beside the kernel's chunk of points, D on and beside
-    # its tile of directions
-    chunk = radius.CHUNK
-    shapes += [(D, N, 5) for D in (1023, 1024, 1025)
-               for N in (chunk - 1, chunk, chunk + 1, 2 * chunk, 3 * chunk + 7)]
-    errs = [radius_error(radius_case(D, N, B, seed=i))
-            for i, (D, N, B) in enumerate(shapes)]
-    full = radius_case(2000, 2000, 104, seed=1234)
-    radius_same_bits(full)
-    full_ms = device_ms(lambda: radius.sample_radii(*full))
-    full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
-    full_bound, full_by = radius_bound_ms(full)
-    print(f"[kernels] radius vs plain at {len(shapes)} shapes: max abs err "
-          f"{max(errs):.3e} (tol {KERNEL_TOL} x max(1,|plain|))")
-    radius_nan_check()
-    resident_worst = resident_errors()
-    print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
-          + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
-                        "bound_ms": full_bound, "bound_by": full_by,
-                        "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
-
-    # 3. the main paths
     cfg = load_config()
-    with tempfile.TemporaryDirectory(prefix="lesionvae_smoke_") as tmp:
-        root = Path(tmp)
+    with contextlib.ExitStack() as stack:
+        vae_root, writers = None, []
+        if not args.skip_vae:
+            vae_root = Path(stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_")))
+            pool = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")))
+            t_cohort = time.perf_counter()
+            writers = start_profiles_cohort(vae_root, cfg, pool)
         t0 = time.perf_counter()
-        generate_cohort(root, cfg, seed=SEED, volume_shape=(VOLUME,) * 3,
-                        subjects=cfg.subjects_by_group(only=("TBI", "PTE")))
-        print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
-        launches, path_inputs = check_path(root)
-    probe, probe_launches = check_probe()
-    if args.skip_vae:
-        print("[path] vae and score paths skipped (--skip-vae)")
-    else:
-        run_vae_paths(cfg)
+        built = cuda_build.build(["radius", "resident_adam", "sr_adam"])
+        print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
+        sass_lines()
+
+        # 2. kernels against their plain versions
+        shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
+                  for B in (1, 3, 13)] + [(2000, 2000, 104)]
+        # N and counts on and beside the kernel's chunk of points, D on and
+        # beside its tile of directions
+        chunk = radius.CHUNK
+        shapes += [(D, N, 5) for D in (1023, 1024, 1025)
+                   for N in (chunk - 1, chunk, chunk + 1, 2 * chunk, 3 * chunk + 7)]
+        errs = [radius_error(radius_case(D, N, B, seed=i))
+                for i, (D, N, B) in enumerate(shapes)]
+        full = radius_case(2000, 2000, 104, seed=1234)
+        radius_same_bits(full)
+        print(f"[kernels] radius vs plain at {len(shapes)} shapes: max abs err "
+              f"{max(errs):.3e} (tol {KERNEL_TOL} x max(1,|plain|))")
+        radius_nan_check()
+        resident_worst = resident_errors()
+        sr_worst = sr_adam_errors()
+        for w in writers:
+            w.result()
+        if writers:
+            pool.shutdown()
+            print(f"[path] profiles cohort ({len(cfg.geometry_tracts)} tracts, 37 "
+                  f"subjects x 4 timepoints) written by {len(writers)} tasks, done "
+                  f"{time.perf_counter() - t_cohort:.1f}s after their start")
+        full_ms = device_ms(lambda: radius.sample_radii(*full))
+        full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
+        full_bound, full_by = radius_bound_ms(full)
+        print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
+              + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
+                            "bound_ms": full_bound, "bound_by": full_by,
+                            "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
+
+        # 3. the main paths
+        with tempfile.TemporaryDirectory(prefix="lesionvae_smoke_") as tmp:
+            root = Path(tmp)
+            t0 = time.perf_counter()
+            generate_cohort(root, cfg, seed=SEED, volume_shape=(VOLUME,) * 3,
+                            subjects=cfg.subjects_by_group(only=("TBI", "PTE")))
+            print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
+            launches, path_inputs = check_path(root)
+        probe, probe_launches = check_probe()
+        sr_launches = 0
+        if args.skip_vae:
+            print("[path] vae, score, vae-cohort and score-cohort paths skipped "
+                  "(--skip-vae)")
+        else:
+            sr_launches = run_vae_paths(vae_root, cfg)
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)
@@ -657,6 +1101,11 @@ def main(argv=None) -> int:
                                       "issue_bound_ms")}
              | {"ms": r["resident_ms"], "plain_ms": r["plain_ms"]} for r in probe]
     k1 = per_k[0]
+    # the fleet's optimizer pass at the cohort path's shape: 64 members x the
+    # weight elements of one member
+    from lesionvae_tpu_torch.models.fleet import layout
+    sr = sr_adam_at_path_shape(COHORT_MEMBERS, layout(100, 13, 3, VAE_LATENT))
+    print("[kernels] SR Adam at the cohort path's shape: " + json.dumps(sr))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "radius", "route": "cuda",
@@ -673,7 +1122,15 @@ def main(argv=None) -> int:
                            + [r["max_abs_err"] for r in per_k]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None, "k": k1["k"],
-        "per_k": per_k}]}))
+        "per_k": per_k}, {
+        "name": "sr_adam", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/sr_adam.cu",
+        "replaces": "lesionvae_tpu/train/lowmem.py:91 (XLA fusion, no Pallas kernel)",
+        "launches": sr_launches,
+        "max_abs_err": max(sr_worst, sr["max_abs_err"]), "ms": sr["ms"],
+        "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
+        "bound_by": sr["bound_by"], "issue_bound_ms": sr["issue_bound_ms"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

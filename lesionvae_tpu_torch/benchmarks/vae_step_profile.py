@@ -1,6 +1,9 @@
 """Where a training step of the full-width VAE spends its time.
 
     python -m lesionvae_tpu_torch.benchmarks.vae_step_profile [--steps 100]
+    python -m lesionvae_tpu_torch.benchmarks.vae_step_profile --fleet \
+        [--members 64] [--store {f32,bf16}] [--dtype {f32,bf16}] [--steps 20] \
+        [--route {bmm,grouped,vmap}]
 
 Trains the slice's model (seq 100, 13 + 3 channels, latent 10, about
 2.74 M parameters) at batch 64 on random data with ``train_step``, the
@@ -11,6 +14,23 @@ step of ``train_lesion_vae``, on the card, and reports:
 - under ``torch.profiler``: the device time per step (the sum of kernel
   times), the device's busy share of the wall-clock, the kernel launches
   per step and the kernels that take the most device time.
+
+With ``--fleet`` the step is ``fleet_step``, the step of
+``launch_many_vaes``: ``--members`` models of that size trained as one
+program, with float32 or bfloat16 storage of weights and moments and float32
+or bfloat16 compute; the same readout, so that the launches of a fleet step
+can be held against the single step's and 64 members as one program against
+64 single steps.
+
+``--route`` reads the same step with the members batched another way, to
+hold the route the package uses (``bmm``: every convolution one batched
+matrix product, ``models/fleet.py``) against the two it does not:
+``grouped`` swaps each convolution of the stacked model for one cuDNN
+convolution with a group a member; ``vmap`` takes the gradients as
+``torch.func.vmap(torch.func.grad(...))`` over ``functional_call`` of the
+single-member module with parameters and running statistics stacked (float32
+storage and compute only).  All three train the same members with the same
+optimizer and agree on the CPU (tests/test_torch_fleet.py).
 
 One JSON line closes the output.
 """
@@ -23,8 +43,16 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..models import fleet
+from ..models.elbo import elbo
+from ..models.fleet import FleetState, layout
+from ..models.layers import KERNEL, PADDING
 from ..models.lesion_vae import LesionConditionedVAE
+from ..ops import sr_adam
+from ..train.batched import fleet_step, init_state_dicts
+from ..train.lowmem import LowmemOptimizer
 from ..train.trainer import ClipDecayAdam, train_step
 from ..utils.precision import full_fp32
 
@@ -37,50 +65,154 @@ def _steps(module, opt, data, n: int) -> None:
         train_step(module, opt, xm, xl, mask, eps, 1.0)
 
 
-def main(steps: int = 100) -> dict:
+def _readout(run, steps: int, warm: int) -> dict:
+    """``run(n)`` takes n steps; times ``steps`` of them on the host's clock
+    and again under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    device = torch.device("cuda")
-    full_fp32(device)
-    torch.manual_seed(0)
-    module = LesionConditionedVAE(SEQ, MICRO, LESION, LATENT).to(device)
-    opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
-    g = np.random.default_rng(0)
-    data = tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
-        g.normal(size=(BATCH, SEQ, MICRO)), g.uniform(size=(BATCH, SEQ, LESION)),
-        np.ones(BATCH), g.normal(size=(BATCH, LATENT))))
-
-    _steps(module, opt, data, 10)   # warm-up: cuDNN heuristics, allocator
+    run(warm)   # warm-up: cuDNN heuristics, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _steps(module, opt, data, steps)
+    run(steps)
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _steps(module, opt, data, steps)
+        run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    out = {"device": torch.cuda.get_device_name(device), "steps": steps,
-           "params": sum(p.numel() for p in module.parameters()),
-           "host_ms_per_step": host_ms,
-           "profiled_wall_ms_per_step": 1e3 * wall / steps,
-           "device_ms_per_step": dev_us / 1e3 / steps,
-           "device_busy_share": dev_us / 1e6 / wall,
-           "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-           "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
-                            "us_per_step": e.self_device_time_total / steps}
-                           for e in top]}
+    return {"device": torch.cuda.get_device_name(0), "steps": steps,
+            "host_ms_per_step": host_ms,
+            "profiled_wall_ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": dev_us / 1e3 / steps,
+            "device_busy_share": dev_us / 1e6 / wall,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
+                             "us_per_step": e.self_device_time_total / steps}
+                            for e in top]}
+
+
+def _data(device, members: int = 0):
+    """Random (xm, xl, mask, eps) for one step; with ``members`` a leading
+    member axis."""
+    lead = (members,) if members else ()
+    g = np.random.default_rng(0)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        g.normal(size=lead + (BATCH, SEQ, MICRO)),
+        g.uniform(size=lead + (BATCH, SEQ, LESION)),
+        np.ones(lead + (BATCH,)), g.normal(size=lead + (BATCH, LATENT))))
+
+
+def main(steps: int = 100) -> dict:
+    device = torch.device("cuda")
+    full_fp32(device)
+    torch.manual_seed(0)
+    module = LesionConditionedVAE(SEQ, MICRO, LESION, LATENT).to(device)
+    opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
+    data = _data(device)
+    out = _readout(lambda n: _steps(module, opt, data, n), steps, warm=10)
+    out["params"] = sum(p.numel() for p in module.parameters())
+    print(json.dumps(out))
+    return out
+
+
+def conv_grouped(h: torch.Tensor, leaves, name: str, cd, transpose=False
+                 ) -> torch.Tensor:
+    """``models.fleet._conv`` as one convolution with a group a member: the
+    members' channels side by side, (N, T*C_in, L), and their kernels
+    stacked, (T*C_out, C_in, k)."""
+    w = fleet._widen(leaves[f"{name}.weight"], cd)
+    b = fleet._widen(leaves[f"{name}.bias"], cd)
+    T, N, L, C = h.shape
+    if transpose:
+        # (T, in, out, k) -> (T, out, in, k), reversed along k
+        w = w.flip(3).transpose(1, 2)
+    assert w.shape[3] == KERNEL
+    x = h.permute(1, 0, 3, 2).reshape(N, T * C, L)
+    y = F.conv1d(x, w.reshape(-1, C, KERNEL), b.reshape(-1), padding=PADDING,
+                 groups=T)
+    return y.view(N, T, -1, L).permute(1, 0, 3, 2)
+
+
+def fleet_step_vmap(state: FleetState, opt: LowmemOptimizer,
+                    module: LesionConditionedVAE, xm, xl, mask, eps,
+                    beta: float) -> torch.Tensor:
+    """``train.batched.fleet_step`` with the members batched by
+    ``torch.func.vmap``: ``module`` (in train mode) gives the function of one
+    member; each member's BatchNorm writes its own row of the stacked
+    running statistics.  Returns the members' losses."""
+    from torch.func import functional_call, grad, vmap
+
+    def loss_fn(params, stats, xm, xl, mask, eps):
+        xh, mu, logv = functional_call(module, (params, stats), (xm, xl, mask, eps))
+        loss = elbo(xh, xm, mu, logv, beta, mask)[0]
+        return loss, loss
+
+    params = {name: t.detach() for name, t in state.leaves.items()}
+    grads, loss = vmap(grad(loss_fn, has_aux=True))(params, state.stats, xm, xl,
+                                                    mask, eps)
+    opt.step(grads, torch.isfinite(loss))
+    return loss
+
+
+def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
+               steps: int = 20, route: str = "bmm") -> dict:
+    if route == "vmap" and (store, dtype) != ("f32", "f32"):
+        raise ValueError("--route vmap reads float32 storage and compute only")
+    device = torch.device("cuda")
+    full_fp32(device)
+    lay = layout(SEQ, MICRO, LESION, LATENT)
+    bf16 = {"f32": None, "bf16": torch.bfloat16}
+    state = FleetState.from_state_dicts(
+        init_state_dicts(members, lay.hyper, 0), lay, torch.float32, bf16[store],
+        device)
+    opt = LowmemOptimizer(state, 2e-4, 1e-3, 2.0)
+    xm, xl, mask, eps = _data(device, members)
+
+    module = LesionConditionedVAE(**lay.hyper).to(device).train()
+
+    def run(n: int) -> None:
+        for _ in range(n):
+            if route == "vmap":
+                fleet_step_vmap(state, opt, module, xm, xl, mask, eps, 1.0)
+            else:
+                fleet_step(state, opt, xm, xl, mask, eps, 1.0, bf16[dtype])
+
+    warm = 3
+    sr_adam.sr_adam_step.launches = 0
+    conv = fleet._conv
+    if route == "grouped":
+        fleet._conv = conv_grouped
+    try:
+        out = _readout(run, steps, warm)
+    finally:
+        fleet._conv = conv
+    out.update(members=members, store=store, dtype=dtype, route=route,
+               params_per_member=lay.n_weights + lay.n_affine,
+               sr_adam_launches_per_step=sr_adam.sr_adam_step.launches
+               / (warm + 2 * steps),
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(json.dumps(out))
     return out
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=100)
-    main(ap.parse_args().steps)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--fleet", action="store_true")
+    ap.add_argument("--members", type=int, default=64)
+    ap.add_argument("--store", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("--route", choices=["bmm", "grouped", "vmap"], default="bmm",
+                    help="how the members are batched (with --fleet); the "
+                         "package trains with bmm")
+    a = ap.parse_args()
+    if a.fleet:
+        main_fleet(a.members, a.store, a.dtype, a.steps or 20, a.route)
+    else:
+        main(a.steps or 100)

@@ -3,9 +3,13 @@
     python -m lesionvae_tpu_torch lesion [--strict] [--device {cuda,cpu}] ...
     python -m lesionvae_tpu_torch vae    --tract atr_left [--no-plots] ...
     python -m lesionvae_tpu_torch score  --checkpoint DIR --normative NPZ --tract T --timepoint TP
+    python -m lesionvae_tpu_torch vae-cohort   [--tracts ...] [--store bf16] [--save-checkpoints] ...
+    python -m lesionvae_tpu_torch score-cohort [--cohort-dir DIR] [--subjects ...]
 
-Ported so far: the lesion SH + heme stage, the single-tract VAE stage and
-serving a saved VAE; the other stages of ``python -m lesionvae_tpu`` come
+Ported so far: the lesion SH + heme stage, the single-tract VAE stage,
+serving a saved VAE, and the cohort forms of both (the whole
+(tract x timepoint) fleet trained and served as one program); the other
+stages of ``python -m lesionvae_tpu`` come
 with their slices.  Every stage runs on the card unless ``--device cpu`` is
 given; there is no automatic fallback.
 """
@@ -68,6 +72,43 @@ def main(argv=None) -> int:
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--no-plots", action="store_true")
 
+    p = sub.add_parser("vae-cohort",
+                       help="train the whole (tract x timepoint) VAE fleet "
+                            "as one program")
+    _add_common(p)
+    p.add_argument("--tracts", nargs="*", default=None,
+                   help="default: config geometry tracts")
+    p.add_argument("--latent-dim", type=int, default=10)
+    p.add_argument("--epochs", type=int, default=40)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--store", choices=["f32", "bf16"], default="f32",
+                   help="storage dtype of weights and Adam moments: bf16 "
+                        "halves the optimizer's memory streams, written back "
+                        "with stochastic rounding (train.lowmem)")
+    p.add_argument("--quantize-upload", action="store_true",
+                   help="upload the raw tensors as uint16 fixed-point codes "
+                        "(train.quantize)")
+    p.add_argument("--save-z", action="store_true",
+                   help="also fetch and store the full per-streamline z-score "
+                        "block per member (default: z stays on the device, "
+                        "per-subject summaries are stored)")
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
+                   help="fleet compute dtype (bf16 = mixed precision)")
+    p.add_argument("--save-checkpoints", action="store_true",
+                   help="save every member with its normalization stats: the "
+                        "serving bundles of score and score-cohort")
+
+    p = sub.add_parser("score-cohort",
+                       help="serving: z-score subjects against every saved "
+                            "(tract x timepoint) member in one pass")
+    _add_common(p)
+    p.add_argument("--cohort-dir", default=None,
+                   help="run_vae_cohort output dir with checkpoints/ "
+                        "(default: <output>/vae_cohort)")
+    p.add_argument("--subjects", nargs="*", default=None,
+                   help="default: all config subjects")
+
     p = sub.add_parser("score",
                        help="serving: z-score subjects against a saved "
                             "normative model (no retraining)")
@@ -108,6 +149,37 @@ def main(argv=None) -> int:
                              output_dir=out_root / "vae_analysis" / args.tract,
                              seed=args.seed, make_plots=not args.no_plots,
                              device=args.device)
+
+        elif args.stage == "vae-cohort":
+            import torch
+
+            from .pipeline.vae_run import run_vae_cohort
+            bf16 = {"f32": None, "bf16": torch.bfloat16}
+            run_vae_cohort(args.tracts or list(config.geometry_tracts),
+                           latent_dim=args.latent_dim, epochs=args.epochs,
+                           batch_size=args.batch_size, lr=args.lr, config=config,
+                           base_path=base, output_dir=out_root / "vae_cohort",
+                           seed=args.seed, save_z=args.save_z,
+                           compute_dtype=bf16[args.dtype],
+                           store_dtype=bf16[args.store],
+                           quantize_upload=args.quantize_upload,
+                           save_checkpoints=args.save_checkpoints,
+                           device=args.device)
+
+        elif args.stage == "score-cohort":
+            from .pipeline.infer import score_cohort
+            cohort_dir = (Path(args.cohort_dir) if args.cohort_dir
+                          else out_root / "vae_cohort")
+            subjects = args.subjects or [
+                s for subs in config.subjects_by_group().values() for s in subs]
+            out = score_cohort(cohort_dir, base, subjects, config=config,
+                               seed=args.seed, output_dir=out_root / "serving",
+                               device=args.device)
+            csv = out_root / "serving" / "cohort_scores.csv"
+            if len(out):
+                log.info("wrote %d member-subject scores -> %s", len(out), csv)
+            else:
+                log.warning("no members scored; empty %s written", csv)
 
         elif args.stage == "score":
             from .pipeline.infer import load_normative, score_subjects

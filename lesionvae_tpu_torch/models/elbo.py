@@ -39,3 +39,19 @@ def elbo(xh: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
         kld = -0.5 * torch.sum(
             (1 + logv - mu ** 2 - torch.exp(logv)) * m[:, None]) / denom_z
     return recon + beta * kld, recon, kld
+
+
+def elbo_fleet(xh: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
+               logv: torch.Tensor, beta, mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``elbo`` for T members at once: xh, x (T, N, L, C); mu, logv
+    (T, N, latent); mask (T, N).  Returns (loss, recon, kld), each (T,):
+    every member's means run over its own valid rows."""
+    m = mask.to(xh.dtype)
+    n_valid = m.sum(dim=1)
+    denom_x = torch.clamp(n_valid * x[0, 0].numel(), min=1.0)
+    recon = torch.sum(((xh - x) ** 2) * m[:, :, None, None], dim=(1, 2, 3)) / denom_x
+    denom_z = torch.clamp(n_valid * mu.shape[2], min=1.0)
+    kld = -0.5 * torch.sum((1 + logv - mu ** 2 - torch.exp(logv)) * m[:, :, None],
+                           dim=(1, 2)) / denom_z
+    return recon + beta * kld, recon, kld

@@ -4,6 +4,12 @@
 so that the pad rows of a partial batch never touch the statistics: biased
 batch variance to normalise, unbiased variance in the running-stat update,
 momentum 0.1, eps 1e-5, statistics in float32 (float64 for float64 input).
+On bfloat16 input (the mixed-precision recipe) mean, variance and affine fold
+into one scale and shift per channel, computed in float32 and applied in
+bfloat16, as lesionvae_tpu/models/layers.py:101-110 does.
+``masked_batch_norm_fleet`` is the same layer for T independent members at
+once: it takes each member's affine and running statistics stacked on a
+leading axis and returns the new statistics instead of writing them.
 ``interp_linear`` is ``F.interpolate(mode="linear", align_corners=False)``
 computed, as in the JAX package, as a product with a constant (L_out, L_in)
 interpolation matrix: on the card PyTorch's upsample_linear1d kernels took
@@ -56,8 +62,48 @@ class MaskedBatchNorm(nn.Module):
                                        + self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
+        if x.dtype == torch.bfloat16:
+            a = self.weight / torch.sqrt(var + self.eps)
+            b = self.bias - mean * a
+            return x * a.to(x.dtype)[None, :, None] + b.to(x.dtype)[None, :, None]
         y = (x32 - mean[None, :, None]) / torch.sqrt(var[None, :, None] + self.eps)
         return (y * self.weight[None, :, None] + self.bias[None, :, None]).to(x.dtype)
+
+
+def masked_batch_norm_fleet(x: torch.Tensor, mask: Optional[torch.Tensor],
+                            weight: torch.Tensor, bias: torch.Tensor,
+                            running_mean: torch.Tensor, running_var: torch.Tensor,
+                            training: bool, momentum: float = 0.1,
+                            eps: float = 1e-5):
+    """``MaskedBatchNorm`` for T members at once, channel-last.  x:
+    (T, N, L, C); mask: (T, N) or None; weight, bias, running_mean,
+    running_var: (T, C).  Returns (y, new running_mean, new running_var);
+    the statistics come back unchanged in eval mode.  Every member sees only
+    its own rows and mask."""
+    stat_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x32 = x.to(stat_dtype)
+    if training:
+        if mask is None:
+            m = x32.new_ones((x.shape[0], x.shape[1], 1, 1))
+        else:
+            m = mask.to(stat_dtype)[:, :, None, None]
+        cnt = torch.clamp(m.sum(dim=(1, 2, 3)) * x.shape[2], min=1.0)[:, None]  # (T, 1)
+        mean = (x32 * m).sum(dim=(1, 2)) / cnt
+        var = (((x32 - mean[:, None, None, :]) ** 2) * m).sum(dim=(1, 2)) / cnt
+        with torch.no_grad():
+            unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+            running_mean = (1 - momentum) * running_mean + momentum * mean
+            running_var = (1 - momentum) * running_var + momentum * unbiased
+    else:
+        mean, var = running_mean, running_var
+    if x.dtype == torch.bfloat16:
+        a = weight / torch.sqrt(var + eps)
+        b = bias - mean * a
+        y = x * a.to(x.dtype)[:, None, None, :] + b.to(x.dtype)[:, None, None, :]
+    else:
+        y = (x32 - mean[:, None, None, :]) / torch.sqrt(var[:, None, None, :] + eps)
+        y = (y * weight[:, None, None, :] + bias[:, None, None, :]).to(x.dtype)
+    return y, running_mean, running_var
 
 
 def avg_pool_half(x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +115,7 @@ def avg_pool_half(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _interp_matrix(L_in: int, out_size: int, device: torch.device,
+def interp_matrix(L_in: int, out_size: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """(out_size, L_in) linear-interpolation matrix with align_corners=False
     semantics: src(i) = (i + 0.5)*L_in/L_out - 0.5, clamped; each row holds
@@ -89,7 +135,7 @@ def _interp_matrix(L_in: int, out_size: int, device: torch.device,
 def interp_linear(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """Linear resize along the last axis of (N, C, L), align_corners=False
     (edge clamping included)."""
-    W = _interp_matrix(x.shape[2], out_size, x.device, x.dtype)
+    W = interp_matrix(x.shape[2], out_size, x.device, x.dtype)
     return torch.matmul(x, W.T)
 
 

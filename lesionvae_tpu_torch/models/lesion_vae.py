@@ -16,6 +16,12 @@ the JAX package.  Train or eval mode follows ``module.train()`` /
 ``module.eval()``; every layer takes the batch-row mask.  The
 reparameterisation noise is ``eps=`` when given, else drawn from the
 ``generator`` passed in.
+
+``compute_dtype=torch.bfloat16`` is the mixed-precision recipe of
+lesionvae_tpu/models/lesion_vae.py:36-39: parameters and BatchNorm
+statistics stay float32, the inputs and every convolution and dense layer
+compute in bfloat16, and the outputs come back in bfloat16 (the trainer
+takes the loss in float32).
 """
 
 from __future__ import annotations
@@ -32,10 +38,12 @@ from .layers import (MaskedBatchNorm, avg_pool_half, conv1d, conv_transpose1d,
 
 class LesionConditionedVAE(nn.Module):
     def __init__(self, seq_len: int = 100, micro_ch: int = 13,
-                 lesion_ch: int = 3, latent: int = 10):
+                 lesion_ch: int = 3, latent: int = 10,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.seq_len, self.micro_ch = seq_len, micro_ch
         self.lesion_ch, self.latent = lesion_ch, latent
+        self.compute_dtype = compute_dtype
         L = seq_len
         self.micro_out = 128 * (L // 8)
         self.lesion_out = 64 * (L // 4)
@@ -66,34 +74,48 @@ class LesionConditionedVAE(nn.Module):
         return {"seq_len": self.seq_len, "micro_ch": self.micro_ch,
                 "lesion_ch": self.lesion_ch, "latent": self.latent}
 
+    def _layer(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        """A convolution or dense layer in the compute dtype."""
+        cd = self.compute_dtype
+        if cd is None:
+            return layer(h)
+        w, b = layer.weight.to(cd), layer.bias.to(cd)
+        if isinstance(layer, nn.Linear):
+            return F.linear(h, w, b)
+        op = F.conv_transpose1d if isinstance(layer, nn.ConvTranspose1d) else F.conv1d
+        return op(h, w, b, padding=layer.padding[0])
+
     # ------------------------------------------------------------------
     def encode(self, x_micro: torch.Tensor, x_lesion: torch.Tensor,
                mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(N, L, C) inputs -> (mu, logv, h_lesion); h_lesion is flattened
         channel-major, (N, 64 * L/4)."""
+        if self.compute_dtype is not None:
+            x_micro = x_micro.to(self.compute_dtype)
+            x_lesion = x_lesion.to(self.compute_dtype)
         h = x_micro.transpose(1, 2)
         for conv, bn in ((self.micro_c1, self.micro_b1),
                          (self.micro_c2, self.micro_b2),
                          (self.micro_c3, self.micro_b3)):
-            h = avg_pool_half(F.relu(bn(conv(h), mask)))
+            h = avg_pool_half(F.relu(bn(self._layer(conv, h), mask)))
         h_micro = h.reshape(h.shape[0], -1)
         h = x_lesion.transpose(1, 2)
         for conv, bn in ((self.lesion_c1, self.lesion_b1),
                          (self.lesion_c2, self.lesion_b2)):
-            h = avg_pool_half(F.relu(bn(conv(h), mask)))
+            h = avg_pool_half(F.relu(bn(self._layer(conv, h), mask)))
         h_lesion = h.reshape(h.shape[0], -1)
         hcat = torch.cat([h_micro, h_lesion], dim=1)
-        return self.fc_mu(hcat), self.fc_logv(hcat), h_lesion
+        return self._layer(self.fc_mu, hcat), self._layer(self.fc_logv, hcat), h_lesion
 
     def decode(self, z: torch.Tensor, h_lesion: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """-> (N, L, micro_ch)"""
-        h = self.fc_dec(torch.cat([z, h_lesion], dim=1))
+        h = self._layer(self.fc_dec, torch.cat([z, h_lesion], dim=1))
         h = h.reshape(h.shape[0], 128, self.seq_len // 8)
-        h = upsample2_linear(F.relu(self.dec_b1(self.dec_t1(h), mask)))
-        h = upsample2_linear(F.relu(self.dec_b2(self.dec_t2(h), mask)))
-        h = upsample2_linear(self.dec_t3(h))
+        h = upsample2_linear(F.relu(self.dec_b1(self._layer(self.dec_t1, h), mask)))
+        h = upsample2_linear(F.relu(self.dec_b2(self._layer(self.dec_t2, h), mask)))
+        h = upsample2_linear(self._layer(self.dec_t3, h))
         if h.shape[2] != self.seq_len:
             h = interp_linear(h, self.seq_len)
         return h.transpose(1, 2)

@@ -1,8 +1,10 @@
 """Serving: z-score new subjects with a trained model, without retraining
-(the port of lesionvae_tpu/pipeline/infer.py:26-67).
+(the port of lesionvae_tpu/pipeline/infer.py).
 
 Train once (``pipeline/vae_run.py``), save (``train/checkpoint.py``), then
-score incoming subject profile CSVs against the frozen normative model.
+score incoming subject profile CSVs against the frozen normative model:
+``score_subjects`` for one member, ``score_cohort`` for every saved
+(tract, timepoint) member of a cohort in one pass of the stacked model.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..core.config import Config, load_config
 from ..train import data as vdata
-from ..train.checkpoint import load_vae
+from ..train.checkpoint import load_vae, load_vae_many
 from ..train.normative import compute_zscore_residuals
 from ..utils.logging import get_logger
 
@@ -74,3 +76,142 @@ def load_normative(npz_path: str | Path) -> Dict[str, np.ndarray]:
     (zscores_{tp}.npz: norm_mean / norm_std)."""
     z = np.load(npz_path, allow_pickle=True)
     return {"mean": z["norm_mean"], "std": z["norm_std"]}
+
+
+SCORE_COLUMNS = ["tract", "timepoint", "subject_id", "group", "mean", "std",
+                 "max", "count"]
+
+
+def score_cohort(cohort_dir: str | Path, base_path: str | Path,
+                 subjects: Sequence, config: Optional[Config] = None,
+                 keys: Optional[Sequence] = None, seed: int = 0,
+                 output_dir: str | Path | None = None, device="cuda",
+                 dtype: torch.dtype = torch.float32, eps=None) -> pd.DataFrame:
+    """Score a whole cohort of saved members in one pass.
+
+    Every ``(tract, timepoint)`` member under ``cohort_dir/checkpoints``
+    (the layout ``run_vae_cohort(save_checkpoints=True)`` writes, with its
+    normative ``zscores_{tract}_{tp}.npz`` beside) is loaded, the subjects'
+    tensors are padded into one (T, n_pad, L, C) block, and normalization
+    (each member's saved stats), eval-mode reconstruction and the z-score
+    magnitude run once for all members on ``device``.  A member whose
+    checkpoint cannot be read, that has no normative file or no data is
+    skipped with a warning.  Each member draws its own noise from ``seed``
+    (one (T, n_pad, latent) draw on the CPU) unless ``eps`` is given.
+
+    Returns one summary row per (tract, timepoint, subject): mean/std/max/
+    count of per-streamline z magnitudes; also writes ``cohort_scores.csv``
+    when ``output_dir`` is given (with the columns alone when no member
+    could be scored)."""
+    from ..models.fleet import FleetState, layout
+    from ..train.batched import pad_datasets
+    from ..train.normative import fleet_reconstruct, z_residual
+    from ..utils.precision import full_fp32
+
+    device = torch.device(device)
+    if device.type == "cuda" and dtype != torch.float32:
+        raise ValueError(f"serving runs float32 on cuda, got {dtype}")
+    full_fp32(device)
+    config = config or load_config()
+    cohort_dir = Path(cohort_dir)
+    ckpt_root = cohort_dir / "checkpoints"
+    if keys is None:
+        keys = []
+        if ckpt_root.is_dir():
+            for d in sorted(ckpt_root.iterdir()):
+                # member dirs are named <tract>_<timepoint>; anything else
+                # (temp dirs, stray files) is not a checkpoint
+                if d.is_dir() and "_" in d.name:
+                    keys.append(tuple(d.name.rsplit("_", 1)))
+    if not keys:
+        raise ValueError(
+            f"no member checkpoints under {ckpt_root} — run the fleet with "
+            "checkpointing first (run_vae_cohort(save_checkpoints=True); "
+            "CLI: vae-cohort --save-checkpoints)")
+
+    groups_dict = {g: list(s) for g, s in config.subjects_by_group().items()}
+    members, tensors = [], []
+    hyper = None
+    restored = load_vae_many([ckpt_root / f"{t}_{tp}" for t, tp in keys],
+                             device="cpu", dtype=dtype)
+    csv_cache: dict = {}  # (subject, tp) -> profile df, shared across tracts
+    for (tract, tp), member in zip(keys, restored):
+        if isinstance(member, Exception):
+            log.warning("skipping %s@%s: unreadable checkpoint (%s)", tract, tp,
+                        member)
+            continue
+        model, norm_stats = member
+        if norm_stats is None:
+            raise ValueError(f"{tract}_{tp} checkpoint lacks norm stats")
+        if hyper is None:
+            hyper = model.module.hyperparameters()
+        elif hyper != model.module.hyperparameters():
+            raise ValueError("cohort members have mismatched architectures")
+        npz = cohort_dir / f"zscores_{tract}_{tp}.npz"
+        if not npz.exists():
+            # run_vae_cohort writes normative stats only for members with a
+            # Sham row
+            log.warning("skipping %s@%s: no normative stats (%s)", tract, tp,
+                        npz.name)
+            continue
+        norm = load_normative(npz)
+        try:
+            Xm, Xl, sids, glabels, _ = vdata.build_tensor_with_lesion_context(
+                base_path, tract, tp, subjects, config.microstructure_features,
+                config.lesion_features, groups_dict, csv_cache=csv_cache)
+        except ValueError as e:   # no data for this member
+            log.warning("skipping %s@%s: %s", tract, tp, e)
+            continue
+        members.append(dict(tract=tract, tp=tp, model=model,
+                            norm_stats=norm_stats, norm=norm, sids=sids,
+                            groups=glabels))
+        tensors.append((Xm, Xl))
+    if not members:
+        out = pd.DataFrame(columns=SCORE_COLUMNS)
+        if output_dir is not None:
+            output_dir = Path(output_dir)
+            output_dir.mkdir(parents=True, exist_ok=True)
+            out.to_csv(output_dir / "cohort_scores.csv", index=False)
+        log.warning("score_cohort: no scoreable members")
+        return out
+
+    # batch_size=1 pads to the largest member's row count exactly
+    Xm_T, Xl_T, n_real = pad_datasets(tensors, batch_size=1)
+    T, n_pad = Xm_T.shape[:2]
+    state = FleetState.from_state_dicts(
+        [m["model"].module.state_dict() for m in members], layout(**hyper),
+        dtype=dtype, device=device)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+    stack = lambda f: f32(np.stack([f(m) for m in members]))  # noqa: E731
+    # float32 normalization with the saved stats, as on the host
+    Xz, Xl_d = vdata.apply_normalization_device(
+        f32(Xm_T), f32(Xl_T),
+        {k: stack(lambda m, k=k: m["norm_stats"][k])
+         for k in ("median", "mean", "std")})
+    Xz, Xl_d = Xz.to(dtype), Xl_d.to(dtype)
+    if eps is None:
+        eps = torch.randn((T, n_pad, hyper["latent"]),
+                          generator=torch.Generator().manual_seed(seed))
+    xh = fleet_reconstruct(state, Xz, Xl_d, torch.as_tensor(eps).to(device, dtype))
+    nm = stack(lambda m: m["norm"]["mean"]).to(dtype)
+    ns = stack(lambda m: m["norm"]["std"]).to(dtype)
+    z = z_residual(Xz.transpose(0, 1), xh.transpose(0, 1), nm, ns)   # (n, T, L, C)
+    mags = torch.sqrt(torch.mean(z ** 2, dim=(2, 3))).transpose(0, 1).cpu().numpy()
+
+    rows = []
+    for i, m in enumerate(members):
+        df = pd.DataFrame({"subject_id": m["sids"], "group": m["groups"],
+                           "z_magnitude": mags[i, :n_real[i]]})
+        summ = (df.groupby(["subject_id", "group"])["z_magnitude"]
+                .agg(["mean", "std", "max", "count"]).reset_index())
+        summ.insert(0, "tract", m["tract"])
+        summ.insert(1, "timepoint", m["tp"])
+        rows.append(summ)
+    out = pd.concat(rows, ignore_index=True)
+    log.info("scored %d members x %d subjects in one pass on %s", T,
+             out["subject_id"].nunique(), device)
+    if output_dir is not None:
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        out.to_csv(output_dir / "cohort_scores.csv", index=False)
+    return out

@@ -1,0 +1,277 @@
+"""Cohort-batched VAE training: many (tract x timepoint) VAEs trained as one
+program (the port of lesionvae_tpu/train/batched.py).
+
+The cohort has 16 tracts x 4 timepoints of independent VAEs.  Their datasets
+are padded to one (T, n_pad, L, C) block on the device and one Python step
+drives all T members: the stacked model of ``models.fleet`` runs every
+member's forward and backward in the same kernels (launches a step do not
+grow with T), and ``train.lowmem.LowmemOptimizer`` updates the stacked
+buffers.  Every member sees only its own rows, mask, noise, BatchNorm
+statistics, gradient norm, finite flag and step count, so a member of the
+fleet equals the same member trained alone with the same draws.
+
+Kept from the JAX package (documented there as distributional-parity safe):
+each epoch permutes all ``n_pad`` rows, so masked pad rows are scattered
+through the batches rather than collected in one tail batch
+(``mask = perm < n_i``); BatchNorm statistics and the ELBO stay mask-exact.
+Batches are gathered by index from the device-resident block.
+
+Every permutation, every reparameterisation draw, the initial weights and
+the stochastic-rounding salts come from CPU generators seeded from ``seed``
+and move to the device once, so a ``cuda`` and a ``cpu`` run see the same
+numbers; ``perms=``, ``noise=``, ``salts=`` and ``state_dicts=`` inject
+others (the tests pass the JAX package's).  Nothing inside training waits
+for the device: history, finite flags and epoch sums stay on it until
+``FleetHandle.fetch``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.elbo import elbo_fleet
+from ..models.fleet import FleetState, fleet_forward, layout
+from ..models.lesion_vae import LesionConditionedVAE
+from ..utils.logging import get_logger
+from ..utils.precision import full_fp32
+from . import data as vdata
+from .lowmem import LowmemOptimizer, draw_salts
+from .normative import member_summary
+from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
+from .trainer import TrainedVAE, betas
+
+log = get_logger("batched")
+
+
+def pad_datasets(tensors, batch_size: int = 64, min_rows: int = 0
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stack a list of (Xm_i, Xl_i) pairs into common-shape padded blocks
+    (pad rows zero); the row axis is padded to a multiple of ``batch_size``
+    and to at least ``min_rows``.  Returns (Xm, Xl, n_real)."""
+    n_max = max(max(x.shape[0] for x, _ in tensors), min_rows)
+    n_pad = -(-n_max // batch_size) * batch_size
+    L, Cm = tensors[0][0].shape[1:]
+    Cl = tensors[0][1].shape[2]
+    T = len(tensors)
+    Xm = np.zeros((T, n_pad, L, Cm), np.float32)
+    Xl = np.zeros((T, n_pad, L, Cl), np.float32)
+    n_real = np.zeros(T, np.int32)
+    for i, (xm, xl) in enumerate(tensors):
+        n = xm.shape[0]
+        Xm[i, :n] = xm
+        Xl[i, :n] = xl
+        n_real[i] = n
+    return Xm, Xl, n_real
+
+
+def draw_fleet(members: int, n_pad: int, epochs: int, batch_size: int,
+               latent: int, generator: torch.Generator
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every permutation (T, epochs, n_pad) of all padded rows and every
+    reparameterisation draw (T, epochs, n_batches, batch_size, latent) of a
+    fleet run, on the CPU."""
+    perms = torch.rand((members, epochs, n_pad), generator=generator).argsort(dim=-1)
+    noise = torch.randn((members, epochs, n_pad // batch_size, batch_size, latent),
+                        generator=generator)
+    return perms, noise
+
+
+def fleet_step(state: FleetState, opt: LowmemOptimizer, xb_m: torch.Tensor,
+               xb_l: torch.Tensor, mask: torch.Tensor, eps: torch.Tensor,
+               beta: float, compute_dtype: Optional[torch.dtype] = None
+               ) -> torch.Tensor:
+    """One batch of every member: train-mode forward (advances each member's
+    BatchNorm statistics), ELBO in the data's dtype, gradients, and the
+    update of every member whose loss is finite.  xb_m (T, B, L, Cm), xb_l
+    (T, B, L, Cl), mask (T, B), eps (T, B, latent).  Returns (T, 4):
+    [loss*n, recon*n, kld*n, n] for the member's real rows n, zeroed for a
+    skipped member (NaN times zero stays NaN, as in the JAX program)."""
+    leaves = state.grad_leaves()
+    xh, mu, logv, new_stats = fleet_forward(
+        state.layout, leaves, state.stats, xb_m, xb_l, mask, eps, True,
+        compute_dtype)
+    wide = xb_m.dtype
+    xh = torch.nan_to_num(xh.to(wide), nan=0.0)
+    mu = torch.nan_to_num(mu.to(wide), nan=0.0)
+    logv = torch.nan_to_num(logv.to(wide), nan=0.0)
+    loss, recon, kld = elbo_fleet(xh, xb_m, mu, logv, beta, mask)
+    names = list(leaves)
+    grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in names])
+    finite = torch.isfinite(loss)
+    state.stats = {k: v.detach() for k, v in new_stats.items()}
+    opt.step(dict(zip(names, grads)), finite)
+    n_valid = mask.to(wide).sum(dim=1)
+    loss, recon, kld = loss.detach(), recon.detach(), kld.detach()
+    return finite.to(wide)[:, None] * torch.stack(
+        [loss * n_valid, recon * n_valid, kld * n_valid, n_valid], dim=1)
+
+
+def train_fleet(state: FleetState, opt: LowmemOptimizer, Xm: torch.Tensor,
+                Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
+                noise: torch.Tensor, epochs: int, batch_size: int,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Train ``state`` in place on the device blocks Xm, Xl (T, n_pad, L, C).
+    Returns the (T, epochs, 4) history [loss, recon, kld, beta] on the
+    device."""
+    T, n_pad = Xm.shape[:2]
+    rows = torch.arange(T, device=Xm.device)[:, None]
+    beta_list = betas(epochs)
+    beta_t = torch.tensor(beta_list, dtype=Xm.dtype, device=Xm.device)
+    hist = []
+    for ep, beta in enumerate(beta_list):
+        sums = Xm.new_zeros((T, 4))
+        for b in range(n_pad // batch_size):
+            idx = perms[:, ep, b * batch_size:(b + 1) * batch_size]
+            sums = sums + fleet_step(
+                state, opt, Xm[rows, idx], Xl[rows, idx],
+                (idx < n_real[:, None]).to(Xm.dtype), noise[:, ep, b], beta,
+                compute_dtype)
+        seen = sums[:, 3:4]
+        avg = torch.where(seen > 0, sums[:, :3] / seen, torch.nan)
+        hist.append(torch.cat([avg, beta_t[ep].expand(T, 1)], dim=1))
+    return torch.stack(hist, dim=1)
+
+
+class FleetHandle:
+    """A trained fleet.  ``fetch()`` (or calling it) returns ``(list of
+    TrainedVAE, (T, epochs, 4) history array)``.  The stacked ``state``
+    (parameters and statistics), the device-resident blocks ``Xm`` / ``Xl``
+    (normalized, when the launch normalized them), the per-member
+    normalization statistics ``norm_stats`` and the fused normative summary
+    ``summary`` (mean, std, magnitude, per-subject profile, counts) stay on
+    the device for the programs that follow."""
+
+    def __init__(self, state: FleetState, hist: torch.Tensor, epochs: int,
+                 n_batches: int, Xm: torch.Tensor, Xl: torch.Tensor,
+                 summary=None, norm_stats: Optional[Dict[str, torch.Tensor]] = None):
+        self.state, self.hist = state, hist
+        self.Xm, self.Xl = Xm, Xl
+        self.summary, self.norm_stats = summary, norm_stats
+        self._epochs, self._n_batches = epochs, n_batches
+
+    def fetch(self) -> Tuple[List[TrainedVAE], np.ndarray]:
+        hist = self.hist.cpu().numpy()
+        models = [TrainedVAE(self.state.member(i))
+                  for i in range(self.state.members)]
+        log.info("trained %d VAEs concurrently (%d epochs, %d batches/epoch)",
+                 len(models), self._epochs, self._n_batches)
+        return models, hist
+
+    __call__ = fetch
+
+
+def init_state_dicts(members: int, hyper: Mapping[str, int], seed: int):
+    """Initial weights of ``members`` VAEs (torch default init), drawn one
+    after the other on the CPU from ``seed``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return [LesionConditionedVAE(**hyper).state_dict() for _ in range(members)]
+
+
+def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
+                     latent_dim: int = 10, epochs: int = 40,
+                     batch_size: int = 64, lr: float = 2e-4,
+                     weight_decay: float = 1e-3, grad_clip: float = 2.0,
+                     seed: int = 42, compute_dtype: Optional[torch.dtype] = None,
+                     summary_spec=None, normalize_on_device: bool = False,
+                     store_dtype: Optional[torch.dtype] = None,
+                     quantize_upload: bool = False, device="cuda",
+                     dtype: torch.dtype = torch.float32,
+                     state_dicts: Optional[Sequence[Mapping]] = None,
+                     perms: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None,
+                     salts: Optional[torch.Tensor] = None,
+                     summary_noise=None) -> FleetHandle:
+    """Train T VAEs as one program on ``device``; returns a FleetHandle.
+
+    Xm: (T, n_pad, L, Cm) padded microstructure tensors (pad rows zero), Xl:
+    (T, n_pad, L, Cl), n_real: (T,) real row counts.
+    ``summary_spec`` = (sham_T, subj_idx_T, n_seg, norm_seed) appends the
+    normative summary (``train.normative.member_summary``) to the run;
+    ``summary_noise`` = (draw A, draw B), each (n_pad, latent), replaces its
+    seeded noise.
+    ``normalize_on_device``: Xm / Xl are raw and the reference's fit + apply
+    normalization runs on the device first
+    (``train.data.normalize_on_device``); non-finite values are kept for its
+    median imputation.  Otherwise NaN -> 0 as in the single trainer.
+    ``store_dtype=torch.bfloat16``: weight leaves and their Adam moments
+    stored in bfloat16 with stochastic rounding (``train.lowmem``).
+    ``compute_dtype=torch.bfloat16``: mixed precision, parameters and
+    BatchNorm statistics float32, convolutions and dense layers in
+    bfloat16, loss in float32.
+    ``quantize_upload``: the raw blocks cross to the device as uint16 codes
+    (``train.quantize``); needs ``normalize_on_device``.
+    ``dtype`` is the arithmetic's (float64 on the CPU for tests); on
+    ``cuda`` the fleet is float32."""
+    device = torch.device(device)
+    if device.type == "cuda" and dtype != torch.float32:
+        raise ValueError(f"the VAE trains float32 on cuda, got {dtype}")
+    if quantize_upload and not normalize_on_device:
+        raise ValueError("quantize_upload requires normalize_on_device (the "
+                         "decoded raw values feed the on-device normalization; "
+                         "see train.quantize)")
+    if store_dtype not in (None, torch.bfloat16) or compute_dtype not in (
+            None, torch.bfloat16):
+        raise ValueError("store_dtype and compute_dtype are None or torch.bfloat16")
+    full_fp32(device)
+    T, n_pad, seq_len, micro_ch = Xm.shape
+    lesion_ch = Xl.shape[3]
+    if (n_pad // batch_size) * batch_size != n_pad:
+        raise ValueError("pad the row axis to a multiple of batch_size")
+    n_batches = n_pad // batch_size
+    lay = layout(seq_len, micro_ch, lesion_ch, latent_dim)
+
+    # the data, once onto the device
+    def put(X):
+        return torch.from_numpy(np.asarray(X, np.float32)).to(device)
+
+    if quantize_upload:
+        blocks = []
+        for X in (Xm, Xl):
+            codes, lo, scale = quantize_u16(X)
+            blocks.append(dequantize_u16(codes_to_tensor(codes, device),
+                                         put(lo), put(scale)))
+        Xm_d, Xl_d = blocks
+    else:
+        Xm_d, Xl_d = put(Xm), put(Xl)
+    n_d = torch.from_numpy(np.asarray(n_real, np.int64)).to(device)
+    norm_stats = None
+    if normalize_on_device:
+        Xm_d, Xl_d, norm_stats = vdata.normalize_on_device(Xm_d, Xl_d, n_d)
+    else:
+        Xm_d, Xl_d = (torch.nan_to_num(X, nan=0.0) for X in (Xm_d, Xl_d))
+    Xm_d, Xl_d = Xm_d.to(dtype), Xl_d.to(dtype)
+
+    # weights, draws and salts: from the seed on the CPU, or injected
+    if state_dicts is None:
+        state_dicts = init_state_dicts(T, lay.hyper, seed)
+    gen = torch.Generator().manual_seed(seed)
+    if perms is None or noise is None:
+        drawn = draw_fleet(T, n_pad, epochs, batch_size, latent_dim, gen)
+        perms = drawn[0] if perms is None else perms
+        noise = drawn[1] if noise is None else noise
+    if salts is None:
+        salts = draw_salts(T, gen)
+    state = FleetState.from_state_dicts(state_dicts, lay, dtype, store_dtype, device)
+    opt = LowmemOptimizer(state, lr, weight_decay, grad_clip, salts=salts)
+
+    hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, perms.to(device),
+                       noise.to(device, dtype), epochs, batch_size, compute_dtype)
+    summary = None
+    if summary_spec is not None:
+        sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
+        summary = member_summary(
+            state, Xm_d, Xl_d, put(sham_T).to(dtype),
+            torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device),
+            int(n_seg), seed=int(norm_seed), noise=summary_noise,
+            compute_dtype=compute_dtype)
+    return FleetHandle(state, hist, epochs, n_batches, Xm_d, Xl_d,
+                       summary=summary, norm_stats=norm_stats)
+
+
+def train_many_vaes(Xm, Xl, n_real, **kwargs):
+    """``launch_many_vaes(...).fetch()``."""
+    return launch_many_vaes(Xm, Xl, n_real, **kwargs)()

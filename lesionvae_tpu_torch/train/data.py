@@ -14,7 +14,9 @@ The host builders are copies of lesionvae_tpu/train/data.py:
 
 ``apply_normalization_device`` applies given statistics to tensors on the
 device (the serving path), with the same float32 arithmetic as the host
-version.
+version.  ``normalize_on_device`` fits and applies them for every member of
+a padded fleet block at once (lesionvae_tpu/train/data.py:188-232), so the
+raw tensors are uploaded once and the data never returns to the host.
 """
 
 from __future__ import annotations
@@ -35,6 +37,18 @@ def csv_path(base_path, subject_id, tp) -> Path:
     return (Path(base_path) / "results" / str(subject_id)
             / f"timepoint_analysis_{subject_id}_{tp}"
             / f"comprehensive_tract_data_{subject_id}_{tp}.csv")
+
+
+def _complete_grid(df: pd.DataFrame, stream_ids, nodes) -> bool:
+    """Whether ``df``, sorted by (streamline_id, point_id), holds every
+    (streamline, node) pair exactly once."""
+    S, P = len(stream_ids), len(nodes)
+    if len(df) != S * P:
+        return False
+    return bool(
+        (df["point_id"].to_numpy().reshape(S, P) == np.asarray(nodes)[None, :]).all()
+        and (df["streamline_id"].to_numpy().reshape(S, P)
+             == np.asarray(stream_ids)[:, None]).all())
 
 
 def build_tensor_with_lesion_context(
@@ -104,19 +118,27 @@ def build_tensor_with_lesion_context(
             log.warning("%s has %d nodes, expected 100", fp, len(nodes))
             continue
 
-        wide_micro = df.pivot(index="point_id", columns="streamline_id",
-                              values=list(micro_feats))
-        wide_lesion = df.pivot(index="point_id", columns="streamline_id",
-                               values=list(lesion_feats))
-        for s_id in stream_ids:
-            mat_micro = wide_micro.xs(s_id, axis=1, level=1).reindex(nodes)
-            mat_lesion = wide_lesion.xs(s_id, axis=1, level=1).reindex(nodes)
-            lesion_vals = mat_lesion.values.astype(np.float32)
-            lesion_vals[:, 2] = np.clip(lesion_vals[:, 2], 0, 15) / 15.0
-            X_micro_list.append(mat_micro.values.astype(np.float32))
-            X_lesion_list.append(lesion_vals)
-            subj_stream_ids.append(sid)
-            group_stream_labels.append(subject_group)
+        if _complete_grid(df, stream_ids, nodes):
+            # every streamline holds every node once: the sorted rows are
+            # the tensor already (what the pivot below gives, without ~50
+            # pandas selections a subject)
+            shape = (len(stream_ids), len(nodes), -1)
+            micro = df[list(micro_feats)].to_numpy().astype(np.float32).reshape(shape)
+            lesion = df[list(lesion_feats)].to_numpy().astype(np.float32).reshape(shape)
+        else:
+            wide_micro = df.pivot(index="point_id", columns="streamline_id",
+                                  values=list(micro_feats))
+            wide_lesion = df.pivot(index="point_id", columns="streamline_id",
+                                   values=list(lesion_feats))
+            micro = np.stack([wide_micro.xs(s_id, axis=1, level=1).reindex(nodes)
+                              .values.astype(np.float32) for s_id in stream_ids])
+            lesion = np.stack([wide_lesion.xs(s_id, axis=1, level=1).reindex(nodes)
+                               .values.astype(np.float32) for s_id in stream_ids])
+        lesion[:, :, 2] = np.clip(lesion[:, :, 2], 0, 15) / 15.0
+        X_micro_list.extend(micro)
+        X_lesion_list.extend(lesion)
+        subj_stream_ids.extend([sid] * len(stream_ids))
+        group_stream_labels.extend([subject_group] * len(stream_ids))
 
     if not X_micro_list:
         raise ValueError(f"No data for {tract} @ {tp}")
@@ -195,9 +217,49 @@ def apply_normalization_device(Xm: torch.Tensor, Xl: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply-only twin of :func:`apply_normalization` on tensors with given
     stats (median-impute non-finite, z-score, clamp ±1e6); the result has
-    the dtype of ``Xm``."""
-    med = stats["median"]
-    Xc = torch.where(torch.isfinite(Xm), Xm, med[None, None, :])
-    Xz = torch.clamp((Xc - stats["mean"][None, None, :])
-                     / stats["std"][None, None, :], -1e6, 1e6)
+    the dtype of ``Xm``.  One member, (n, L, C) with (C,) stats, or a fleet,
+    (T, n, L, C) with (T, C) stats."""
+    med, mean, std = (stats[k][..., None, None, :]
+                      for k in ("median", "mean", "std"))
+    Xc = torch.where(torch.isfinite(Xm), Xm, med)
+    Xz = torch.clamp((Xc - mean) / std, -1e6, 1e6)
     return Xz, torch.nan_to_num(Xl, nan=0.0)
+
+
+def normalize_on_device(Xm: torch.Tensor, Xl: torch.Tensor,
+                        n_real: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Dict[str, torch.Tensor]]:
+    """Fit and apply the normalization for every member of a padded fleet
+    block: Xm (T, n_pad, L, C) raw, Xl (T, n_pad, L, Cl), n_real (T,).
+
+    Per member and feature, over the finite values of the real rows
+    (< n_real): median (mean of the two middle order statistics, by a sort
+    that sends every other entry to the tail), mean and std (floor 1e-6); a
+    feature with no finite value gets median = mean = 0, std = 1, so its
+    imputed entries z-score to exactly 0.  Then median-impute, z-score,
+    clamp ±1e6.  Returns (Xz, Xl, {"median", "mean", "std"} of (T, C))."""
+    T, n_pad, L, C = Xm.shape
+    X = Xm.reshape(T, n_pad * L, C)
+    row_real = torch.arange(n_pad, device=Xm.device)[None, :] < n_real[:, None]
+    valid = row_real.repeat_interleave(L, dim=1)[:, :, None] & torch.isfinite(X)
+    count = valid.sum(dim=1)                                    # (T, C)
+    cnt = torch.clamp(count, min=1)
+
+    zero = X.new_zeros(())
+    mean = torch.where(valid, X, zero).sum(dim=1) / cnt
+    var = torch.where(valid, (X - mean[:, None, :]) ** 2, zero).sum(dim=1) / cnt
+    std = torch.clamp(torch.sqrt(var), min=1e-6)
+
+    Xs = torch.sort(torch.where(valid, X, X.new_full((), float("inf"))),
+                    dim=1).values
+    m1 = torch.gather(Xs, 1, ((cnt - 1) // 2)[:, None, :])[:, 0]
+    m2 = torch.gather(Xs, 1, (cnt // 2)[:, None, :])[:, 0]
+    med = 0.5 * (m1 + m2)
+
+    any_valid = count > 0
+    stats = {"median": torch.where(any_valid, med, zero),
+             "mean": torch.where(any_valid, mean, zero),
+             "std": torch.where(any_valid, std, torch.ones_like(std))}
+    Xz, Xl = apply_normalization_device(Xm, Xl, stats)
+    return Xz, Xl, stats

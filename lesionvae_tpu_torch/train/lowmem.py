@@ -1,0 +1,177 @@
+"""The fleet's optimizer, with bfloat16 storage of weights and moments as an
+option: the port of lesionvae_tpu/train/lowmem.py (``_is_weight_leaf``,
+``cast_params_storage``, ``_fused_update``, ``LowmemOptimizer``; its
+``_hash_bits`` and ``_store_round`` are ``ops.sr_adam.hash_bits`` and
+``store_round``).
+
+One step is clip by the member's global gradient norm -> additive weight
+decay -> Adam -> -lr, the formulas and order of ``train.trainer.ClipDecayAdam``,
+for all T members at once on the fleet's two stacked buffers, each member
+with its own norm, finite flag and step count (a skipped step does not
+advance its member's count).  With ``store_dtype=torch.bfloat16`` the
+convolution and dense leaves and their moments are stored in bfloat16: the
+arithmetic stays float32 and the write-back rounds stochastically, with
+noise hashed from (element index, step count, member salt).  That pass is
+``ops.sr_adam.sr_adam_step``: the hand-written kernel on the card, its plain
+version on the CPU.  The BatchNorm scales and shifts stay float32 and take
+the same formulas in a few tensor operations.
+
+The noise is the JAX package's bit for bit.  There an element's index is its
+flat position inside its leaf in the flax layout, and the leaf's number is
+its place in flax's tree order (sorted keys, the float32 leaves counted
+too); the port stores channel-first with permuted dense columns
+(``models.convert``), so ``sr_index_table`` carries each element's
+``index * 0x9E3779B9 + leaf * 0x9E3779B1`` across with the same maps that
+carry the weights.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.convert import _BNS, _CONV_TS, _CONVS, from_jax_params
+from ..models.fleet import FleetState, Layout, is_weight_leaf  # noqa: F401
+from ..ops import sr_adam
+from ..ops.sr_adam import MASK32
+
+_DENSES = ("fc_dec", "fc_logv", "fc_mu")
+
+
+def cast_params_storage(state_dict: Mapping[str, torch.Tensor], lay: Layout,
+                        dtype: torch.dtype = torch.bfloat16
+                        ) -> Dict[str, torch.Tensor]:
+    """Round the weight leaves of a member's state dict to the storage dtype
+    (round to nearest); BatchNorm leaves and statistics stay as they are."""
+    return {k: (v.to(dtype) if k in lay.leaves and is_weight_leaf(k, lay) else v)
+            for k, v in state_dict.items()}
+
+
+def _flax_shape(name: str, shape: Sequence[int]) -> tuple:
+    """The flax shape of the port's parameter ``name``."""
+    module, kind = name.rsplit(".", 1)
+    if kind == "bias" or module in _BNS:
+        return tuple(shape)
+    if module in _CONVS:            # (out, in, k) <- (k, in, out)
+        return (shape[2], shape[1], shape[0])
+    if module in _CONV_TS:          # (in, out, k) <- (k, in, out)
+        return (shape[2], shape[0], shape[1])
+    return (shape[1], shape[0])     # dense (out, in) <- (in, out)
+
+
+@functools.lru_cache(maxsize=16)
+def sr_index_table(lay: Layout) -> torch.Tensor:
+    """int32 (n_weights,): for each element of a member's weight buffer, the
+    bit pattern of ``index * 0x9E3779B9 + leaf * 0x9E3779B1`` modulo 2^32,
+    where index and leaf are the JAX package's (see the module docstring).
+    ``hash_bits(table, step_salt)`` is then the element's noise."""
+    params: Dict[str, dict] = {}
+    stats: Dict[str, dict] = {}
+    leaf = 0
+
+    def base(shape):
+        nonlocal leaf
+        n = int(np.prod(shape))
+        out = ((np.arange(n, dtype=np.int64) * 0x9E3779B9
+                + ((leaf * 0x9E3779B1) & MASK32)) & MASK32).reshape(shape)
+        leaf += 1
+        return out
+
+    # flax's tree order: module names sorted, then bias before kernel/scale
+    for module in sorted(_BNS + _CONVS + _CONV_TS + _DENSES):
+        shape = lambda kind: _flax_shape(  # noqa: E731
+            f"{module}.{kind}", lay.leaves[f"{module}.{kind}"][2])
+        if module in _BNS:
+            params[module] = {"bias": base(shape("bias")),
+                              "scale": base(shape("weight"))}
+            stats[module] = {"mean": np.zeros(1), "var": np.zeros(1)}
+        else:
+            inner = "dense" if module in _DENSES else "conv"
+            params[module] = {inner: {"bias": base(shape("bias")),
+                                      "kernel": base(shape("weight"))}}
+    carried = from_jax_params(params, stats)
+    table = np.empty(lay.n_weights, np.int64)
+    for name in lay.names("weights"):
+        _which, off, shape = lay.leaves[name]
+        assert tuple(carried[name].shape) == shape, name
+        table[off:off + carried[name].numel()] = carried[name].numpy().reshape(-1)
+    # the uint32 values as int32 bit patterns
+    return torch.from_numpy(table.astype(np.uint32).view(np.int32).copy())
+
+
+def draw_salts(members: int, generator: torch.Generator) -> torch.Tensor:
+    """One uint32 salt a member, as int64, from a CPU generator."""
+    return torch.randint(0, 2 ** 32, (members,), generator=generator,
+                         dtype=torch.int64)
+
+
+class LowmemOptimizer:
+    """Clip -> decay -> Adam on a ``FleetState``'s buffers, in place.
+
+    float32 (or float64) storage: ``ClipDecayAdam``'s arithmetic per member.
+    bfloat16 storage of the weight buffer: ``sr_adam_step`` for the weights
+    and the float32 arithmetic for the BatchNorm leaves."""
+
+    def __init__(self, state: FleetState, lr: float, weight_decay: float,
+                 grad_clip: float, salts: Optional[torch.Tensor] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.state = state
+        self.lr, self.wd, self.clip = lr, weight_decay, grad_clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+        T, dev, lay = state.members, state.device, state.layout
+        self.lowmem = state.weights.dtype == torch.bfloat16
+        new = lambda t: sr_adam.alloc_rows(T, t.shape[1], t.dtype, dev)  # noqa: E731
+        self.mu_w, self.nu_w, self.g_w = (new(state.weights) for _ in range(3))
+        self.mu_a, self.nu_a = (torch.zeros_like(state.affine) for _ in range(2))
+        self.count = torch.zeros(T, dtype=torch.int32, device=dev)
+        # the bias corrections are powers in the arithmetic's dtype
+        math_dtype = torch.float32 if self.lowmem else state.dtype
+        self._b1 = torch.tensor(b1, dtype=math_dtype, device=dev)
+        self._b2 = torch.tensor(b2, dtype=math_dtype, device=dev)
+        if self.lowmem:
+            salts = torch.zeros(T, dtype=torch.int64) if salts is None else salts
+            self.salt = salts.to(device=dev, dtype=torch.int64)
+            self.base = sr_index_table(lay).to(dev)
+            self.consts = sr_adam.consts(lr, weight_decay, grad_clip, b1, b2, eps)
+        self._slots = [(name, *lay.leaves[name]) for name in lay.leaves]
+
+    def _adam(self, p, m, v, g, g_norm, bc1, bc2, finite) -> None:
+        g = torch.where(g_norm < self.clip, g, (g / g_norm) * self.clip)
+        g = g + self.wd * p
+        m2 = (1 - self.b1) * g + self.b1 * m
+        v2 = (1 - self.b2) * (g * g) + self.b2 * v
+        u = -self.lr * ((m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps))
+        p.copy_(torch.where(finite, p + u, p))
+        m.copy_(torch.where(finite, m2, m))
+        v.copy_(torch.where(finite, v2, v))
+
+    @torch.no_grad()
+    def step(self, grads: Mapping[str, torch.Tensor], finite: torch.Tensor) -> None:
+        """``grads``: name -> (T, *shape) gradient of each leaf, in the
+        leaf's dtype; ``finite``: (T,) bool, false where the member skips."""
+        st, T = self.state, self.state.members
+        g_a = torch.empty_like(st.affine)
+        for name, which, off, shape in self._slots:
+            dst = self.g_w if which == "weights" else g_a
+            dst[:, off:off + grads[name][0].numel()].copy_(grads[name].reshape(T, -1))
+        g_wide = self.g_w.float() if self.lowmem else self.g_w
+        g_norm = torch.sqrt(torch.sum(g_wide * g_wide, dim=1)
+                            + torch.sum(g_a * g_a, dim=1))
+        count_inc = self.count + 1
+        bc1 = 1 - torch.pow(self._b1, count_inc)
+        bc2 = 1 - torch.pow(self._b2, count_inc)
+        col = lambda x: x[:, None]  # noqa: E731
+        if self.lowmem:
+            salt = (self.salt + count_inc.to(torch.int64) * 0x01000193) & MASK32
+            sr_adam.sr_adam_step(st.weights, self.mu_w, self.nu_w, self.g_w,
+                                 self.base, g_norm, bc1, bc2, salt, finite,
+                                 self.consts)
+        else:
+            self._adam(st.weights, self.mu_w, self.nu_w, self.g_w, col(g_norm),
+                       col(bc1), col(bc2), col(finite))
+        self._adam(st.affine, self.mu_a, self.nu_a, g_a, col(g_norm), col(bc1),
+                   col(bc2), col(finite))
+        self.count = torch.where(finite, count_inc, self.count)

@@ -1,5 +1,5 @@
 """Normative modelling: Sham reconstruction statistics and z-score residuals
-(the port of lesionvae_tpu/train/normative.py:21-100,210-222).
+(the port of lesionvae_tpu/train/normative.py).
 
 Reference semantics (src/vae/vae_model.py:229-334): draw A of the
 reparameterisation noise feeds the Sham reconstruction mean/std (std
@@ -9,6 +9,12 @@ over (position, feature).  Draws come from CPU generators seeded with
 ``seed`` and ``seed + 1`` (``reparam_noise``), so the card and the CPU see
 the same numbers; ``noise=`` / ``eps=`` inject others (the tests pass the
 JAX package's draws).
+
+The ``*_fleet`` functions and ``member_summary`` do the same for every
+member of a stacked fleet (``models.fleet.FleetState``) at once, on padded
+(T, n_pad, L, C) blocks, with draws A and B shared by the members as the
+JAX package shares its two keys; ``member_summary`` reduces the z block on
+the device to per-subject mean-|z| profiles, so only summaries leave it.
 """
 
 from __future__ import annotations
@@ -18,7 +24,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.fleet import FleetState, fleet_forward
 from .trainer import TrainedVAE
+
+# rows of every member that one eval forward of the fleet takes: eval-mode
+# BatchNorm couples no rows, so chunks give the same values and bound the
+# activations (T x rows x 64 channels x L floats a layer)
+EVAL_ROWS = 256
 
 
 def reparam_noise(n: int, latent: int, seed: int) -> torch.Tensor:
@@ -112,3 +124,102 @@ def compute_zscore_residuals(model: TrainedVAE, X_micro, X_lesion,
                    model.as_tensor(std_recon))
     mag = torch.sqrt(torch.mean(z ** 2, dim=(1, 2)))
     return z.cpu().numpy(), mag.cpu().numpy()
+
+
+# ------------------------------------------------------------------ fleet
+def fleet_reconstruct(state: FleetState, Xm: torch.Tensor, Xl: torch.Tensor,
+                      eps: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Eval-mode reconstruction of every member's rows: Xm (T, n, L, Cm), Xl
+    (T, n, L, Cl), eps (n, latent) shared by the members or (T, n, latent).
+    Returns xh (T, n, L, Cm) in the dtype of Xm, nan -> 0."""
+    out = []
+    with torch.no_grad():
+        for r in range(0, Xm.shape[1], EVAL_ROWS):
+            sl = slice(r, r + EVAL_ROWS)
+            xh, _mu, _logv, _ = fleet_forward(
+                state.layout, state.leaves, state.stats, Xm[:, sl], Xl[:, sl],
+                None, eps[..., sl, :], False, compute_dtype)
+            out.append(torch.nan_to_num(xh, nan=0.0).to(Xm.dtype))
+    return torch.cat(out, dim=1)
+
+
+def _fleet_noise(state: FleetState, n: int, seed: int, noise, like: torch.Tensor):
+    latent = state.layout.hyper["latent"]
+    a, b = noise if noise is not None else (reparam_noise(n, latent, seed),
+                                            reparam_noise(n, latent, seed + 1))
+    put = lambda x: (x if isinstance(x, torch.Tensor)  # noqa: E731
+                     else torch.from_numpy(np.array(x))).to(like.device, like.dtype)
+    return put(a), put(b)
+
+
+def normative_core_fleet(state: FleetState, Xm: torch.Tensor, Xl: torch.Tensor,
+                         sham: torch.Tensor, eps_a: torch.Tensor,
+                         eps_b: torch.Tensor,
+                         compute_dtype: Optional[torch.dtype] = None):
+    """``normative_core`` per member: sham (T, n) row mask.  Returns
+    (mean_r (T, L, C), std_r, z (T, n, L, C), mag (T, n)) on the device."""
+    xh_a = fleet_reconstruct(state, Xm, Xl, eps_a, compute_dtype)
+    n_sham = torch.clamp(sham.sum(dim=1), min=1.0)[:, None, None]
+    w = sham[:, :, None, None]
+    mean_r = (xh_a * w).sum(dim=1) / n_sham
+    var_r = (((xh_a - mean_r[:, None]) ** 2) * w).sum(dim=1) / n_sham
+    std_r = torch.clamp(torch.sqrt(var_r), min=1e-6)
+    xh_b = fleet_reconstruct(state, Xm, Xl, eps_b, compute_dtype)
+    z = torch.nan_to_num((Xm - xh_b - mean_r[:, None]) / std_r[:, None],
+                         nan=0.0, posinf=10.0, neginf=-10.0)
+    mag = torch.sqrt(torch.mean(z ** 2, dim=(2, 3)))
+    return mean_r, std_r, z, mag
+
+
+def _fleet_input(X, like: torch.Tensor) -> torch.Tensor:
+    t = X if isinstance(X, torch.Tensor) else torch.from_numpy(np.array(X))
+    return torch.nan_to_num(t.to(like.device).to(torch.float32).to(like.dtype),
+                            nan=0.0)
+
+
+def normative_zscores_fleet(state: FleetState, Xm_T, Xl_T, sham_T, seed: int = 0,
+                            noise: Optional[Tuple] = None):
+    """Normative statistics and z-scores of a whole fleet in one pass: what
+    ``normative_zscores_fused`` gives per member on the padded blocks (pad
+    rows are outside the Sham mask; callers slice ``Z[i, :n_real[i]]``).
+    Returns (mean_T, std_T, Z_T, mag_T) as numpy arrays."""
+    like = state.affine
+    Xm, Xl = _fleet_input(Xm_T, like), _fleet_input(Xl_T, like)
+    sham = _fleet_input(sham_T, like)
+    eps_a, eps_b = _fleet_noise(state, Xm.shape[1], seed, noise, like)
+    out = normative_core_fleet(state, Xm, Xl, sham, eps_a, eps_b)
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def member_summary(state: FleetState, Xm: torch.Tensor, Xl: torch.Tensor,
+                   sham: torch.Tensor, subj_idx: torch.Tensor, n_seg: int,
+                   seed: int = 0, noise: Optional[Tuple] = None,
+                   compute_dtype: Optional[torch.dtype] = None):
+    """The normative summary of every member, on the device: the z block
+    reduces to per-subject mean-|z| profiles by a one-hot matrix product
+    (the mean over a subject's rows, then over features).  ``subj_idx``
+    (T, n) maps each row to a segment in [0, n_seg); pad rows point at an
+    unused one.  Returns (mean_r, std_r, mag (T, n), prof (T, n_seg, L),
+    counts (T, n_seg))."""
+    eps_a, eps_b = _fleet_noise(state, Xm.shape[1], seed, noise, Xm)
+    mean_r, std_r, z, mag = normative_core_fleet(state, Xm, Xl, sham, eps_a,
+                                                 eps_b, compute_dtype)
+    absz = z.abs().mean(dim=3)                                    # (T, n, L)
+    onehot = torch.nn.functional.one_hot(subj_idx, n_seg).to(absz.dtype)
+    counts = onehot.sum(dim=1)                                    # (T, n_seg)
+    prof = (torch.bmm(onehot.transpose(1, 2), absz)
+            / torch.clamp(counts, min=1.0)[:, :, None])
+    return mean_r, std_r, mag, prof, counts
+
+
+def normative_fleet_summary(state: FleetState, Xm_T, Xl_T, sham_T, subj_idx_T,
+                            n_seg: int, seed: int = 0,
+                            noise: Optional[Tuple] = None):
+    """``member_summary`` from host arrays; returns numpy arrays."""
+    like = state.affine
+    idx = torch.as_tensor(np.asarray(subj_idx_T)).to(like.device, torch.int64)
+    out = member_summary(
+        state, _fleet_input(Xm_T, like), _fleet_input(Xl_T, like),
+        _fleet_input(sham_T, like), idx, int(n_seg), seed, noise)
+    return tuple(t.cpu().numpy() for t in out)

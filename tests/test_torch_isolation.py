@@ -49,6 +49,14 @@ def test_source_imports_no_jax(path):
         assert not set(roots) & set(FORBIDDEN), (path, ast.dump(node))
 
 
+def test_the_cohort_fleet_modules_are_on_the_list():
+    """The modules of the cohort fleet are among the sources checked above."""
+    checked = {str(p.relative_to(REPO / "lesionvae_tpu_torch"))
+               for p in (REPO / "lesionvae_tpu_torch").rglob("*.py")}
+    assert {"train/batched.py", "train/lowmem.py", "train/quantize.py",
+            "ops/sr_adam.py", "models/fleet.py"} <= checked
+
+
 def test_entry_point_defaults_to_cuda(tmp_path):
     """Called without ``device``, the stage targets the card: on a host
     without one that is a CUDA error, never a quiet CPU run."""

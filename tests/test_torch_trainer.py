@@ -20,6 +20,11 @@ from lesionvae_tpu_torch.models.convert import from_jax_params
 from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
 from lesionvae_tpu_torch.train import trainer as ttrainer
 
+# Tiny shapes: one intra-op thread.  Several test workers, each with a
+# thread per core inside every small product, oversubscribe the cores and
+# slow these files many times over.
+torch.set_num_threads(1)
+
 SEQ, MC, LC, LAT = 24, 5, 3, 4
 
 

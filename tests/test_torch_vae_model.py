@@ -18,6 +18,11 @@ from lesionvae_tpu_torch.models import layers as tlayers
 from lesionvae_tpu_torch.models.convert import _flat_perm, from_jax_params
 from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
 
+# Tiny shapes: one intra-op thread.  Several test workers, each with a
+# thread per core inside every small product, oversubscribe the cores and
+# slow these files many times over.
+torch.set_num_threads(1)
+
 MC, LC, LAT, N = 13, 3, 10, 7
 TOL = 1e-9
 SEQS = [48, 100]   # 100: odd pooling (25 -> 12) and the final resize 96 -> 100

@@ -32,6 +32,11 @@ from lesionvae_tpu_torch.train import data as tdata
 from lesionvae_tpu_torch.train import normative as tnorm
 from lesionvae_tpu_torch.train.trainer import TrainedVAE
 
+# Tiny shapes: one intra-op thread.  Several test workers, each with a
+# thread per core inside every small product, oversubscribe the cores and
+# slow these files many times over.
+torch.set_num_threads(1)
+
 TRACT, LAT, SEED = "atr_left", 3, 5
 
 
