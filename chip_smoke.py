@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3c and 3d)
+    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d and 3e)
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -10,8 +10,9 @@ Phases; any failure exits non-zero before the result line is printed:
    per source, all started together; timed), and one ``[sass]`` line per
    kernel function: the instructions of its hot loop by class, per
    element-step or per point-direction pair, counted in the machine code.
-   Worker processes write the profiles cohort of 3c and 3d meanwhile (host
-   work only) and have ended before the first timed call and the first path;
+   Worker processes write the bundle cohort of 3c (and the profiles of 3d
+   and 3e) meanwhile (host work only) and have ended before the first timed
+   call and the first path;
 2. every kernel against its plain PyTorch version on the card:
    - radius, float32, at the test shapes, at N, counts and D on and beside
      the kernel's chunk and tile edges, the full-scale shape (B=104,
@@ -28,6 +29,14 @@ Phases; any failure exits non-zero before the result line is printed:
      p, m and v (float32 IEEE in the same order, integer rounding); and
      again, in phase 4, at the cohort path's shape (64 members x the weight
      elements of a full-width member, the model's own index table);
+   - the geometry kernel, both modes (float32 points, u16 delta codes), at
+     P in {32, 48, 64, 128, 256} with S on and beside the block's streamline
+     count, at 32,768 x 64, and on adversarial rows (straight lines, planar
+     circles, duplicate points, n = 1..4, a zero-length curve, spectra either
+     side of the certificate's gates): values within 1e-5 x max(1, |plain|),
+     the verdict columns (valid, eigen_ok, the two inf gates) equal in every
+     row, the elements that differ at all counted, and the same bits on
+     repeated calls;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -37,7 +46,13 @@ Phases; any failure exits non-zero before the result line is printed:
       T=64 members x P=2,867,200 bf16 parameters, K in {1, 10, 30}, in both
       forms: the kernel's whole output bit-equal to the plain loop's, and
       both timed;
-   c. the ``vae`` CLI stage on ``cuda`` at full width (seq 100, 13 + 3
+   c. the geometry stage (``launch_geometry``, as ``run_geometry`` and the
+      ``geometry`` CLI stage run it) on ``cuda`` over the full-scale bundle
+      cohort (37 subjects x 4 timepoints x 16 tracts = 2,368 bundles of 100
+      streamlines, 236,800 streamlines); its three CSVs checked and held
+      against a CPU float32 run of the port, and the ``u16d`` upload held
+      against ``f32`` (per streamline and per bundle);
+   d. the ``vae`` CLI stage on ``cuda`` at full width (seq 100, 13 + 3
       channels, latent 10, batch 64; 10 epochs, a quarter of the config's
       depth) over the first tract of the full-scale profiles cohort (37
       subjects x 4 timepoints, 925 rows each); the
@@ -46,7 +61,7 @@ Phases; any failure exits non-zero before the result line is printed:
       must exceed every one of those bounds; then the
       ``score`` CLI stage on ``cuda`` serving a saved model, held against a
       CPU float32 ``score_subjects``;
-   d. the cohort fleet at full width: a profiles cohort for the 16 geometry
+   e. the cohort fleet at full width: a profiles cohort for the 16 geometry
       tracts (37 subjects x 4 timepoints, 925 rows a member), the
       ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
       trained as one program, 40 epochs = 600 fleet steps, each one launch
@@ -58,7 +73,9 @@ Phases; any failure exits non-zero before the result line is printed:
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
-   the bound that counts the instructions the card must issue).
+   the bound that counts the instructions the card must issue; the geometry
+   kernel at the path's largest chunk, 32,768 x 64, and summed over the
+   stage's launches).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -125,6 +142,29 @@ ALONE_TOL, ALONE_MOVE = 5e-4, 0.2
 # stochastic-rounding Adam: rows (ragged but for 4096) x members
 SR_ROWS = [1, 7, 9, 4096, 65539, 1_000_003]
 SR_MEMBERS = [1, 3, 64]
+# the geometry path: the config's 16 geometry tracts over bench.py's cohort
+# (37 subjects x 4 timepoints), the CLI's --max-streamlines 100
+GEO_STREAMLINES, GEO_BUNDLES = 100, 37 * 4 * 16
+GEO_P = [32, 48, 64, 128, 256]
+GEO_COLS = ["n_streamlines", "length_mean", "tortuosity_mean", "curv_mean_avg",
+            "curv_energy_mean", "torsion_mean_avg", "bend_angle_mean_avg",
+            "elongation_ratio_mean", "planarity_ratio_mean", "anisotropy_ratio_mean",
+            "ang_dispersion_mean", "centroid_x_mean", "centroid_y_mean",
+            "centroid_z_mean", "subject_id", "timepoint", "tract", "group"]
+GEO_CSVS = ("comprehensive_tract_geometry_metrics.csv",
+            "summary_statistics_by_group_timepoint.csv",
+            "summary_statistics_by_tract_group.csv")
+# u16d against f32: per streamline, p99 of |u16d - f32| / max(|f32|, 1e-12)
+# over every column but torsion (the JAX package's probe read <= 3e-4), but
+# curvature energy, a sum of squared curvatures, at 4e-4: the JAX package's
+# own decode reads 3.06e-4 there on 20,000 49-60-point synth streamlines
+# (the port's 3.12e-4; a CPU run of both).  Per bundle, the band
+# tests/test_geo_codec.py pins, rtol 2e-3 and atol 1e-6, but curvature
+# energy and torsion (host float64 against the card's float32) at 1e-2: on
+# this cohort the JAX package's own u16d run moves their bundle means by up
+# to 4.04e-3 and 5.3e-3 (the port's: 4.04e-3 and 4.9e-3; a CPU run of both)
+CODEC_P99, CODEC_P99_ENERGY, CODEC_RTOL, CODEC_ATOL = 3e-4, 4e-4, 2e-3, 1e-6
+CODEC_RTOL_WIDE = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -133,11 +173,12 @@ def fail(msg: str) -> None:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
-    from lesionvae_tpu_torch.ops import radius, resident_adam, sr_adam
+    from lesionvae_tpu_torch.ops import geometry, radius, resident_adam, sr_adam
 
     radius.sample_radii.launches = 0
     resident_adam.resident_adam.launches = 0
     sr_adam.sr_adam_step.launches = 0
+    geometry.streamline_metrics_stacked.launches = 0
 
 
 def card_line() -> str:
@@ -152,7 +193,8 @@ def card_line() -> str:
 # loop, and what that unit is
 SASS_UNITS = {"radius": (r"^FMNMX", "pair"),
               "resident_adam": (r"^MUFU\.RSQ", "element-step"),
-              "sr_adam": (r"^MUFU\.RSQ", "element")}
+              "sr_adam": (r"^MUFU\.RSQ", "element"),
+              "geometry": (r"^MUFU", "MUFU op")}
 
 
 def short_name(mangled: str) -> str:
@@ -164,6 +206,8 @@ def short_name(mangled: str) -> str:
     args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
     if m.group(1) == "resident_adam_kernel" and args in (["0"], ["1"]):
         args = ["fastmath" if args == ["1"] else "ieee"]
+    if m.group(1) == "geometry_kernel" and args in (["0"], ["1"]):
+        args = ["u16" if args == ["1"] else "f32"]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -510,6 +554,152 @@ def sr_adam_at_path_shape(members: int, lay) -> dict:
             "max_abs_err": worst}
 
 
+
+# ---------------------------------------------------------------- geometry kernel
+def curve_with_spectrum(rng, n: int, lam) -> np.ndarray:
+    """n points whose ddof-1 covariance has the eigenvalues ``lam`` (in a
+    random orientation), about the origin."""
+    z = rng.normal(size=(n, 3))
+    q, _ = np.linalg.qr(z - z.mean(axis=0))
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    return (q * np.sqrt(np.asarray(lam) * (n - 1))) @ rot.T
+
+
+def geometry_adversarial(P: int, seed: int):
+    """Rows that sit on the metrics' edges, each with the eigen certificate
+    it must get (None: whatever it gets): straight lines (λ2 = λ3 = 0, both
+    ratios inf), planar circles (λ3 = 0), duplicate consecutive points, n = 1
+    to 4, a zero-length curve (not valid), and spectra 2% either side of
+    EIGEN_SAFE_REL·λ1 (in λ3) and of EIGEN_SAFE_ABS (in λ1)."""
+    from lesionvae_tpu_torch.ops.geometry import EIGEN_SAFE_ABS, EIGEN_SAFE_REL
+
+    rng = np.random.default_rng(seed)
+    n = min(P, 40)
+    t = np.linspace(0, 1, n)
+    dup = np.cumsum(rng.normal(size=(n, 3)), axis=0)
+    dup[3:6] = dup[2]
+    rows = [(np.stack([10 * t, 0 * t, 0 * t], 1), False),
+            (np.stack([4 * t, 4 * t, 4 * t], 1), False),
+            (np.stack([3 * np.cos(6 * t), 3 * np.sin(6 * t), 0 * t], 1), False),
+            (dup, None), (np.full((n, 3), 2.5), False)]
+    rows += [(rng.normal(size=(k, 3)) * 3, None) for k in (1, 2, 3, 4)]
+    for side in (1.02, 0.98):
+        rows.append((curve_with_spectrum(rng, n, [4.0, 0.4, 4.0 * EIGEN_SAFE_REL * side]),
+                     side > 1))
+        rows.append((curve_with_spectrum(rng, n, [EIGEN_SAFE_ABS * side, 0.3 * EIGEN_SAFE_ABS,
+                                                  0.1 * EIGEN_SAFE_ABS]), side > 1))
+    return [r for r, _ in rows], [e for _, e in rows]
+
+
+def geometry_inputs(sls, P: int):
+    """The kernel's inputs in both modes on the card: ((points, lengths),
+    (codes, p0, lo, sc, lengths)) of the float32 padded bundle."""
+    from lesionvae_tpu_torch.ops.geo_codec import encode_u16_delta
+    from lesionvae_tpu_torch.ops.padding import pad_streamlines
+
+    pts, lens = pad_streamlines(sls, max_points=P)
+    codes, p0, lo, sc = encode_u16_delta(pts, lens)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")  # noqa: E731
+    return ((dev(pts), dev(lens)),
+            (dev(codes.view(np.int16)), dev(p0), dev(lo), dev(sc), dev(lens)))
+
+
+def geometry_compare(got, want, where: str) -> tuple[float, int]:
+    """Fails unless the kernel's (19, S) output is within KERNEL_TOL x
+    max(1, |plain|) of the plain version's with inf and NaN in the same
+    places, and the verdict columns (valid, eigen_ok, the inf gates of
+    elongation and planarity) are equal in every row.  Returns (largest
+    |kernel - plain|, elements whose bits differ)."""
+    from lesionvae_tpu_torch.ops.geometry import STACKED_NAMES
+
+    torch.cuda.synchronize()
+    for k in ("valid", "eigen_ok"):
+        r = STACKED_NAMES.index(k)
+        if not torch.equal(got[r], want[r]):
+            fail(f"geometry kernel: {k} differs from the plain version in "
+                 f"{int((got[r] != want[r]).sum())} rows at {where}")
+    for k in ("elongation_ratio", "planarity_ratio"):
+        r = STACKED_NAMES.index(k)
+        if not torch.equal(torch.isinf(got[r]), torch.isinf(want[r])):
+            fail(f"geometry kernel: the inf gate of {k} differs from the plain "
+                 f"version at {where}")
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))):
+        fail(f"geometry kernel: inf or NaN in other places than the plain version at {where}")
+    fin = torch.isfinite(want)
+    err = torch.where(fin, (got - want).abs(), torch.zeros_like(got))
+    if bool((err > KERNEL_TOL * want.abs().clamp(min=1.0)).any()):
+        r = int(err.max(dim=1).values.argmax())
+        fail(f"geometry kernel disagrees with its plain version at {where}: "
+             f"{STACKED_NAMES[r]} off by {float(err[r].max()):.3e}")
+    differ = (got.view(torch.int32) != want.view(torch.int32)) & ~(
+        torch.isnan(got) & torch.isnan(want))
+    return float(err.max()), int(differ.sum())
+
+
+def geometry_errors() -> float:
+    """The kernel against its plain version in both modes: random bundles at
+    every P of GEO_P with S on and beside the block's streamline count,
+    adversarial rows at every P (their eigen certificates as designed), the
+    full chunk 32,768 x 64, and the same bits on repeated calls there.
+    Returns the largest |kernel - plain|."""
+    from lesionvae_tpu_torch.io.synth import make_bundle
+    from lesionvae_tpu_torch.ops import geometry as g
+
+    worst, differ, elements, cases = 0.0, 0, 0, 0
+    rng = np.random.default_rng(55)
+
+    def random_rows(S, P):
+        sls = []
+        while len(sls) < S:
+            sls += make_bundle(rng, min(100, S - len(sls)), min_pts=3, max_pts=P)
+        return sls
+
+    def check(sls, P, where, expect=None):
+        nonlocal worst, differ, elements, cases
+        f32, u16 = geometry_inputs(sls, P)
+        for mode, fn, plain, args in (
+                ("f32", g.streamline_metrics_stacked, g.streamline_metrics_stacked_plain, f32),
+                ("u16", g.streamline_metrics_stacked_u16,
+                 g.streamline_metrics_stacked_u16_plain, u16)):
+            got, want = fn(*args), plain(*args)
+            e, d = geometry_compare(got, want, f"{where} {mode}")
+            worst, differ, elements, cases = max(worst, e), differ + d, elements + got.numel(), cases + 1
+            if expect is not None and mode == "f32":
+                ok = want[g.STACKED_NAMES.index("eigen_ok")].cpu().numpy() > 0.5
+                for i, x in enumerate(expect):
+                    if x is not None and ok[i] != x:
+                        fail(f"geometry: adversarial row {i} at P={P} got eigen_ok "
+                             f"{ok[i]}, built for {x}")
+        return f32, u16
+
+    for P in GEO_P:
+        sizes = set()
+        for u16 in (False, True):
+            spb = g.block_streamlines(P, u16)[0]
+            sizes |= {spb - 1, spb, spb + 1, 3 * spb + 5}
+        for S in sorted(x for x in sizes if x > 0):
+            check(random_rows(S, P), P, f"S={S} P={P}")
+        adv, expect = geometry_adversarial(P, seed=P)
+        check(adv + random_rows(7, P), P, f"adversarial rows P={P}", expect + [None] * 7)
+    f32, u16 = check(random_rows(32768, 64), 64, "S=32768 P=64")
+    for name, fn, args in (("f32", g.streamline_metrics_stacked, f32),
+                           ("u16", g.streamline_metrics_stacked_u16, u16)):
+        first = fn(*args)
+        for _ in range(5):
+            if not torch.equal(fn(*args), first):
+                fail(f"geometry kernel ({name}): two calls on the same inputs gave "
+                     "different bits")
+    print(f"[kernels] geometry vs plain, f32 points and u16 codes, at P {GEO_P} with S "
+          f"on and beside the block's streamline count, adversarial rows (lines, "
+          f"circles, duplicate points, n = 1..4, zero length, spectra 2% either side of "
+          f"both certificate gates) and 32768 x 64 ({cases} cases): verdict columns "
+          f"equal in every row, max abs err {worst:.3e} (tol {KERNEL_TOL} x max(1,|plain|)), "
+          f"{differ} of {elements} elements differ in any bit; 6 calls at 32768 x 64 "
+          "gave the same bits in both modes")
+    return worst
+
+
 # ---------------------------------------------------------------- the path
 LENIENT_COLS = (
     ["subject_id", "timepoint", "original_volume_mm3", "brain_volume_mm3",
@@ -594,6 +784,189 @@ def check_path(root: Path):
           f"{launches}; cuda vs cpu float32 max rel err {np.nanmax(rel):.3e}")
     print("[path] stage wall-clock on cuda (s): " + json.dumps(stages))
     return launches, main_path_radius_inputs(cfg, root / "data")
+
+
+
+# ---------------------------------------------------------------- the geometry path
+def read_bundles(cfg, data_dir: Path):
+    """The path's bundles in the order ``launch_all_tracts`` reads them."""
+    from lesionvae_tpu_torch.io.vtk import read_streamlines
+    from lesionvae_tpu_torch.pipeline import geometry_run as gr
+
+    return [read_streamlines(gr.decompress_vtk_if_needed(
+        gr.bundle_path(data_dir, sid, tp, tract)), max_streamlines=GEO_STREAMLINES)
+        for sids in cfg.subjects_by_group().values() for sid in sorted(sids)
+        for tp in cfg.timepoints for tract in cfg.geometry_tracts]
+
+
+def compare_frames(got, want, tol: float, where: str) -> float:
+    """Columns and text cells equal, inf and NaN in the same places, numeric
+    cells within ``tol`` x max(1, |want|); returns the largest such error."""
+    import pandas as pd
+
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        fail(f"{where}: columns {list(got.columns)} x {len(got)} rows against "
+             f"{list(want.columns)} x {len(want)}")
+    worst, worst_col = 0.0, None
+    for col in want.columns:
+        if not pd.api.types.is_numeric_dtype(want[col]):
+            if list(got[col].astype(str)) != list(want[col].astype(str)):
+                fail(f"{where}: column {col} differs")
+            continue
+        g, w = got[col].to_numpy(float), want[col].to_numpy(float)
+        if not (np.array_equal(np.isinf(g), np.isinf(w)) and np.array_equal(
+                np.isnan(g), np.isnan(w))):
+            fail(f"{where}: inf or NaN of {col} in other places")
+        fin = np.isfinite(w)
+        if fin.any():
+            err = float(np.max(np.abs(g[fin] - w[fin]) / np.maximum(1.0, np.abs(w[fin]))))
+            if err > tol:
+                fail(f"{where}: {col} off by {err:.3e} (tol {tol})")
+            if err > worst:
+                worst, worst_col = err, col
+    print(f"[path] {where}: worst column {worst_col}, {worst:.3e}")
+    return worst
+
+
+def check_geometry(root: Path, cfg) -> dict:
+    """The geometry stage on cuda over the full-scale bundle cohort under
+    ``root``, through ``launch_geometry`` (what ``run_geometry`` and the CLI
+    run); its CSVs checked, then held against a CPU float32 run and the
+    ``u16d`` upload against ``f32``.  Returns the kernel's launches on the
+    path and its inputs there (for the timings of phase 4)."""
+    import pandas as pd
+
+    from lesionvae_tpu_torch.ops import geometry as g
+    from lesionvae_tpu_torch.pipeline import geometry_run as gr
+    from lesionvae_tpu_torch.utils import profiling
+
+    data = root / "data"
+    out = {dev: root / "results" / f"geometry_{dev}" for dev in ("cuda", "cpu", "u16d")}
+    profiling.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    with profiling.stage("geometry"):
+        finish = gr.launch_geometry(cfg, data_dir=data, output_dir=out["cuda"],
+                                    max_streamlines=GEO_STREAMLINES, device="cuda")
+        df = finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = g.streamline_metrics_stacked.launches
+    spans = profiling.report()
+    num = df.select_dtypes("number")
+    if (len(df) != GEO_BUNDLES or list(df.columns) != GEO_COLS
+            or not (df["n_streamlines"] == GEO_STREAMLINES).all()
+            or not np.isfinite(num.to_numpy(float)).all()):
+        fail(f"geometry on cuda: {len(df)} rows, columns {list(df.columns)}, "
+             f"n_streamlines {sorted(set(df['n_streamlines']))}")
+    if launches < 1 or launches != finish.metrics.launches:
+        fail(f"the geometry stage on cuda launched the kernel {launches} times "
+             f"({finish.metrics.launches} chunks)")
+    print(f"[path] geometry stage on cuda: {len(df)} bundles, "
+          f"{finish.metrics.streamlines} streamlines, kernel launches {launches}, "
+          f"{finish.metrics.refined} rows refined in f64; stage {wall:.2f}s")
+    print("[path] geometry spans on cuda (s): " + json.dumps(spans))
+
+    # a CPU float32 run of the port on the same bundles
+    t0 = time.perf_counter()
+    gr.run_geometry(cfg, data_dir=data, output_dir=out["cpu"],
+                    max_streamlines=GEO_STREAMLINES, device="cpu", dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    errs = [compare_frames(pd.read_csv(out["cuda"] / f), pd.read_csv(out["cpu"] / f),
+                           PATH_TOL, f"geometry cuda vs cpu float32, {f}") for f in GEO_CSVS]
+    print(f"[path] geometry cuda vs cpu float32 ({cpu_s:.1f}s on the cpu): the three "
+          f"CSVs' numeric cells max rel err {max(errs):.3e} (tol {PATH_TOL} x "
+          f"max(1,|x|)), inf and NaN in the same places")
+
+    # the u16 delta upload: against a CPU float32 run of the same upload
+    # (torsion comes from the host's float64 on both sides: equal), then per
+    # bundle against the f32 run
+    t0 = time.perf_counter()
+    before = g.streamline_metrics_stacked.launches
+    u16 = gr.launch_geometry(cfg, data_dir=data, output_dir=out["u16d"],
+                             max_streamlines=GEO_STREAMLINES, upload="u16d",
+                             device="cuda")()
+    u16_s = time.perf_counter() - t0
+    u16_launches = g.streamline_metrics_stacked.launches - before
+    u16_cpu = gr.launch_geometry(cfg, data_dir=data, output_dir=root / "results" / "u16d_cpu",
+                                 max_streamlines=GEO_STREAMLINES, upload="u16d",
+                                 device="cpu", dtype=torch.float32)()
+    u16_err = compare_frames(u16, u16_cpu, PATH_TOL, "geometry u16d cuda vs cpu float32")
+    if not np.array_equal(u16["torsion_mean_avg"], u16_cpu["torsion_mean_avg"]):
+        fail("geometry u16d: the host float64 torsion differs between the cuda and cpu runs")
+    worst = {}
+    for col in GEO_COLS[1:14]:
+        a, b = df[col].to_numpy(float), u16[col].to_numpy(float)
+        rtol = (CODEC_RTOL_WIDE if col in ("curv_energy_mean", "torsion_mean_avg")
+                else CODEC_RTOL)
+        if not np.array_equal(np.isinf(a), np.isinf(b)) or bool(
+                (np.abs(a - b) > CODEC_ATOL + rtol * np.abs(a)).any()):
+            bad = np.abs(a - b) / np.maximum(np.abs(a), 1e-12)
+            fail(f"geometry u16d vs f32: bundle column {col} off by {bad.max():.3e} "
+                 f"(rtol {rtol}, atol {CODEC_ATOL})")
+        worst[col] = float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12)))
+    if not u16[GEO_COLS[14:]].equals(df[GEO_COLS[14:]]) or (
+            u16["n_streamlines"] != df["n_streamlines"]).any():
+        fail("geometry u16d vs f32: other bundles or counts")
+
+    # and per streamline, chunk by chunk as the path launched them
+    bundles = read_bundles(cfg, data)
+    plan = gr.chunk_plan(bundles)
+    shifts = {k: [] for k in g.STACKED_NAMES[:17] if k != "torsion_mean"}
+    flagged = [0, 0]
+    chunks = []
+    for P, chunk, S_pad in plan:
+        sls = [sl for _, sl in chunk]
+        sls = sls + [sls[-1]] * (S_pad - len(sls))
+        f32_in, u16_in = geometry_inputs(sls, P)
+        chunks.append((P, f32_in, u16_in, f32_in[1].cpu().numpy()))
+        a = g.streamline_metrics_stacked(*f32_in)[:, :len(chunk)].cpu().numpy()
+        b = g.streamline_metrics_stacked_u16(*u16_in)[:, :len(chunk)].cpu().numpy()
+        ok = g.STACKED_NAMES.index("eigen_ok")
+        flagged[0] += int((a[ok] < 0.5).sum())
+        flagged[1] += int((b[ok] < 0.5).sum())
+        for k in shifts:
+            r = g.STACKED_NAMES.index(k)
+            fin = np.isfinite(a[r]) & np.isfinite(b[r])
+            shifts[k].append(np.abs(b[r][fin] - a[r][fin]) / np.maximum(np.abs(a[r][fin]), 1e-12))
+    p99 = {k: float(np.percentile(np.concatenate(v), 99)) for k, v in shifts.items()}
+    if any(v > (CODEC_P99_ENERGY if k == "curv_energy" else CODEC_P99)
+           for k, v in p99.items()):
+        fail(f"geometry u16d vs f32 per streamline: p99 shift {p99}")
+    print(f"[path] geometry u16d upload on cuda: stage {u16_s:.2f}s, {u16_launches} "
+          f"launches; against a cpu float32 u16d run max rel err {u16_err:.3e} (tol "
+          f"{PATH_TOL}), torsion equal; against f32, bundle columns within rtol "
+          f"{CODEC_RTOL} (curv_energy and torsion {CODEC_RTOL_WIDE}); per streamline p99 shift "
+          f"{max(p99.values()):.3e} ({max(p99, key=p99.get)}; tol {CODEC_P99}, curv_energy "
+          f"{CODEC_P99_ENERGY}), "
+          f"eigen-ambiguous rows f32 {flagged[0]} / u16d {flagged[1]}")
+    print("[path] geometry u16d per-streamline p99 shifts: " + json.dumps(p99))
+    print("[path] geometry u16d vs f32 bundle columns, max rel: " + json.dumps(worst))
+    return {"launches": launches, "chunks": chunks, "wall": wall, "spans": spans}
+
+
+def geometry_timings(chunks) -> dict:
+    """The kernel at the path's largest chunk (32,768 x 64 when the P = 64
+    bucket fills one) in both modes, held against its plain version first,
+    and summed over every launch of the stage, beside ``ops.geometry.bound_ms``."""
+    from lesionvae_tpu_torch.ops import geometry as g
+
+    P, f32_in, u16_in, lens = max(chunks, key=lambda c: (c[1][0].shape[0] * c[0], c[0]))
+    err, differ = geometry_compare(g.streamline_metrics_stacked(*f32_in),
+                                   g.streamline_metrics_stacked_plain(*f32_in),
+                                   f"the path's chunk {tuple(f32_in[0].shape[:2])}")
+    ms = device_ms(lambda: g.streamline_metrics_stacked(*f32_in))
+    plain_ms = device_ms(lambda: g.streamline_metrics_stacked_plain(*f32_in), reps=3, inner=2)
+    u16_ms = device_ms(lambda: g.streamline_metrics_stacked_u16(*u16_in))
+    bound, by = g.bound_ms(lens, P)
+    stage_ms = sum(device_ms(lambda c=c: g.streamline_metrics_stacked(*c[1]), reps=5, inner=10)
+                   for c in chunks)
+    stage_bound = sum(g.bound_ms(c[3], c[0])[0] for c in chunks)
+    return {"S": int(f32_in[0].shape[0]), "P": P, "ms": ms, "plain_ms": plain_ms,
+            "u16_ms": u16_ms, "bound_ms": bound, "bound_by": by,
+            "u16_bound_ms": g.bound_ms(lens, P, u16=True)[0],
+            "stage_ms": stage_ms, "stage_bound_ms": stage_bound,
+            "launches_timed": len(chunks), "max_abs_err": err, "bits_differ": differ}
 
 
 # ---------------------------------------------------------------- the VAE path
@@ -979,19 +1352,20 @@ def check_cohort_against_cpu(root: Path, cfg) -> None:
               f"{block:.3e} of the float32 upload's (tol 1e-3)")
 
 
-def start_profiles_cohort(root: Path, cfg, pool):
-    """Write the full-scale profiles cohort (16 tracts, 37 subjects x 4
-    timepoints) under ``root``, one subject a task on ``pool``.  A subject's
-    files depend on the seed, the subject and the timepoint alone, so the
-    cohort is the one a single call writes."""
+def start_cohort(root: Path, cfg, pool, profiles: bool):
+    """Write the full-scale cohort of paths 3c-3e under ``root`` (16 tracts,
+    37 subjects x 4 timepoints: bundles of 100 streamlines and, with
+    ``profiles``, the profile CSVs), one subject a task on ``pool``.  A
+    subject's files depend on the seed, the subject and the timepoint alone,
+    so the cohort is the one a single call writes."""
     return [pool.submit(generate_cohort, root, cfg, seed=SEED, volume_shape=(8,) * 3,
-                        subjects={group: [sid]}, with_profiles=True,
-                        n_streamlines=VAE_STREAMLINES)
+                        subjects={group: [sid]}, with_profiles=profiles,
+                        with_bundles=True, n_streamlines=VAE_STREAMLINES)
             for group, sids in cfg.subjects_by_group().items() for sid in sids]
 
 
 def run_vae_paths(root: Path, cfg) -> int:
-    """Paths 3c and 3d over the profiles cohort under ``root``; returns the
+    """Paths 3d and 3e over the profiles cohort under ``root``; returns the
     SR Adam kernel's launches on the cohort path."""
     check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
@@ -1013,11 +1387,11 @@ def main(argv=None) -> int:
     from lesionvae_tpu_torch.core.config import load_config
     from lesionvae_tpu_torch.ops import cuda_build, radius
 
-    # 1. environment + build.  The profiles cohort of paths 3c and 3d is
-    # host work only (~4 minutes on one core): worker processes write it
-    # beside the build and the kernel checks, which time nothing, and are
-    # waited for before the first timing, so that no timed call and no path
-    # shares the host with them.
+    # 1. environment + build.  The cohort of paths 3c-3e is host work only
+    # (~4 minutes on one core): worker processes write it beside the build
+    # and the kernel checks, which time nothing, and are waited for before
+    # the first timing, so that no timed call and no path shares the host
+    # with them.
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1025,17 +1399,15 @@ def main(argv=None) -> int:
     print(f"[env] nvidia-smi: {card}")
     cfg = load_config()
     with contextlib.ExitStack() as stack:
-        vae_root, writers = None, []
-        if not args.skip_vae:
-            vae_root = Path(stack.enter_context(
-                tempfile.TemporaryDirectory(prefix="lesionvae_vae_smoke_")))
-            pool = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
-                max_workers=min(8, os.cpu_count() or 1),
-                mp_context=multiprocessing.get_context("spawn")))
-            t_cohort = time.perf_counter()
-            writers = start_profiles_cohort(vae_root, cfg, pool)
+        cohort_root = Path(stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="lesionvae_cohort_smoke_")))
+        pool = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")))
+        t_cohort = time.perf_counter()
+        writers = start_cohort(cohort_root, cfg, pool, profiles=not args.skip_vae)
         t0 = time.perf_counter()
-        built = cuda_build.build(["radius", "resident_adam", "sr_adam"])
+        built = cuda_build.build(["radius", "resident_adam", "sr_adam", "geometry"])
         print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
         sass_lines()
 
@@ -1056,13 +1428,14 @@ def main(argv=None) -> int:
         radius_nan_check()
         resident_worst = resident_errors()
         sr_worst = sr_adam_errors()
+        geo_worst = geometry_errors()
         for w in writers:
             w.result()
-        if writers:
-            pool.shutdown()
-            print(f"[path] profiles cohort ({len(cfg.geometry_tracts)} tracts, 37 "
-                  f"subjects x 4 timepoints) written by {len(writers)} tasks, done "
-                  f"{time.perf_counter() - t_cohort:.1f}s after their start")
+        pool.shutdown()
+        print(f"[path] {'bundle' if args.skip_vae else 'bundle and profiles'} cohort "
+              f"({len(cfg.geometry_tracts)} tracts, 37 subjects x 4 timepoints) written "
+              f"by {len(writers)} tasks, done {time.perf_counter() - t_cohort:.1f}s "
+              "after their start")
         full_ms = device_ms(lambda: radius.sample_radii(*full))
         full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
         full_bound, full_by = radius_bound_ms(full)
@@ -1080,12 +1453,13 @@ def main(argv=None) -> int:
             print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
             launches, path_inputs = check_path(root)
         probe, probe_launches = check_probe()
+        geo = check_geometry(cohort_root, cfg)
         sr_launches = 0
         if args.skip_vae:
             print("[path] vae, score, vae-cohort and score-cohort paths skipped "
                   "(--skip-vae)")
         else:
-            sr_launches = run_vae_paths(vae_root, cfg)
+            sr_launches = run_vae_paths(cohort_root, cfg)
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)
@@ -1106,6 +1480,10 @@ def main(argv=None) -> int:
     from lesionvae_tpu_torch.models.fleet import layout
     sr = sr_adam_at_path_shape(COHORT_MEMBERS, layout(100, 13, 3, VAE_LATENT))
     print("[kernels] SR Adam at the cohort path's shape: " + json.dumps(sr))
+    # the geometry kernel at the path's largest chunk and over all its chunks
+    gt = geometry_timings(geo["chunks"])
+    print("[kernels] geometry at the path's largest chunk and over the stage's "
+          "launches: " + json.dumps(gt))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "radius", "route": "cuda",
@@ -1130,7 +1508,15 @@ def main(argv=None) -> int:
         "max_abs_err": max(sr_worst, sr["max_abs_err"]), "ms": sr["ms"],
         "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
         "bound_by": sr["bound_by"], "issue_bound_ms": sr["issue_bound_ms"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "geometry", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/geometry.cu",
+        "replaces": "lesionvae_tpu/ops/geometry.py:347 (XLA fusion, no Pallas kernel)",
+        "launches": geo["launches"], "max_abs_err": max(geo_worst, gt["max_abs_err"]),
+        "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
+        "bound_by": gt["bound_by"], "library_ms": None, "shape": [gt["S"], gt["P"]],
+        "u16_ms": gt["u16_ms"], "stage_ms": gt["stage_ms"],
+        "stage_bound_ms": gt["stage_bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

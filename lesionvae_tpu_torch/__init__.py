@@ -1,7 +1,10 @@
 """lesionvae_tpu_torch — the PyTorch/CUDA port of ``lesionvae_tpu`` for one
 NVIDIA H100, built slice by slice beside the JAX package it is held against.
 
-Ported so far: the lesion SH + heme stage (``analyze_single_lesion``,
+Ported so far: the tract-geometry stage (``run_geometry`` and its
+launch/finish split ``launch_geometry``), with the 17 streamline metrics as a
+CUDA kernel written by hand for Hopper (ops/csrc/geometry.cu); the lesion
+SH + heme stage (``analyze_single_lesion``,
 ``run_lesion_analysis`` and its launch/finish split), with radius sampling
 as a CUDA kernel written by hand for Hopper (ops/csrc/radius.cu); the
 single-tract VAE stage (``run_vae_analysis``: train -> normative z-scores)
@@ -18,6 +21,7 @@ __all__ = [
     "analyze_single_lesion", "analyze_all_lesions", "launch_lesion_analysis",
     "run_lesion_analysis", "run_lesion_shape_descriptors",
     "run_vae_analysis", "train_lesion_vae", "score_subjects",
+    "run_geometry", "launch_geometry",
 ]
 
 __version__ = "0.2.0"
@@ -25,7 +29,9 @@ __version__ = "0.2.0"
 _LAZY = {name: "pipeline.lesion_run" for name in __all__[4:9]}
 _LAZY.update(run_vae_analysis="pipeline.vae_run",
              train_lesion_vae="train.trainer",
-             score_subjects="pipeline.infer")
+             score_subjects="pipeline.infer",
+             run_geometry="pipeline.geometry_run",
+             launch_geometry="pipeline.geometry_run")
 
 
 def __getattr__(name):  # lazy: keep `import lesionvae_tpu_torch` light

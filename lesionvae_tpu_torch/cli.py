@@ -1,16 +1,18 @@
 """Command-line entry point of the PyTorch port:
 
+    python -m lesionvae_tpu_torch geometry [--max-streamlines N] [--upload {f32,u16d}] ...
     python -m lesionvae_tpu_torch lesion [--strict] [--device {cuda,cpu}] ...
     python -m lesionvae_tpu_torch vae    --tract atr_left [--no-plots] ...
     python -m lesionvae_tpu_torch score  --checkpoint DIR --normative NPZ --tract T --timepoint TP
     python -m lesionvae_tpu_torch vae-cohort   [--tracts ...] [--store bf16] [--save-checkpoints] ...
     python -m lesionvae_tpu_torch score-cohort [--cohort-dir DIR] [--subjects ...]
+    python -m lesionvae_tpu_torch synth  [--n-streamlines N] [--volume V]
 
-Ported so far: the lesion SH + heme stage, the single-tract VAE stage,
-serving a saved VAE, and the cohort forms of both (the whole
-(tract x timepoint) fleet trained and served as one program); the other
-stages of ``python -m lesionvae_tpu`` come
-with their slices.  Every stage runs on the card unless ``--device cpu`` is
+Ported so far: the tract-geometry stage, the lesion SH + heme stage, the
+single-tract VAE stage, serving a saved VAE, the cohort forms of both (the
+whole (tract x timepoint) fleet trained and served as one program), and the
+synthetic cohort; ``classify``, ``correlate`` and ``all`` of
+``python -m lesionvae_tpu`` come with their slices.  Every stage runs on the card unless ``--device cpu`` is
 given; there is no automatic fallback.
 """
 
@@ -55,6 +57,14 @@ def _resolve(args):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="lesionvae_tpu_torch")
     sub = parser.add_subparsers(dest="stage", required=True)
+
+    p = sub.add_parser("geometry", help="tract geometry metrics")
+    _add_common(p)
+    p.add_argument("--max-streamlines", type=int, default=100)
+    p.add_argument("--upload", choices=["f32", "u16d"], default="f32",
+                   help="point upload codec: u16d copies u16 delta codes "
+                        "(half the bytes; torsion recomputed exactly on the "
+                        "host; ops.geo_codec)")
 
     p = sub.add_parser("lesion", help="lesion SH + heme analysis")
     _add_common(p)
@@ -122,12 +132,30 @@ def main(argv=None) -> int:
     p.add_argument("--subjects", nargs="*", default=None,
                    help="default: all config subjects")
 
+    p = sub.add_parser("synth", help="generate a synthetic cohort")
+    _add_common(p)
+    p.add_argument("--n-streamlines", type=int, default=30)
+    p.add_argument("--volume", type=int, default=32)
+
     args = parser.parse_args(argv)
     config, base, data_dir, out_root = _resolve(args)
     t0 = time.perf_counter()
     with (profiling.trace(args.trace, args.device) if args.trace
           else contextlib.nullcontext()):
-        if args.stage == "lesion":
+        if args.stage == "geometry":
+            from .pipeline.geometry_run import run_geometry
+            run_geometry(config, data_dir, out_root / "comprehensive_tract_geometry",
+                         max_streamlines=args.max_streamlines, upload=args.upload,
+                         device=args.device)
+
+        elif args.stage == "synth":
+            from .io.synth import generate_cohort
+            generate_cohort(base, config, seed=args.seed,
+                            n_streamlines=args.n_streamlines,
+                            volume_shape=(args.volume,) * 3, with_profiles=True,
+                            with_bundles=True)
+
+        elif args.stage == "lesion":
             from .pipeline.lesion_run import (run_lesion_analysis,
                                               run_lesion_shape_descriptors)
             if args.strict:

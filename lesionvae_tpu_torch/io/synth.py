@@ -1,17 +1,20 @@
-"""Deterministic synthetic lesion cohort.
+"""Deterministic synthetic cohort.
 
-Writes the volumes the lesion SH + heme stage reads and, with
-``with_profiles=True``, the per-subject tract-profile CSVs the VAE stage
-reads, in the directory contract the reference expects (reference:
+Writes the volumes the lesion SH + heme stage reads; with
+``with_profiles=True`` the per-subject tract-profile CSVs the VAE stage
+reads; and with ``with_bundles=True`` the streamline bundles the geometry
+stage reads, in the directory contract the reference expects (reference:
 README.md:128-141, src/vae/data_loader.py:10-24,
+src/geometry/comprehensive_tract_geometry_analysis.py:86-90,
 src/lesion/lesion_sh_heme_comprehensive.py:228,273,327):
 
+    data/{sid}/{tp}/bundles/{tract}_curves.vtk.gz
     data/{sid}/{tp}/lesion_cleaned.nii.gz | tissue.nii.gz | heme.nii.gz | dti_FA.nii.gz
     results/{sid}/timepoint_analysis_{sid}_{tp}/comprehensive_tract_data_{sid}_{tp}.csv
 
-Every file is drawn from a generator seeded per (kind, sid, tp), so it is
-byte-identical to the one the JAX package's synth writes for the same seed;
-tract bundles belong to a later slice and are not written here.
+Every file is drawn from a generator seeded per (kind, sid, tp[, tract]),
+so it is byte-identical to the one the JAX package's synth writes for the
+same seed, whichever kinds are written.
 """
 
 from __future__ import annotations
@@ -23,12 +26,52 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.config import Config
-from . import nifti
+from . import nifti, vtk
 
 
 def _rng(seed: int, *parts) -> np.random.Generator:
     h = hashlib.sha256(("|".join(map(str, parts)) + f"|{seed}").encode()).digest()
     return np.random.default_rng(int.from_bytes(h[:8], "little"))
+
+
+def make_streamline(rng: np.random.Generator, n_points: int,
+                    center: np.ndarray, scale: float = 10.0) -> np.ndarray:
+    """A smooth random 3-D curve: line + low-frequency sinusoidal wiggle."""
+    t = np.linspace(0.0, 1.0, n_points)
+    direction = rng.normal(size=3)
+    direction /= np.linalg.norm(direction)
+    curve = center[None, :] + scale * t[:, None] * direction[None, :]
+    for k in range(1, 4):
+        amp = rng.normal(scale=scale * 0.08 / k, size=3)
+        phase = rng.uniform(0, 2 * np.pi, size=3)
+        curve = curve + amp[None, :] * np.sin(2 * np.pi * k * t[:, None] + phase[None, :])
+    curve += rng.normal(scale=0.01, size=(n_points, 3))
+    return curve.astype(np.float64)
+
+
+def make_bundle(rng: np.random.Generator, n_streamlines: int,
+                min_pts: int = 20, max_pts: int = 60,
+                scale: float = 10.0) -> List[np.ndarray]:
+    """A bundle of ``n_streamlines`` curves of ``min_pts``..``max_pts``
+    points around one random center, all computed as one padded (S, P, 3)
+    block and trimmed to their lengths."""
+    center = rng.uniform(-20, 20, size=3)
+    S = n_streamlines
+    n_pts = rng.integers(min_pts, max_pts + 1, size=S)
+    P = int(n_pts.max()) if S else min_pts
+    centers = center[None, :] + rng.normal(scale=1.0, size=(S, 3))
+    dirs = rng.normal(size=(S, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    # per-streamline t grid over its own length
+    t = (np.arange(P)[None, :] / np.maximum(n_pts - 1, 1)[:, None])  # (S, P)
+    curves = centers[:, None, :] + scale * t[..., None] * dirs[:, None, :]
+    for k in range(1, 4):
+        amp = rng.normal(scale=scale * 0.08 / k, size=(S, 3))
+        phase = rng.uniform(0, 2 * np.pi, size=(S, 3))
+        curves += amp[:, None, :] * np.sin(
+            2 * np.pi * k * t[..., None] + phase[:, None, :])
+    curves += rng.normal(scale=0.01, size=curves.shape)
+    return [curves[i, :n_pts[i]].astype(np.float64) for i in range(S)]
 
 
 def make_lesion_volume(rng: np.random.Generator, shape=(32, 32, 32),
@@ -95,16 +138,20 @@ def generate_cohort(root: str | Path, config: Config, seed: int = 0,
                     volume_shape=(32, 32, 32),
                     subjects: Optional[Dict[str, List[str]]] = None,
                     with_profiles: bool = False, n_streamlines: int = 30,
-                    tracts: Optional[Sequence[str]] = None) -> Path:
+                    tracts: Optional[Sequence[str]] = None,
+                    with_bundles: bool = False) -> Path:
     """Write tissue, heme and FA volumes for every subject x timepoint under
     ``root/data``, and a lesion mask for TBI/PTE subjects at every timepoint
     but 2d (exercising the zero-row contract at
     lesion_sh_heme_comprehensive.py:354-357).
 
+    ``with_bundles``: also write ``bundles/{tract}_curves.vtk.gz`` (binary
+    VTK) for every tract of ``tracts`` (default: the config's geometry
+    tracts), ``n_streamlines`` streamlines of 20-60 points each.
+
     ``with_profiles``: also write each subject's profile CSV for ``tracts``
-    (default: the config's geometry tracts) with ``max(4, n_streamlines // 4)``
-    streamlines a tract; Sham CSVs lack the lesion columns (exercising the
-    imputation at data_loader.py:77-88)."""
+    with ``max(4, n_streamlines // 4)`` streamlines a tract; Sham CSVs lack
+    the lesion columns (exercising the imputation at data_loader.py:77-88)."""
     root = Path(root)
     tracts = list(tracts if tracts is not None else config.geometry_tracts)
     groups = subjects if subjects is not None else config.subjects_by_group()
@@ -115,6 +162,13 @@ def generate_cohort(root: str | Path, config: Config, seed: int = 0,
         for sid in sids:
             for tp in config.timepoints:
                 ddir = root / "data" / sid / tp
+                for tract in (tracts if with_bundles else ()):
+                    rng = _rng(seed, "bundle", sid, tp, tract)
+                    vtk.write_vtk_polylines(
+                        ddir / "bundles" / f"{tract}_curves.vtk.gz",
+                        make_bundle(rng, n_streamlines),
+                        binary=True)  # binary parses ~10x faster than ASCII
+
                 brain = make_brain_volume(volume_shape)
                 nifti.save(ddir / "tissue.nii.gz", brain, affine)
                 rng = _rng(seed, "heme", sid, tp)

@@ -32,6 +32,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source beyond NVCC_FLAGS.  geometry: no contraction of a
+# product and a sum into one FMA, so that every operation rounds once, as
+# the plain PyTorch version's separate kernels round
+EXTRA_FLAGS = {"geometry": ["--fmad=false"]}
+
+
+def flags(name: str) -> List[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def _nvcc() -> str:
@@ -44,7 +52,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library's path; its name carries a hash of the source and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -61,7 +71,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))

@@ -1,8 +1,8 @@
-"""Ragged → padded conversion for lesion surface point clouds.
+"""Ragged → padded conversions for streamlines and lesion surface points.
 
-Surfaces have variable point counts; the device batch is a dense
-``(B, N, 3)`` array plus a count vector, and every consumer masks (or, in the
-radius kernel, stops) by count.
+Streamlines and surfaces have variable point counts; the device batch is a
+dense ``(S, P, 3)`` / ``(B, N, 3)`` array plus a length vector, and every
+consumer masks (or, in the kernels, stops) by length.
 """
 
 from __future__ import annotations
@@ -14,6 +14,33 @@ import numpy as np
 
 def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def pad_streamlines(streamlines: Sequence[np.ndarray],
+                    pad_multiple: int = 8,
+                    max_points: int | None = None,
+                    dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack a ragged list of (n_i, 3) arrays into ``(S, P, 3)`` + lengths.
+
+    Pad rows repeat the last real point (every consumer masks by length, and
+    repeated points keep pad values in range).  ``P`` is ``max_points`` (or
+    the longest streamline) rounded up to ``pad_multiple``; a longer
+    streamline is cut to ``P`` points.
+    """
+    S = len(streamlines)
+    if S == 0:
+        return (np.zeros((0, pad_multiple, 3), dtype=dtype),
+                np.zeros((0,), dtype=np.int32))
+    lengths = np.array([len(s) for s in streamlines], dtype=np.int32)
+    P = int(max_points) if max_points is not None else int(lengths.max())
+    P = round_up(max(P, 2), pad_multiple)
+    out = np.empty((S, P, 3), dtype=dtype)
+    for i, sl in enumerate(streamlines):
+        n = min(len(sl), P)
+        out[i, :n] = sl[:n]
+        out[i, n:] = sl[n - 1]
+        lengths[i] = n
+    return out, lengths
 
 
 def pad_batch(arrays: Sequence[np.ndarray], max_rows: int | None = None,

@@ -1,0 +1,489 @@
+"""Tract-geometry stage: the cohort entry points and the reference's public API.
+
+Replaces the reference's per-bundle Python loop
+(src/geometry/comprehensive_tract_geometry_analysis.py:134-220) with a
+batched design: all bundles are read on the host, their streamlines pooled
+into padded ``(S, P, 3)`` buckets by point count, and each chunk of a bucket
+is one launch of the geometry kernel (ops/geometry.py, ops/csrc/geometry.cu).
+The CSV schemas match the reference's column names and order:
+
+- ``comprehensive_tract_geometry_metrics.csv``
+  (comprehensive_tract_geometry_analysis.py:317-319)
+- ``summary_statistics_by_group_timepoint.csv`` (:264-266)
+- ``summary_statistics_by_tract_group.csv`` (:292-294)
+
+Every entry point runs on ``device`` (default ``cuda``: float32, the kernel)
+and takes ``device="cpu"`` for the plain version, in float32 or float64.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from ..core.config import Config, load_config
+from ..io.vtk import read_streamlines
+from ..ops.geometry import (BUNDLE_SUMMARY, METRIC_NAMES, STACKED_NAMES,
+                            bundle_summary, eigen_metrics_f64,
+                            streamline_metrics_stacked,
+                            streamline_metrics_stacked_u16, unstack_metrics)
+from ..ops.padding import pad_streamlines
+from ..utils.logging import get_logger
+from ..utils.profiling import stage
+
+log = get_logger("geometry")
+
+_BUCKET_MIN = 32     # smallest padded point-count bucket
+_CHUNK_S = 32768     # streamlines a launch, at most
+
+
+def _bucket_P(n: int) -> int:
+    """Padded point-count bucket: multiples of 16 up to 128 (typical 40-60
+    point streamlines pad by less than with powers of two), powers of two
+    beyond."""
+    if n <= _BUCKET_MIN:
+        return _BUCKET_MIN
+    if n <= 128:
+        return -(-n // 16) * 16
+    b = 128
+    while b < n:
+        b *= 2
+    return b
+
+
+def _check_target(device, dtype: torch.dtype) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and dtype != torch.float32:
+        raise ValueError(f"the geometry stage runs float32 on cuda, got {dtype}")
+    return device
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: for a card, staged in pinned memory and
+    copied without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def metrics_dataframe(streamlines: Sequence[np.ndarray],
+                      dtype: torch.dtype = torch.float32, device="cuda"
+                      ) -> Tuple[pd.DataFrame, pd.DataFrame]:
+    """Per-streamline and bundle-summary DataFrames for one bundle."""
+    device = _check_target(device, dtype)
+    if not streamlines:
+        return (pd.DataFrame(columns=list(METRIC_NAMES)),
+                pd.DataFrame([bundle_summary(
+                    {"valid": np.zeros(0, bool),
+                     **{k: np.zeros(0) for k in METRIC_NAMES}})]))
+    pts, lens = pad_streamlines(streamlines,
+                                max_points=_bucket_P(max(len(s) for s in streamlines)))
+    stacked = streamline_metrics_stacked(_to_device(pts, device),
+                                         _to_device(lens, device), dtype=dtype)
+    out = unstack_metrics(stacked.cpu().numpy())
+    valid = out["valid"]
+    # exact float64 verdict for rows whose float32 certificate failed (the
+    # reference's 1e-12 inf gate, tract_geom_proc.py:126-136)
+    refine = np.nonzero(valid & ~out["eigen_ok"])[0]
+    if len(refine):
+        eigen_metrics_f64(streamlines, out["elongation_ratio"],
+                          out["planarity_ratio"], out["anisotropy_ratio"], refine)
+    df_sl = pd.DataFrame({k: out[k][valid].astype(np.float64) for k in METRIC_NAMES})
+    return df_sl, pd.DataFrame([bundle_summary(out)])
+
+
+def compute_streamline_metrics(vtk_path: str | Path,
+                               max_streamlines: Optional[int] = None,
+                               dtype: torch.dtype = torch.float32, device="cuda"
+                               ) -> Tuple[pd.DataFrame, pd.DataFrame]:
+    """The reference's public API (tract_geom_proc.py:153-212): ``(df_sl,
+    df_bundle)`` with its column schema."""
+    sls = read_streamlines(vtk_path, max_streamlines=max_streamlines)
+    return metrics_dataframe(sls, dtype=dtype, device=device)
+
+
+# ----------------------------------------------------------------------------
+# Batched cohort execution
+# ----------------------------------------------------------------------------
+def chunk_plan(bundles: List[List[np.ndarray]]
+               ) -> List[Tuple[int, List[Tuple[int, np.ndarray]], int]]:
+    """The launches of ``launch_bundle_metrics`` in order: (P, [(bundle index,
+    streamline), ...], S_pad) a chunk.  Streamlines of every bundle are pooled
+    and bucketed by padded point count (``_bucket_P``); a bucket runs in
+    chunks of at most ``_CHUNK_S`` streamlines, the last one padded to the
+    next power of two (at least ``_BUCKET_MIN``) with copies of its last
+    streamline."""
+    buckets: Dict[int, List[Tuple[int, np.ndarray]]] = {}
+    for bi, bundle in enumerate(bundles):
+        for sl in bundle:
+            buckets.setdefault(_bucket_P(len(sl)), []).append((bi, sl))
+    plan = []
+    for P, items in sorted(buckets.items()):
+        for c0 in range(0, len(items), _CHUNK_S):
+            chunk = items[c0:c0 + _CHUNK_S]
+            S_pad = _CHUNK_S if len(items) - c0 > _CHUNK_S else min(
+                _CHUNK_S, max(_BUCKET_MIN, 1 << (len(chunk) - 1).bit_length()))
+            plan.append((P, chunk, S_pad))
+    return plan
+
+
+def launch_bundle_metrics(bundles: List[List[np.ndarray]],
+                          dtype: torch.dtype = torch.float32,
+                          upload: str = "f32", device="cuda"):
+    """Enqueue every chunk's launch for many bundles and return a
+    zero-argument ``finish()`` producing the bundle summaries.
+
+    Each chunk of ``chunk_plan`` is one kernel launch.  Its points are
+    staged in pinned memory and copied to the card without blocking, then
+    launched, so the host pads chunk K+1 while the card copies and computes
+    chunk K.  ``finish.drain()`` is the one device-to-host copy of all
+    results; ``finish()`` drains, then refines on the host in float64 the
+    rows whose float32 eigen certificate failed and builds the per-bundle
+    summaries.  ``finish.launches`` and ``finish.streamlines`` count the
+    launches and the real streamlines, ``finish.refined`` (after the call)
+    the rows refined.
+
+    ``upload``: ``"f32"`` copies the padded points as they are; ``"u16d"``
+    copies u16 delta codes (ops.geo_codec, half the bytes), decoded in the
+    kernel, and replaces the torsion column with the host's float64 value
+    from the original points (the codec's noise is too large for tau; every
+    other metric moves by p99 <= 3e-4 in the JAX package's probe).
+    """
+    if upload not in ("f32", "u16d"):
+        raise ValueError(f"unknown geometry upload codec: {upload!r}")
+    device = _check_target(device, dtype)
+    if upload == "u16d":
+        from ..ops.geo_codec import encode_u16_delta, torsion_f64
+
+    pending = []                  # (device stacked, S, bundle ids, sls, host tau)
+    fill = {}                     # P -> [real points, padded points]
+    for P, chunk, S_pad in chunk_plan(bundles):
+        sls = [sl for _, sl in chunk]
+        S = len(sls)
+        f = fill.setdefault(P, [0, 0])
+        f[0] += sum(len(sl) for sl in sls)
+        f[1] += S_pad * P
+        pts, lens = pad_streamlines(sls + [sls[-1]] * (S_pad - S), max_points=P)
+        d_lens = _to_device(lens, device)
+        if upload == "u16d":
+            codes, p0, lo, sc = encode_u16_delta(pts, lens)
+            # the codes cross as int16 bit patterns (ops.geo_codec)
+            stacked = streamline_metrics_stacked_u16(
+                _to_device(codes.view(np.int16), device),
+                *(_to_device(a, device) for a in (p0, lo, sc)), d_lens, dtype=dtype)
+            host_tau = torsion_f64(pts[:S], lens[:S])
+        else:
+            stacked = streamline_metrics_stacked(_to_device(pts, device), d_lens,
+                                                 dtype=dtype)
+            host_tau = None
+        pending.append((stacked, S, np.fromiter((bi for bi, _ in chunk), np.int64,
+                                                count=S), sls, host_tau))
+
+    if fill:
+        real = sum(f[0] for f in fill.values())
+        padded = sum(f[1] for f in fill.values())
+        per = ", ".join(f"P{P}:{100 * (1 - f[0] / f[1]):.0f}%"
+                        for P, f in sorted(fill.items()))
+        log.info("geometry: %d launches, pad waste %.0f%% of %.1f MB uploaded%s "
+                 "(per bucket: %s)", len(pending), 100 * (1 - real / padded),
+                 padded * (6 if upload == "u16d" else 12) / 1e6,
+                 " [u16-delta]" if upload == "u16d" else "", per)
+
+    _drained: List[np.ndarray] = []
+
+    def drain() -> None:
+        """The one device-to-host copy: every chunk's real columns."""
+        if not _drained and pending:
+            allv = torch.cat([st[:, :S] for st, S, _, _, _ in pending], dim=1)
+            _drained.append(allv.cpu().numpy().T)
+
+    def finish() -> List[Dict[str, float]]:
+        drain()
+        if not pending:
+            return [{"n_streamlines": 0, **{c: float("nan") for c, _ in BUNDLE_SUMMARY}}
+                    for _ in bundles]
+        V = np.ascontiguousarray(_drained[0])            # (S_total, 19)
+        bids = np.concatenate([b for _, _, b, _, _ in pending])
+        valid = V[:, STACKED_NAMES.index("valid")] > 0.5
+
+        if upload == "u16d":
+            V[:, STACKED_NAMES.index("torsion_mean")] = np.concatenate(
+                [tau for _, _, _, _, tau in pending]).astype(V.dtype)
+
+        # float64 refinement of the eigen-ratio metrics where the float32
+        # certificate failed (the reference's inf gate; see ops.geometry)
+        eigen_ok = V[:, STACKED_NAMES.index("eigen_ok")] > 0.5
+        refine = np.nonzero(valid & ~eigen_ok)[0]
+        if len(refine):
+            all_sls = [sl for _, _, _, sls, _ in pending for sl in sls]
+            cols = [STACKED_NAMES.index(c) for c in
+                    ("elongation_ratio", "planarity_ratio", "anisotropy_ratio")]
+            eigen_metrics_f64(all_sls, V[:, cols[0]], V[:, cols[1]], V[:, cols[2]],
+                              refine)   # column slices are views: in place
+            log.info("refined %d/%d eigen-ambiguous streamlines in f64",
+                     len(refine), len(V))
+        finish.refined = len(refine)
+
+        # pandas' groupby mean is np.nanmean a bundle: NaN skipped, inf
+        # propagates (_safe_mean, tract_geom_proc.py:192-210)
+        metric_cols = [STACKED_NAMES.index(src) for _, src in BUNDLE_SUMMARY]
+        df = pd.DataFrame(V[valid][:, metric_cols].astype(np.float64),
+                          columns=[col for col, _ in BUNDLE_SUMMARY])
+        df["__b"] = bids[valid]
+        with np.errstate(invalid="ignore"):
+            means = df.groupby("__b").mean()
+        counts = np.bincount(bids[valid], minlength=len(bundles))
+
+        summaries = []
+        for bi in range(len(bundles)):
+            out: Dict[str, float] = {"n_streamlines": int(counts[bi])}
+            row = means.loc[bi] if bi in means.index else None
+            for col, _ in BUNDLE_SUMMARY:
+                out[col] = float("nan") if row is None else float(row[col])
+            summaries.append(out)
+        return summaries
+
+    finish.drain = drain
+    finish.launches = len(pending)
+    finish.streamlines = sum(S for _, S, _, _, _ in pending)
+    finish.refined = 0
+    return finish
+
+
+def batched_bundle_metrics(bundles: List[List[np.ndarray]],
+                           dtype: torch.dtype = torch.float32, upload: str = "f32",
+                           device="cuda") -> List[Dict[str, float]]:
+    """Synchronous form of :func:`launch_bundle_metrics`."""
+    return launch_bundle_metrics(bundles, dtype=dtype, upload=upload, device=device)()
+
+
+# ----------------------------------------------------------------------------
+# Cohort entry points
+# ----------------------------------------------------------------------------
+def bundle_path(data_dir: Path, subject_id: str, timepoint: str,
+                tract: str) -> Optional[Path]:
+    """Bundle file location, preferring .vtk.gz then .vtk (reference:
+    comprehensive_tract_geometry_analysis.py:86-93)."""
+    p = data_dir / subject_id / timepoint / "bundles" / f"{tract}_curves.vtk.gz"
+    if p.exists():
+        return p
+    p = p.with_suffix("")  # drop .gz
+    return p if p.exists() else None
+
+
+def decompress_vtk_if_needed(path: Path) -> Path:
+    """Inflate ``*.vtk.gz`` to a sibling ``*.vtk`` and keep it, reusing a
+    fresh one on later runs: the reference's behaviour
+    (comprehensive_tract_geometry_analysis.py:54-76 decompresses next to the
+    archive and skips when the inflated file is newer).  On any failure
+    (a read-only data directory, a corrupt archive) the original path is
+    returned and the reader inflates in memory."""
+    if path.suffix != ".gz":
+        return path
+    out = path.with_suffix("")
+    try:
+        if out.exists() and out.stat().st_mtime >= path.stat().st_mtime:
+            return out
+        import gzip
+        tmp = out.with_name(out.name + ".tmp")
+        tmp.write_bytes(gzip.decompress(path.read_bytes()))
+        tmp.replace(out)  # atomic: readers never see a partial file
+        return out
+    except Exception:
+        return path
+
+
+def launch_all_tracts(config: Config, data_dir: Path,
+                      max_streamlines: Optional[int] = 100,
+                      dtype: torch.dtype = torch.float32, upload: str = "f32",
+                      device="cuda"):
+    """Read the cohort and enqueue its launches; returns a zero-argument
+    ``finish()`` producing the cohort metrics DataFrame (reference: :134-220).
+    Missing and unreadable files are logged and skipped."""
+    _check_target(device, dtype)
+    tasks: List[Tuple[Dict[str, str], Path]] = []
+    for group, subjects in config.subjects_by_group().items():
+        for subject_id in sorted(subjects):
+            for timepoint in config.timepoints:
+                for tract in config.geometry_tracts:
+                    path = bundle_path(data_dir, subject_id, timepoint, tract)
+                    if path is None:
+                        log.warning("tract file not found: %s/%s/%s",
+                                    subject_id, timepoint, tract)
+                        continue
+                    tasks.append((dict(subject_id=subject_id, timepoint=timepoint,
+                                       tract=tract, group=group), path))
+
+    def _read(path: Path):
+        try:
+            return read_streamlines(decompress_vtk_if_needed(path),
+                                    max_streamlines=max_streamlines)
+        except Exception as e:  # corrupt file: skip, don't abort
+            log.error("failed to read %s: %s", path, e)
+            return None
+
+    meta: List[Dict[str, str]] = []
+    bundles: List[List[np.ndarray]] = []
+    with stage("geometry.read"):
+        # gzip inflate and the native parser release the GIL, so threads
+        # overlap them on a multi-core host; one core stays sequential
+        from concurrent.futures import ThreadPoolExecutor
+        n_cpu = os.cpu_count() or 1
+        workers = min(8, 2 * n_cpu) if n_cpu > 1 else 1
+        if workers > 1 and len(tasks) > 8:
+            with ThreadPoolExecutor(workers) as ex:
+                results = list(ex.map(_read, [p for _, p in tasks]))
+        else:
+            results = [_read(p) for _, p in tasks]
+        for (m, path), sls in zip(tasks, results):
+            if sls is None:
+                continue
+            if not sls:
+                log.warning("no streamlines in %s", path)
+                continue
+            bundles.append(sls)
+            meta.append(m)
+    log.info("read %d bundles", len(bundles))
+
+    if not bundles:
+        empty = lambda: pd.DataFrame()  # noqa: E731
+        empty.drain = lambda: None
+        empty.metrics = None
+        return empty
+
+    with stage("geometry.launch"):
+        finish_metrics = launch_bundle_metrics(bundles, dtype=dtype, upload=upload,
+                                               device=device)
+
+    def finish() -> pd.DataFrame:
+        with stage("geometry.compute"):
+            summaries = finish_metrics()
+        log.info("computed %d bundle summaries", len(summaries))
+        rows = []
+        for summ, m in zip(summaries, meta):
+            if summ["n_streamlines"] == 0:
+                log.warning("no valid streamlines for %s", m)
+                continue
+            row = dict(summ)
+            row.update(m)   # metadata columns last, as in the reference (:112-115)
+            rows.append(row)
+        return pd.DataFrame(rows)
+
+    finish.drain = finish_metrics.drain
+    finish.metrics = finish_metrics
+    return finish
+
+
+def process_all_tracts(config: Config, data_dir: Path,
+                       max_streamlines: Optional[int] = 100,
+                       dtype: torch.dtype = torch.float32,
+                       device="cuda") -> pd.DataFrame:
+    """Synchronous cohort run (reference main loop :134-220)."""
+    return launch_all_tracts(config, data_dir, max_streamlines=max_streamlines,
+                             dtype=dtype, device=device)()
+
+
+def generate_summary_statistics(results_df: pd.DataFrame, output_dir: Path
+                                ) -> Tuple[pd.DataFrame, pd.DataFrame]:
+    """Group/timepoint and tract/group summary CSVs (reference: :223-296)."""
+    key_metrics = ["length_mean", "tortuosity_mean", "curv_mean_avg",
+                   "elongation_ratio_mean", "planarity_ratio_mean"]
+
+    summary_stats = []
+    for group in sorted(results_df["group"].unique()):
+        for tp in sorted(results_df["timepoint"].unique()):
+            subset = results_df[(results_df["group"] == group)
+                                & (results_df["timepoint"] == tp)]
+            if len(subset) == 0:
+                continue
+            row = {"group": group, "timepoint": tp, "n_records": len(subset),
+                   "n_subjects": subset["subject_id"].nunique(),
+                   "n_tracts": subset["tract"].nunique()}
+            for metric in key_metrics:
+                if metric in subset.columns:
+                    row[f"{metric}_mean"] = subset[metric].mean()
+                    row[f"{metric}_std"] = subset[metric].std()
+            summary_stats.append(row)
+    summary_df = pd.DataFrame(summary_stats)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    summary_df.to_csv(output_dir / "summary_statistics_by_group_timepoint.csv",
+                      index=False)
+
+    tract_summary = []
+    for tract in sorted(results_df["tract"].unique()):
+        for group in sorted(results_df["group"].unique()):
+            subset = results_df[(results_df["tract"] == tract)
+                                & (results_df["group"] == group)]
+            if len(subset) == 0:
+                continue
+            tract_summary.append({
+                "tract": tract, "group": group, "n_records": len(subset),
+                "length_mean": subset["length_mean"].mean(),
+                "length_std": subset["length_mean"].std(),
+                "tortuosity_mean": subset["tortuosity_mean"].mean(),
+                "tortuosity_std": subset["tortuosity_mean"].std(),
+                "curv_mean": subset["curv_mean_avg"].mean(),
+                "curv_std": subset["curv_mean_avg"].std(),
+            })
+    tract_summary_df = pd.DataFrame(tract_summary)
+    tract_summary_df.to_csv(output_dir / "summary_statistics_by_tract_group.csv",
+                            index=False)
+    return summary_df, tract_summary_df
+
+
+def launch_geometry(config: Optional[Config] = None,
+                    data_dir: str | Path | None = None,
+                    output_dir: str | Path | None = None,
+                    max_streamlines: Optional[int] = 100,
+                    dtype: torch.dtype = torch.float32, upload: str = "f32",
+                    device="cuda"):
+    """The stage in two phases: read the cohort and enqueue all device work
+    now; the returned ``finish()`` copies the results back and writes the
+    three CSVs.  ``finish.drain()`` alone does the copy, and
+    ``finish.metrics`` is the launch's own ``finish`` (its ``launches``,
+    ``streamlines`` and, after the run, ``refined``)."""
+    config = config or load_config()
+    base = Path(config.base_path)
+    data_dir = Path(data_dir) if data_dir else base / "data"
+    output_dir = (Path(output_dir) if output_dir
+                  else base / "results" / "comprehensive_tract_geometry")
+    output_dir.mkdir(parents=True, exist_ok=True)
+
+    finish_tracts = launch_all_tracts(config, data_dir, max_streamlines=max_streamlines,
+                                      dtype=dtype, upload=upload, device=device)
+
+    def finish() -> pd.DataFrame:
+        results_df = finish_tracts()
+        if len(results_df) == 0:
+            log.error("no tracts successfully processed")
+            return results_df
+        with stage("geometry.write"):
+            results_df.to_csv(output_dir / "comprehensive_tract_geometry_metrics.csv",
+                              index=False)
+            generate_summary_statistics(results_df, output_dir)
+        log.info("geometry stage complete: %d records -> %s", len(results_df),
+                 output_dir)
+        return results_df
+
+    finish.drain = finish_tracts.drain
+    finish.metrics = finish_tracts.metrics
+    return finish
+
+
+def run_geometry(config: Optional[Config] = None,
+                 data_dir: str | Path | None = None,
+                 output_dir: str | Path | None = None,
+                 max_streamlines: Optional[int] = 100,
+                 dtype: torch.dtype = torch.float32, upload: str = "f32",
+                 device="cuda") -> pd.DataFrame:
+    """End-to-end geometry stage (reference main():299-329)."""
+    with stage("geometry"):
+        return launch_geometry(config, data_dir=data_dir, output_dir=output_dir,
+                               max_streamlines=max_streamlines, dtype=dtype,
+                               upload=upload, device=device)()

@@ -57,6 +57,44 @@ def test_the_cohort_fleet_modules_are_on_the_list():
             "ops/sr_adam.py", "models/fleet.py"} <= checked
 
 
+def test_the_geometry_modules_are_on_the_list():
+    """The modules of the tract-geometry stage are among the sources checked
+    above."""
+    checked = {str(p.relative_to(REPO / "lesionvae_tpu_torch"))
+               for p in (REPO / "lesionvae_tpu_torch").rglob("*.py")}
+    assert {"io/vtk.py", "io/vtk_native.py", "ops/geometry.py", "ops/geo_codec.py",
+            "pipeline/geometry_run.py"} <= checked
+
+
+def test_geometry_entry_points_default_to_cuda(tmp_path):
+    """``run_geometry`` and ``launch_geometry``, called without ``device``,
+    target the card: a CUDA error on a host without one, and float64 is
+    refused there as the CPU's parity route."""
+    import inspect
+
+    import torch
+
+    from lesionvae_tpu_torch.io import synth
+    from lesionvae_tpu_torch.pipeline import geometry_run
+
+    for fn in (geometry_run.run_geometry, geometry_run.launch_geometry,
+               geometry_run.launch_all_tracts, geometry_run.launch_bundle_metrics,
+               geometry_run.metrics_dataframe):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only host")
+    cfg = synth.tiny_config(n_per_group=1, tracts=["atr_left"])
+    root = synth.generate_cohort(tmp_path, cfg, seed=2, n_streamlines=4,
+                                 volume_shape=(4, 4, 4), subjects={"TBI": ["9101"]},
+                                 with_bundles=True)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|accelerator"):
+        geometry_run.run_geometry(cfg, data_dir=root / "data",
+                                  output_dir=tmp_path / "out")
+    with pytest.raises(ValueError, match="float32 on cuda"):
+        geometry_run.launch_geometry(cfg, data_dir=root / "data",
+                                     output_dir=tmp_path / "out", dtype=torch.float64)
+
+
 def test_entry_point_defaults_to_cuda(tmp_path):
     """Called without ``device``, the stage targets the card: on a host
     without one that is a CUDA error, never a quiet CPU run."""
