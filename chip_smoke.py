@@ -30,13 +30,16 @@ Phases; any failure exits non-zero before the result line is printed:
      again, in phase 4, at the cohort path's shape (64 members x the weight
      elements of a full-width member, the model's own index table);
    - the geometry kernel, both modes (float32 points, u16 delta codes), at
-     P in {32, 48, 64, 128, 256} with S on and beside the block's streamline
-     count, at 32,768 x 64, and on adversarial rows (straight lines, planar
-     circles, duplicate points, n = 1..4, a zero-length curve, spectra either
-     side of the certificate's gates): values within 1e-5 x max(1, |plain|),
-     the verdict columns (valid, eigen_ok, the two inf gates) equal in every
-     row, the elements that differ at all counted, and the same bits on
-     repeated calls;
+     P in {32, 48, 64, 128, 256} with S = 1 and S on and beside the block's
+     streamline count, at 32,768 x 64, on adversarial rows (straight lines,
+     planar circles, duplicate points, n = 1..4, a zero-length curve, spectra
+     either side of the certificate's gates) and on the design's edge rows
+     (n = 1..4 and P, n at the lanes a streamline and twice that -1/+0/+1,
+     non-finite curvature and torsion, coordinates at 1e25, 1e18 and 1e-25,
+     NaN and inf coordinates, signed zeros): every element bit-equal to the
+     plain version (NaN for NaN; the differing elements of every case are
+     printed), the verdict columns (valid, eigen_ok, the two inf gates)
+     equal in every row, and the same bits on repeated calls;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -73,8 +76,9 @@ Phases; any failure exits non-zero before the result line is printed:
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
-   the bound that counts the instructions the card must issue; the geometry
-   kernel at the path's largest chunk, 32,768 x 64, and summed over the
+   the bound that counts the instructions the card must issue, as radius,
+   SR Adam and the geometry kernel have one too; the geometry kernel at the
+   path's largest chunk, 32,768 x 64, in both modes, and summed over the
    stage's launches).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
@@ -189,46 +193,51 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- machine code
-# per kernel: the instruction that occurs once per unit of work in its hot
-# loop, and what that unit is
-SASS_UNITS = {"radius": (r"^FMNMX", "pair"),
-              "resident_adam": (r"^MUFU\.RSQ", "element-step"),
-              "sr_adam": (r"^MUFU\.RSQ", "element"),
-              "geometry": (r"^MUFU", "MUFU op")}
+# per kernel: an instruction of its hot loop, what unit of work the loop
+# body does, and how often the instruction occurs in it per unit (geometry:
+# the pass-1 round loop takes one point a lane and holds two warp ballots,
+# the finite curvature and torsion counts)
+SASS_UNITS = {"radius": (r"^FMNMX", "pair", 1),
+              "resident_adam": (r"^MUFU\.RSQ", "element-step", 1),
+              "sr_adam": (r"^MUFU\.RSQ", "element", 1),
+              "geometry": (r"^VOTE", "point", 2)}
 
 
 def short_name(mangled: str) -> str:
     """A kernel's name and template arguments out of its mangled symbol;
-    the resident kernel's one argument is its form."""
+    the resident kernel's one argument is its form, the geometry kernel's
+    are its lanes a streamline and its mode."""
     m = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
     if m.group(1) == "resident_adam_kernel" and args in (["0"], ["1"]):
         args = ["fastmath" if args == ["1"] else "ieee"]
-    if m.group(1) == "geometry_kernel" and args in (["0"], ["1"]):
-        args = ["u16" if args == ["1"] else "f32"]
+    if m.group(1) == "geometry_kernel" and len(args) == 2:
+        args = [f"{args[0]} lanes", "u16" if args[1] == "1" else "f32"]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def sass_lines() -> None:
     """One ``[sass]`` line per kernel function: the instructions of its hot
-    loop (the K-step body of resident Adam, the point loop of radius) by
-    class, per element-step or per pair, counted in the machine code that
-    ``cuobjdump -sass`` shows.  The count is static: a slow path that sits
-    inside the loop counts whether or not it is taken."""
+    loop (the K-step body of resident Adam, the point loop of radius, the
+    pass-1 round loop of geometry) by class, per element-step, pair or
+    point, counted in the machine code that ``cuobjdump -sass`` shows.  The
+    count is static: a slow path that sits inside the loop counts whether or
+    not it is taken."""
     from lesionvae_tpu_torch.ops import cuda_build
 
-    for name, (unit, what) in SASS_UNITS.items():
+    for name, (unit, what, per) in SASS_UNITS.items():
         loops = cuda_build.inner_loops(cuda_build.sass(name), unit)
         if not any(f["units"] for f in loops.values()):
             fail(f"no {unit} instruction in the machine code of {name}")
         for fn, f in loops.items():
             if not f["units"]:
                 continue
+            units = f["units"] / per
             print(f"[sass] {name}:{short_name(fn)} per {what} ({'loop' if f['loop'] else 'whole function'}"
-                  f" of {f['instructions']} instructions, {f['units']} {what}s): "
-                  + json.dumps({k: round(v, 3) for k, v in f["per_unit"].items()})
+                  f" of {f['instructions']} instructions, {units:g} {what}s): "
+                  + json.dumps({k: round(v * per, 3) for k, v in f["per_unit"].items()})
                   + " opcodes " + json.dumps(f["opcodes"]))
 
 
@@ -320,6 +329,15 @@ def radius_bound_ms(inputs) -> tuple[float, str]:
     nbytes = 12 * n_pts + 4 * B + 12 * B + 12 * D + 4 * B * D
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def radius_issue_bound_ms(inputs) -> float:
+    """Least time to issue the kernel's work: 4 instructions a counted
+    point-direction pair (a multiply, two FMAs, a max) over 132 SMs x 4
+    schedulers x 32 lanes x 1.98 GHz."""
+    surface, counts, _c, directions = inputs
+    pairs = int(counts.clamp(0, surface.shape[1]).sum()) * directions.shape[0]
+    return 1e3 * 4 * pairs / (132 * 4 * 32 * 1.98e9)
 
 
 # ---------------------------------------------------------------- resident Adam
@@ -591,6 +609,34 @@ def geometry_adversarial(P: int, seed: int):
     return [r for r, _ in rows], [e for _, e in rows]
 
 
+def geometry_edge_rows(P: int, lanes: int, seed: int):
+    """Rows at the edges of the kernel's design: n in {1, 2, 3, 4} and n = P
+    beside padded rows; n at the lanes a streamline and twice that, -1, +0
+    and +1 (a round's edge); rows whose curvature or torsion is not finite
+    or whose quotients and roots leave the fast paths' range (coordinates at
+    1e25, 1e18 and 1e-25, a NaN and an inf coordinate mid-curve); and a row
+    of signed zeros (the bounding box's max and min of -0 and +0)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(k, step=1.0):
+        return np.cumsum(rng.normal(size=(k, 3)) * step, axis=0)
+
+    ns = {1, 2, 3, 4, P} | {k for m in (lanes, 2 * lanes) for k in (m - 1, m, m + 1)}
+    rows = [walk(k) for k in sorted(k for k in ns if 1 <= k <= P)]
+    k = min(P, 24)
+    rows += [walk(k, 1e25), walk(k, 1e18), walk(k, 1e-25)]
+    for bad in (np.nan, np.inf):
+        r = walk(k)
+        r[k // 2, 1] = bad
+        rows.append(r)
+    z = np.zeros((min(P, 9), 3))
+    z[1::2, 0] = -0.0
+    z[::3, 2] = -0.0
+    z[:, 1] = np.arange(len(z), dtype=np.float64) % 2 * -0.0
+    rows.append(z)
+    return rows
+
+
 def geometry_inputs(sls, P: int):
     """The kernel's inputs in both modes on the card: ((points, lengths),
     (codes, p0, lo, sc, lengths)) of the float32 padded bundle."""
@@ -639,14 +685,17 @@ def geometry_compare(got, want, where: str) -> tuple[float, int]:
 
 def geometry_errors() -> float:
     """The kernel against its plain version in both modes: random bundles at
-    every P of GEO_P with S on and beside the block's streamline count,
-    adversarial rows at every P (their eigen certificates as designed), the
-    full chunk 32,768 x 64, and the same bits on repeated calls there.
-    Returns the largest |kernel - plain|."""
+    every P of GEO_P with S = 1 and S on and beside the block's streamline
+    count, adversarial rows at every P (their eigen certificates as
+    designed), the rows of ``geometry_edge_rows`` at every P, and the full
+    chunk 32,768 x 64.  Every element must be bit-equal (NaN for NaN), and
+    6 calls on the edge rows and on the full chunk must give the same bits.
+    Prints the differing elements of every case.  Returns the largest
+    |kernel - plain|."""
     from lesionvae_tpu_torch.io.synth import make_bundle
     from lesionvae_tpu_torch.ops import geometry as g
 
-    worst, differ, elements, cases = 0.0, 0, 0, 0
+    worst, elements, per_case = 0.0, 0, {}
     rng = np.random.default_rng(55)
 
     def random_rows(S, P):
@@ -655,8 +704,18 @@ def geometry_errors() -> float:
             sls += make_bundle(rng, min(100, S - len(sls)), min_pts=3, max_pts=P)
         return sls
 
+    def same_bits(f32, u16, where):
+        for name, fn, args in (("f32", g.streamline_metrics_stacked, f32),
+                               ("u16", g.streamline_metrics_stacked_u16, u16)):
+            first = fn(*args)
+            for _ in range(5):
+                again = fn(*args)
+                if not torch.equal(again.view(torch.int32), first.view(torch.int32)):
+                    fail(f"geometry kernel ({name}) at {where}: two calls on the same "
+                         "inputs gave different bits")
+
     def check(sls, P, where, expect=None):
-        nonlocal worst, differ, elements, cases
+        nonlocal worst, elements
         f32, u16 = geometry_inputs(sls, P)
         for mode, fn, plain, args in (
                 ("f32", g.streamline_metrics_stacked, g.streamline_metrics_stacked_plain, f32),
@@ -664,7 +723,8 @@ def geometry_errors() -> float:
                  g.streamline_metrics_stacked_u16_plain, u16)):
             got, want = fn(*args), plain(*args)
             e, d = geometry_compare(got, want, f"{where} {mode}")
-            worst, differ, elements, cases = max(worst, e), differ + d, elements + got.numel(), cases + 1
+            worst, elements = max(worst, e), elements + got.numel()
+            per_case[f"{where} {mode}"] = d
             if expect is not None and mode == "f32":
                 ok = want[g.STACKED_NAMES.index("eigen_ok")].cpu().numpy() > 0.5
                 for i, x in enumerate(expect):
@@ -674,29 +734,29 @@ def geometry_errors() -> float:
         return f32, u16
 
     for P in GEO_P:
-        sizes = set()
-        for u16 in (False, True):
-            spb = g.block_streamlines(P, u16)[0]
-            sizes |= {spb - 1, spb, spb + 1, 3 * spb + 5}
-        for S in sorted(x for x in sizes if x > 0):
+        lanes, spb, _ = g.block_streamlines(P)
+        for S in sorted({1, spb - 1, spb, spb + 1, 3 * spb + 5} - {0}):
             check(random_rows(S, P), P, f"S={S} P={P}")
         adv, expect = geometry_adversarial(P, seed=P)
         check(adv + random_rows(7, P), P, f"adversarial rows P={P}", expect + [None] * 7)
-    f32, u16 = check(random_rows(32768, 64), 64, "S=32768 P=64")
-    for name, fn, args in (("f32", g.streamline_metrics_stacked, f32),
-                           ("u16", g.streamline_metrics_stacked_u16, u16)):
-        first = fn(*args)
-        for _ in range(5):
-            if not torch.equal(fn(*args), first):
-                fail(f"geometry kernel ({name}): two calls on the same inputs gave "
-                     "different bits")
-    print(f"[kernels] geometry vs plain, f32 points and u16 codes, at P {GEO_P} with S "
-          f"on and beside the block's streamline count, adversarial rows (lines, "
+        edge = geometry_edge_rows(P, lanes, seed=1000 + P)
+        same_bits(*check(edge + random_rows(5, P), P, f"edge rows P={P}"),
+                  f"the edge rows at P={P}")
+    same_bits(*check(random_rows(32768, 64), 64, "S=32768 P=64"), "32768 x 64")
+    differ = sum(per_case.values())
+    print("[kernels] geometry elements differing from the plain version, by case: "
+          + json.dumps(per_case))
+    print(f"[kernels] geometry vs plain, f32 points and u16 codes, at P {GEO_P} with S = 1 "
+          f"and S on and beside the block's streamline count, adversarial rows (lines, "
           f"circles, duplicate points, n = 1..4, zero length, spectra 2% either side of "
-          f"both certificate gates) and 32768 x 64 ({cases} cases): verdict columns "
-          f"equal in every row, max abs err {worst:.3e} (tol {KERNEL_TOL} x max(1,|plain|)), "
-          f"{differ} of {elements} elements differ in any bit; 6 calls at 32768 x 64 "
-          "gave the same bits in both modes")
+          f"both certificate gates), edge rows (n = 1..4, P, the lanes and twice them "
+          f"-1/+0/+1, non-finite curvature and torsion, 1e25/1e18/1e-25 scales, NaN and "
+          f"inf coordinates, signed zeros) and 32768 x 64 ({len(per_case)} cases): verdict "
+          f"columns equal in every row, max abs err {worst:.3e}, {differ} of {elements} "
+          "elements differ in any bit; 6 calls on the edge rows and at 32768 x 64 gave the "
+          "same bits in both modes")
+    if differ:
+        fail(f"geometry kernel: {differ} elements differ from the plain version")
     return worst
 
 
@@ -952,9 +1012,15 @@ def geometry_timings(chunks) -> dict:
     from lesionvae_tpu_torch.ops import geometry as g
 
     P, f32_in, u16_in, lens = max(chunks, key=lambda c: (c[1][0].shape[0] * c[0], c[0]))
+    where = f"the path's chunk {tuple(f32_in[0].shape[:2])}"
     err, differ = geometry_compare(g.streamline_metrics_stacked(*f32_in),
-                                   g.streamline_metrics_stacked_plain(*f32_in),
-                                   f"the path's chunk {tuple(f32_in[0].shape[:2])}")
+                                   g.streamline_metrics_stacked_plain(*f32_in), where)
+    err16, differ16 = geometry_compare(g.streamline_metrics_stacked_u16(*u16_in),
+                                       g.streamline_metrics_stacked_u16_plain(*u16_in),
+                                       where + " u16")
+    if differ or differ16:
+        fail(f"geometry kernel: {differ} (f32) and {differ16} (u16) elements differ from "
+             f"the plain version at {where}")
     ms = device_ms(lambda: g.streamline_metrics_stacked(*f32_in))
     plain_ms = device_ms(lambda: g.streamline_metrics_stacked_plain(*f32_in), reps=3, inner=2)
     u16_ms = device_ms(lambda: g.streamline_metrics_stacked_u16(*u16_in))
@@ -962,11 +1028,15 @@ def geometry_timings(chunks) -> dict:
     stage_ms = sum(device_ms(lambda c=c: g.streamline_metrics_stacked(*c[1]), reps=5, inner=10)
                    for c in chunks)
     stage_bound = sum(g.bound_ms(c[3], c[0])[0] for c in chunks)
-    return {"S": int(f32_in[0].shape[0]), "P": P, "ms": ms, "plain_ms": plain_ms,
-            "u16_ms": u16_ms, "bound_ms": bound, "bound_by": by,
-            "u16_bound_ms": g.bound_ms(lens, P, u16=True)[0],
+    return {"S": int(f32_in[0].shape[0]), "P": P, "lanes": g.block_streamlines(P)[0],
+            "ms": ms, "plain_ms": plain_ms, "u16_ms": u16_ms, "bound_ms": bound,
+            "bound_by": by, "u16_bound_ms": g.bound_ms(lens, P, u16=True)[0],
+            "issue_bound_ms": g.issue_bound_ms(lens, P),
+            "u16_issue_bound_ms": g.issue_bound_ms(lens, P, u16=True),
             "stage_ms": stage_ms, "stage_bound_ms": stage_bound,
-            "launches_timed": len(chunks), "max_abs_err": err, "bits_differ": differ}
+            "stage_issue_bound_ms": sum(g.issue_bound_ms(c[3], c[0]) for c in chunks),
+            "launches_timed": len(chunks), "max_abs_err": max(err, err16),
+            "bits_differ": differ + differ16}
 
 
 # ---------------------------------------------------------------- the VAE path
@@ -1442,6 +1512,7 @@ def main(argv=None) -> int:
         print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
               + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
                             "bound_ms": full_bound, "bound_by": full_by,
+                            "issue_bound_ms": radius_issue_bound_ms(full),
                             "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
 
         # 3. the main paths
@@ -1491,7 +1562,7 @@ def main(argv=None) -> int:
         "replaces": "lesionvae_tpu/ops/pallas_radius.py:29",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}, {
+        "issue_bound_ms": radius_issue_bound_ms(path_inputs), "library_ms": None}, {
         "name": "resident_adam", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/resident_adam.cu",
         "replaces": "benchmarks/pallas_opt_probe.py:118",
@@ -1514,9 +1585,11 @@ def main(argv=None) -> int:
         "replaces": "lesionvae_tpu/ops/geometry.py:347 (XLA fusion, no Pallas kernel)",
         "launches": geo["launches"], "max_abs_err": max(geo_worst, gt["max_abs_err"]),
         "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
-        "bound_by": gt["bound_by"], "library_ms": None, "shape": [gt["S"], gt["P"]],
-        "u16_ms": gt["u16_ms"], "stage_ms": gt["stage_ms"],
-        "stage_bound_ms": gt["stage_bound_ms"]}]}))
+        "bound_by": gt["bound_by"], "issue_bound_ms": gt["issue_bound_ms"],
+        "library_ms": None, "shape": [gt["S"], gt["P"]],
+        "u16_ms": gt["u16_ms"], "u16_issue_bound_ms": gt["u16_issue_bound_ms"],
+        "stage_ms": gt["stage_ms"], "stage_bound_ms": gt["stage_bound_ms"],
+        "stage_issue_bound_ms": gt["stage_issue_bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -25,9 +25,8 @@ The plain version is written so that its float32 operations are the
 kernel's, one rounding each, in the same order: sums over points run in
 point order, three-term dot products and norms left to right, division by
 a constant is a true division, and minimum, maximum and clip propagate NaN.
-So on the card the kernel and the plain version are meant to agree bit for
-bit (``chip_smoke.py`` checks them to 1e-5 relative and the verdict columns
-exactly, and counts the elements that differ at all).
+So on the card the kernel and the plain version agree bit for bit
+(``chip_smoke.py`` fails if any element differs, NaN for NaN).
 """
 
 from __future__ import annotations
@@ -368,16 +367,39 @@ def streamline_metrics_stacked_u16_plain(codes, p0, lo, sc, lengths,
 # ------------------------------------------------------------ the kernel
 # CUDA's opt-in limit of dynamic shared memory a block on an H100
 _MAX_SHARED = 232448
-# the card, for ``bound_ms``: NVIDIA H100 SXM data sheet, HBM3 and FP32
-# outside the tensor cores
+# the card, for ``bound_ms`` and ``issue_bound_ms``: NVIDIA H100 SXM data
+# sheet, HBM3 and FP32 outside the tensor cores; 132 SMs of 4 schedulers,
+# each issuing one warp instruction (32 lanes) a cycle at 1.98 GHz boost
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_LANE_INSTRUCTIONS_PER_S = 132 * 4 * 1.98e9 * 32
 # FP32 operations of the formula, counted in csrc/geometry.cu with a
 # quotient, a root or an arc cosine as one: a real point takes 96 in pass 1
 # (segment 30, derivatives and curvature 42, torsion 19, sums and bbox 5...)
 # and 40 in pass 2 (covariance 15, curvature variance 3, dispersion 22);
 # the u16 decode adds 12; a streamline's eigenvalues, ratios and means ~200
 OPS_PER_POINT, OPS_PER_POINT_U16, OPS_PER_STREAMLINE = 136, 148, 200
+# The least instructions (one lane's) the rounding contract needs, with no
+# FMA contraction, IEEE quotients and roots at their fast-path lengths (a
+# root: seed + 2 FMUL + 2 FFMA = 5; a quotient: seed + 2 FFMA of Newton + FMUL
+# + 2 FFMA = 6, or 3 more for another numerator over the same divisor; each
+# with 1 range test) and acosf at the CUDA math library's ~20.  A real point:
+#   segment: difference 3, squared length 5, root 5+1, + 1e-12 1, tangent
+#     (3 quotients over one divisor) 12+3, length and tangent sums 4       = 34
+#   derivatives: v 6, a 6, b = v x a 9, |b|^2 5, |v|^2 5, root 5+1,
+#     + 1e-12 1, |v|^3 2, root 5+1, curvature quotient 6+1, finite test,
+#     select and sum 3, energy (select, 2 products, sum) 4                 = 60
+#   torsion: db 6, b . db 5, + 1e-12 1, quotient 6+1, finite and sum 3     = 22
+#   bend: t . t' 5, clip 2, acosf 20, sum 1                                = 28
+#   bounding box 6, centroid sums 3                                        =  9
+#   pass 2: centred point 3, 6 products and 6 sums, curvature deviation 4,
+#     dispersion (tangent kept from pass 1) 3 + 5 + 1                      = 28
+# 181 a point; the u16 decode adds 3 conversions, 3 products and 9 sums
+# (lo +, the running sum, p0 +): 196.  A streamline: the trigonometric
+# eigenvalues ~150 (an acosf and two cosf among them), the deflation step
+# ~230, the 19 outputs with their 17 quotients and 3 roots ~150, its
+# length, 19 stores and the counts ~20: 550.
+ISSUE_PER_POINT, ISSUE_PER_POINT_U16, ISSUE_PER_STREAMLINE = 181, 196, 550
 
 
 def bound_ms(lengths, P: int, u16: bool = False) -> tuple[float, str]:
@@ -399,17 +421,52 @@ def bound_ms(lengths, P: int, u16: bool = False) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def block_streamlines(P: int, u16: bool) -> tuple[int, int]:
-    """(streamlines a block, shared bytes a block) of the kernel at ``P``:
-    a streamline takes 4P + 1 floats (points and curvature, an odd stride so
-    that a warp's threads fall on distinct banks) and, in u16 mode, its
-    3(P-1) codes; a block takes 32 streamlines, halved while they need more
-    than 48 KB (one streamline may use up to the card's 227 KB)."""
-    per = 4 * (4 * P + 1) + (6 * (P - 1) if u16 else 0)
-    spb = 32
-    while spb > 1 and spb * per > 48 * 1024:
-        spb //= 2
-    return spb, spb * per
+def issue_bound_ms(lengths, P: int, u16: bool = False) -> float:
+    """Least time for the card to issue the instructions of one launch over
+    a chunk with these ``lengths`` at ``P`` points: ``ISSUE_PER_POINT`` (or
+    ``ISSUE_PER_POINT_U16``) a real point and ``ISSUE_PER_STREAMLINE`` a
+    streamline, over 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz.  Pad
+    points count nothing."""
+    n = np.clip(np.asarray(lengths, np.int64), 1, P)
+    per_point = ISSUE_PER_POINT_U16 if u16 else ISSUE_PER_POINT
+    work = per_point * int(n.sum()) + ISSUE_PER_STREAMLINE * len(n)
+    return 1e3 * work / PEAK_LANE_INSTRUCTIONS_PER_S
+
+
+def stream_floats(P: int, lanes: int) -> int:
+    """Floats of shared memory a streamline takes in the kernel at ``P``
+    with ``lanes`` lanes a streamline (csrc/geometry.cu::Lay): its points
+    in 16-byte slots and its curvatures (5P), rings of 2 x lanes 16-byte
+    slots for v, b and the unit tangent, 5 term columns of 2 x lanes + 1, 32
+    results and 3 of padding; the stride is rounded up to ``lanes`` modulo 32
+    so that the streamlines of a warp fall on distinct banks."""
+    used = 5 * P + 34 * lanes + 40
+    return used + (lanes - used) % 32
+
+
+def block_streamlines(P: int) -> tuple[int, int, int]:
+    """(lanes a streamline, streamlines a block, shared bytes a block) of the
+    kernel at ``P``.  16 lanes a streamline up to P = 128 (the path's
+    buckets: the sums and the eigen tail keep more lanes busy, measured
+    faster on the card, PERF.md), 4 warps a block; 32 lanes and 8 warps
+    beyond.  Warps are halved while the block needs more than 48 KB (one
+    streamline may use up to the card's 227 KB).  Both modes take the same
+    shared memory: the u16 codes are decoded straight into the points."""
+    lanes, warps = (16, 4) if P <= 128 else (32, 8)
+    per = 4 * stream_floats(P, lanes)
+    while warps > 1 and warps * (32 // lanes) * per > 48 * 1024:
+        warps //= 2
+    spb = warps * (32 // lanes)
+    return lanes, spb, spb * per
+
+
+def max_points() -> int:
+    """The largest P whose streamline (32 lanes, one a block) fits in a
+    block's shared memory."""
+    P = (_MAX_SHARED // 4 - 34 * 32 - 40) // 5
+    while 4 * stream_floats(P, 32) > _MAX_SHARED:
+        P -= 1
+    return P
 
 
 def _check(points, codes, p0, lo, sc, lengths, dtype) -> tuple[int, int]:
@@ -439,10 +496,9 @@ def _check(points, codes, p0, lo, sc, lengths, dtype) -> tuple[int, int]:
                              f"{dt} {shape}, got {t.dtype} {tuple(t.shape)}")
     if P < 2:
         raise ValueError(f"the geometry kernel takes P >= 2 points, got {P}")
-    if block_streamlines(P, points is None)[1] > _MAX_SHARED:
-        raise ValueError(f"the geometry kernel takes at most "
-                         f"{(_MAX_SHARED // 4 - 1) // 4} points a streamline "
-                         f"in shared memory, got P={P}")
+    if block_streamlines(P)[2] > _MAX_SHARED:
+        raise ValueError(f"the geometry kernel takes at most {max_points()} "
+                         f"points a streamline in shared memory, got P={P}")
     return S, P
 
 
@@ -450,9 +506,8 @@ def _check(points, codes, p0, lo, sc, lengths, dtype) -> tuple[int, int]:
 def _kernel():
     """The C entry point of csrc/geometry.cu, built on first use."""
     fn = load("geometry").lesionvae_geometry
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -464,13 +519,13 @@ def _launch(points, codes, p0, lo, sc, lengths, dtype) -> torch.Tensor:
                       device=main.device)
     if S == 0:
         return out
-    spb, shared = block_streamlines(P, points is None)
+    lanes, spb, shared = block_streamlines(P)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(main.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(ptr(points), ptr(codes), ptr(p0), ptr(lo), ptr(sc),
-                        lengths.data_ptr(), out.data_ptr(), S, P, spb, shared,
-                        stream)
+                        lengths.data_ptr(), out.data_ptr(), S, P, lanes, spb,
+                        shared, stream)
     if err != 0:
         raise RuntimeError(f"geometry kernel launch failed: cudaError {err}")
     streamline_metrics_stacked.launches += 1

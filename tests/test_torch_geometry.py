@@ -386,10 +386,139 @@ def test_kernel_rejects_inputs_it_does_not_take(bad):
     assert tg._check(None, codes, aux, aux, aux, n, torch.float32) == (4, 32)
 
 
-@pytest.mark.parametrize("P,u16,want", [(32, False, 32), (64, False, 32), (128, False, 16),
-                                        (256, True, 8), (4096, False, 1), (9000, False, 1)])
-def test_block_streamlines(P, u16, want):
-    spb, shared = tg.block_streamlines(P, u16)
-    assert spb == want
-    assert shared == spb * (4 * (4 * P + 1) + (6 * (P - 1) if u16 else 0))
-    assert spb == 1 or shared <= 48 * 1024
+@pytest.mark.parametrize("P,lanes,want", [(32, 16, 8), (64, 16, 8), (128, 16, 8),
+                                           (129, 32, 4), (256, 32, 4), (4096, 32, 1),
+                                           (9000, 32, 1)])
+def test_block_streamlines(P, lanes, want):
+    """16 lanes a streamline up to P = 128, 32 beyond; 4 and 8 warps a
+    block, halved while the block needs more than 48 KB."""
+    got_lanes, spb, shared = tg.block_streamlines(P)
+    assert (got_lanes, spb) == (lanes, want)
+    assert spb * lanes <= 256 and (spb * lanes) % 32 == 0
+    assert shared == spb * 4 * tg.stream_floats(P, lanes)
+    assert spb == 32 // lanes or shared <= 48 * 1024
+
+
+@pytest.mark.parametrize("P", [2, 3, 32, 48, 64, 100, 128, 256, 4096])
+@pytest.mark.parametrize("lanes", [16, 32])
+def test_stream_floats(P, lanes):
+    """The layout of csrc/geometry.cu::Lay: 34 x lanes + 40 floats that do
+    not depend on P, 5 a point; the stride keeps 16-byte slots aligned and
+    puts the streamlines of a warp on distinct banks (lanes modulo 32)."""
+    w = tg.stream_floats(P, lanes)
+    assert 5 * P + 34 * lanes + 40 <= w < 5 * P + 34 * lanes + 40 + 32
+    assert w % 32 == lanes % 32 and w % 4 == 0
+    assert (34 * lanes + 40) % 4 == 0          # the points' slots start aligned
+
+
+def test_max_points_is_the_shared_memory_limit():
+    P = tg.max_points()
+    assert 4 * tg.stream_floats(P, 32) <= tg._MAX_SHARED < 4 * tg.stream_floats(P + 1, 32)
+    n = torch.ones(1, dtype=torch.int32)
+    assert tg._check(torch.zeros(1, P, 3), None, None, None, None, n, torch.float32) == (1, P)
+    with pytest.raises(ValueError, match=f"at most {P} points"):
+        tg._check(torch.zeros(1, P + 1, 3), None, None, None, None, n, torch.float32)
+
+
+# the card's issue rate that issue_bound_ms divides by: 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz = 33.45 T lane-instructions/s
+LANE_RATE = 132 * 4 * 32 * 1.98e9
+
+
+@pytest.mark.parametrize("u16,per_point", [(False, 181), (True, 196)])
+def test_issue_bound_hand_worked(u16, per_point):
+    """Two streamlines of 10 and 20 real points: 30 x 181 (196 with the
+    decode) + 2 x 550 lane-instructions."""
+    want = 1e3 * (30 * per_point + 2 * 550) / LANE_RATE
+    assert tg.issue_bound_ms([10, 20], 32, u16=u16) == pytest.approx(want, rel=1e-12)
+    assert tg.PEAK_LANE_INSTRUCTIONS_PER_S == pytest.approx(LANE_RATE)
+
+
+@pytest.mark.parametrize("u16", [False, True])
+def test_issue_bound_counts_real_points_only(u16):
+    """Padding P counts nothing; lengths clip to [1, P] as the kernel
+    clips them."""
+    lens = np.array([20, 31, 3, 32])
+    at32 = tg.issue_bound_ms(lens, 32, u16=u16)
+    assert tg.issue_bound_ms(lens, 64, u16=u16) == at32
+    assert tg.issue_bound_ms(lens, 128, u16=u16) == at32
+    assert tg.issue_bound_ms([40, 0], 32, u16=u16) == tg.issue_bound_ms([32, 1], 32, u16=u16)
+
+
+@pytest.mark.parametrize("P", [32, 64, 256])
+def test_issue_bound_u16_above_f32(P):
+    """The decode adds instructions a point: the u16 bound is the larger,
+    and both exceed the byte bound at the path's chunk shape."""
+    lens = np.random.default_rng(P).integers(3, P + 1, size=4096)
+    f32, u16 = tg.issue_bound_ms(lens, P), tg.issue_bound_ms(lens, P, u16=True)
+    assert u16 > f32
+    assert f32 > tg.bound_ms(lens, P)[0]
+
+
+def _ring_schedule(n, G):
+    """The kernel's pass-1 schedule (csrc/geometry.cu: prologue, then rounds
+    of step A at row j0+2+l, step B at j0+1+l, step C and the sums at j0+l)
+    on rings of 2G slots that record which row each slot holds.  Returns the
+    rows every read found, against the rows it wanted."""
+    RM = 2 * G - 1
+    V, B, H, T = {}, {}, {}, {}
+    got, want = [], []
+
+    def edge(p):
+        return (0 if p == 0 else p - 1), (p if p == n - 1 else p + 1)
+
+    def read(ring, row):
+        got.append(ring.get(row & RM))
+        want.append(row)
+
+    def step_b(p):
+        if n >= 3:
+            for q in (p, *edge(p)):
+                read(V, q)
+        B[p & RM] = H[p & RM] = T[p & RM] = p
+
+    curv = n >= 3
+    if curv:
+        for p in (0, 1):
+            V[p & RM] = p
+    step_b(0)
+    rounds = -(-n // G)
+    for r in range(rounds):
+        j0 = r * G
+        for p in range(j0 + 2, j0 + G + 2):          # step A, lanes l = 0..G-1
+            if curv and p < n:
+                V[p & RM] = p
+        for p in range(j0 + 1, j0 + G + 1):          # step B
+            if p < n:
+                step_b(p)
+        for j in range(j0, j0 + G):                  # step C
+            if j < n:
+                if n >= 4:
+                    for q in (j, *edge(j)):
+                        read(B, q)
+                if n >= 3 and j < n - 2:
+                    read(H, j)
+                    read(H, j + 1)
+                T[j & RM] = j                        # torsion and bend terms
+        for j in range(j0, min(j0 + G, n)):          # the sums
+            read(T, j)
+    return got, want
+
+
+@pytest.mark.parametrize("G", [16, 32])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 15, 16, 17, 31, 32, 33, 63, 64, 65, 200])
+def test_ring_schedule_reads_the_rows_it_needs(n, G):
+    """No ring slot is overwritten before every step that needs its row has
+    read it, at lengths on and beside a round's edges."""
+    got, want = _ring_schedule(n, G)
+    assert got == want
+
+
+def test_geometry_lanes_benchmark_needs_the_card():
+    """The launch-geometry benchmark times the kernel on the card only."""
+    from lesionvae_tpu_torch.benchmarks import geometry_lanes
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the benchmark would run")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        geometry_lanes.main(["--S", "8"])
