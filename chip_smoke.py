@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d and 3e)
+    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d-3g)
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -26,9 +26,11 @@ Phases; any failure exits non-zero before the result line is printed:
      at ragged row lengths, T in {1, 3, 64}, a member that skips, gradient
      norms above and below the clip, values that saturate at bf16-max, inf
      and NaN gradients, zero moments, step counts 1 and large: bit-equal in
-     p, m and v (float32 IEEE in the same order, integer rounding); and
-     again, in phase 4, at the cohort path's shape (64 members x the weight
-     elements of a full-width member, the model's own index table);
+     p, m and v (float32 IEEE in the same order, integer rounding), with a
+     random index table and with the flat one's first entries; and again,
+     in phase 4, at the cohort path's shape (64 members x the weight
+     elements of a full-width member, the model's own index table and the
+     flat one of the JAX package's FlatLowmemOptimizer);
    - the geometry kernel, both modes (float32 points, u16 delta codes), at
      P in {32, 48, 64, 128, 256} with S = 1 and S on and beside the block's
      streamline count, at 32,768 x 64, on adversarial rows (straight lines,
@@ -73,6 +75,25 @@ Phases; any failure exits non-zero before the result line is printed:
       held against the CPU (normalization, a 1-epoch history, the normative
       summary, serving), one member of the fleet against the same member
       trained alone on the card, and a uint16-upload and a bf16-compute run;
+   f. the whole pipeline (``all --with-vae --no-plots --device cuda`` through
+      ``cli.main``): geometry (100 streamlines a bundle) -> lesion (2000
+      directions over the cohort's 48^3 volumes) -> the float32 fleet (64
+      members x 40 epochs x batch 64) -> classify -> correlate, on the
+      cohort of 3c-3e; where scikit-learn is missing (an import check
+      decides), ``all`` must refuse before its first stage and the phase
+      runs ``geometry``, ``lesion``, ``vae-cohort`` and ``correlate`` in
+      that order.  Radius must launch once and geometry 9 times; the
+      geometry and lesion CSVs must equal, bit for bit, the phase's own
+      standalone runs; the fleet writes vae-cohort's files with finite
+      summaries; correlate (and classify) are held against the same host
+      stages on the CPU float32 CSVs of 3a and 3c (r and p within
+      CORR_TOL, pairs in one set only within P_BAND of p = 0.05; moved
+      classification rows explained by their features); the host encoder
+      and CSV reader loaded are printed;
+   g. chunked and split fleet launches at full width and small depth (64
+      members x 2 epochs): ``upload_chunks=1`` against "auto" (8 chunks) and
+      against two blocks with the canonical draws (``member_draws``), each
+      timed, bit-equal or within tests/test_upload_chunks.py's bounds;
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
@@ -93,6 +114,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -500,22 +522,30 @@ def sr_adam_errors() -> float:
     bits.  Returns the largest |kernel - plain|."""
     from lesionvae_tpu_torch.ops import sr_adam
 
+    from lesionvae_tpu_torch.models.fleet import layout
+    from lesionvae_tpu_torch.train.lowmem import sr_index_table
+
     c = sr_adam.consts(2e-4, 1e-3, 2.0)
+    flat = sr_index_table(layout(100, 13, 3, VAE_LATENT), flat=True).to("cuda")
     worst, cases = 0.0, 0
     for members in SR_MEMBERS:
         for i, n in enumerate(SR_ROWS):
             if members * n > 8_000_000:
                 continue
-            for special in (False, True):
+            for special, table in ((False, "random"), (True, "random"), (False, "flat"),
+                                   (True, "flat")):
                 (p, m, v, gr), base, scalars = sr_case(members, n, 100 * members + i,
                                                        special)
+                if table == "flat":     # the flat index table's first n entries
+                    base = flat[:n]
                 before = [t.clone() for t in (p, m, v)]
                 plain = [t.clone() for t in (p, m, v)]
                 sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c)
                 sr_adam.sr_adam_step_plain(*plain, gr, base, *scalars, c)
                 torch.cuda.synchronize()
                 worst = max(worst, sr_same_bits(
-                    (p, m, v), plain, before, f"T={members} n={n} special={special}"))
+                    (p, m, v), plain, before,
+                    f"T={members} n={n} special={special} table={table}"))
                 # member 2 is below the clip: at elements 3 and 5 its m'
                 # lies above bf16-max and must come back as ±bf16-max
                 if (special and members > 2 and n > 5
@@ -526,8 +556,10 @@ def sr_adam_errors() -> float:
                 cases += 1
     print(f"[kernels] SR Adam vs plain at T {SR_MEMBERS} x rows {SR_ROWS}, plain and "
           f"with zero moments, ±bf16-max, ±inf and NaN gradients; norms above and "
-          f"below the clip, counts 1 and 123457, one member skipping ({cases} "
-          f"cases): bit-equal in p, m and v; max abs err {worst:.3e}")
+          f"below the clip, counts 1 and 123457, one member skipping; each with a "
+          f"random index table and with the flat table's first n entries "
+          f"(train.lowmem.sr_index_table(flat=True)) ({cases} cases): bit-equal in "
+          f"p, m and v; max abs err {worst:.3e}")
     return worst
 
 
@@ -543,24 +575,28 @@ def sr_adam_at_path_shape(members: int, lay) -> dict:
 
     n = lay.n_weights
     c = sr_adam.consts(2e-4, 1e-3, 2.0)
-    base = sr_index_table(lay).to("cuda")
     worst = 0.0
-    # the special values last but one: the timed calls below go on from the
-    # ordinary case (infinities and NaNs take the quotient's slow paths)
-    for special in (True, False):
-        (p, m, v, gr), _random_table, scalars = sr_case(members, n, 7, special)
-        before = [t.clone() for t in (p, m, v)]
-        plain = [t.clone() for t in (p, m, v)]
-        sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c)
-        sr_adam.sr_adam_step_plain(*plain, gr, base, *scalars, c)
-        torch.cuda.synchronize()
-        worst = max(worst, sr_same_bits(
-            (p, m, v), plain, before,
-            f"the cohort path's shape T={members} n={n} special={special}"))
-        del before, plain
+    # the flat table first, the path's (per-leaf) table last; the special
+    # values last but one: the timed calls below go on from the ordinary case
+    # with the path's table (infinities and NaNs take the quotient's slow
+    # paths)
+    for flat in (True, False):
+        base = sr_index_table(lay, flat=flat).to("cuda")
+        for special in (True, False):
+            (p, m, v, gr), _random_table, scalars = sr_case(members, n, 7, special)
+            before = [t.clone() for t in (p, m, v)]
+            plain = [t.clone() for t in (p, m, v)]
+            sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c)
+            sr_adam.sr_adam_step_plain(*plain, gr, base, *scalars, c)
+            torch.cuda.synchronize()
+            worst = max(worst, sr_same_bits(
+                (p, m, v), plain, before, f"the cohort path's shape T={members} "
+                f"n={n} special={special} flat={flat}"))
+            del before, plain
     print(f"[kernels] SR Adam vs plain at the cohort path's shape, T={members} x "
-          f"n={n} (row stride {p.stride(0)}) with the model's index table, plain "
-          f"and special values: bit-equal in p, m and v; max abs err {worst:.3e}")
+          f"n={n} (row stride {p.stride(0)}) with the model's index table and with "
+          f"the flat one (the JAX FlatLowmemOptimizer's noise), plain and special "
+          f"values: bit-equal in p, m and v; max abs err {worst:.3e}")
     scalars = scalars[:4] + (torch.ones(members, dtype=torch.bool, device="cuda"),)
     ms = device_ms(lambda: sr_adam.sr_adam_step(p, m, v, gr, base, *scalars, c))
     plain_ms = device_ms(lambda: sr_adam.sr_adam_step_plain(p, m, v, gr, base,
@@ -1422,13 +1458,345 @@ def check_cohort_against_cpu(root: Path, cfg) -> None:
               f"{block:.3e} of the float32 upload's (tol 1e-3)")
 
 
+# ---------------------------------------------------------------- the whole pipeline
+# correlate on the card's CSVs against correlate on the CPU float32 CSVs: the
+# inputs differ by <= 1e-4 x max(1, |x|) (the stages' own bounds; read 8.7e-5
+# in a ratio column, ~1e-7 elsewhere), so r and p of a pair move by far less
+# than CORR_TOL, and a pair can enter or leave the p < 0.05 set only with p
+# within P_BAND of the cut on both sides
+CORR_TOL, P_BAND = 1e-3, 1e-3
+# classify: a moved summary row is explained by the subject-mean features of
+# its timepoint, held to the geometry path's bound
+CLF_FEATURE_TOL = PATH_TOL
+# upload_chunks and the split launch against one launch, 64 members x 2
+# epochs at full width: bit-equal, or tests/test_upload_chunks.py:46-67's
+# bounds, or else the card's bounds for one member computed two ways
+# (ALONE_TOL, ALONE_MOVE): at other member counts cuBLAS and the reductions
+# may sum in other orders, and Adam turns a rounding-sized gradient into a
+# step of ±lr (on an H100 80GB HBM3 at 64 members x 2 epochs: histories
+# 3.4e-5 apart, weights beyond atol 1e-4), so which one held is printed
+CHUNK_HIST = dict(rtol=1e-5, atol=1e-6)
+CHUNK_WEIGHTS = dict(rtol=1e-3, atol=1e-4)
+CHUNK_EPOCHS = 2
+
+
+def geometry_launches() -> int:
+    from lesionvae_tpu_torch.ops import geometry
+
+    return geometry.streamline_metrics_stacked.launches
+
+
+def host_code_lines() -> None:
+    """Which host encoder and which profile-CSV reader this machine loads."""
+    from lesionvae_tpu_torch.io import profiles_native
+    from lesionvae_tpu_torch.train import quantize
+
+    enc = quantize.encoder()
+    print(f"[host] uint16 upload encoder: {enc}"
+          + (" (native/quantize.cpp)" if enc == "native" else ""))
+    if enc != "native":
+        print("[host] the native encoder (make -C native libquantize.so) could not be "
+              "built or loaded here: the numpy encoder runs, same codes")
+    if profiles_native.available():
+        print("[host] profile-CSV reader: native (native/csv_parser.cpp) available")
+    else:
+        print("[host] the native profile-CSV reader (make -C native libcsvparser.so) "
+              "could not be built or loaded here: pandas reads the profile CSVs")
+
+
+def compare_correlations(got, want, merged_got, merged_want) -> dict:
+    """``got`` and ``want``: significant_correlations frames; the merged
+    frames they came from, for the p of a pair on the side where it is not
+    significant.  r and p within CORR_TOL for every pair in both, n equal; a
+    pair in one set only must have p within P_BAND of 0.05 on both sides."""
+    from scipy.stats import pearsonr
+
+    from lesionvae_tpu_torch.pipeline.correlation import P_CUT, pair_values
+
+    key = ["group", "timepoint", "sh_feature", "tract_feature"]
+    both = got.merge(want, on=key, suffixes=("", "_cpu"))
+    dr = float((both["r"] - both["r_cpu"]).abs().max()) if len(both) else 0.0
+    dp = float((both["p"] - both["p_cpu"]).abs().max()) if len(both) else 0.0
+    if dr > CORR_TOL or dp > CORR_TOL or not (both["n"] == both["n_cpu"]).all():
+        fail(f"correlate on the card's CSVs vs the CPU float32 CSVs: |dr| {dr:.3e}, "
+             f"|dp| {dp:.3e} (tol {CORR_TOL}), n equal {bool((both['n'] == both['n_cpu']).all())}")
+    moved = []
+    for side, frame, other in (("card only", got, want), ("cpu only", want, got)):
+        only = frame.merge(other[key], on=key, how="left", indicator=True)
+        for _, row in only[only["_merge"] == "left_only"].iterrows():
+            ps = [pearsonr(*pair_values(m, *row[key]))[1] if pair_values(m, *row[key])
+                  else float("nan") for m in (merged_got, merged_want)]
+            if not all(abs(p - P_CUT) <= P_BAND for p in ps):
+                fail(f"correlation {tuple(row[key])} is significant on the {side} side; "
+                     f"p card {ps[0]:.6f}, cpu {ps[1]:.6f}: outside {P_CUT} ± {P_BAND}")
+            moved.append((side, tuple(row[key]), ps))
+    for side, pair, ps in moved:
+        print(f"[all] correlation {pair} significant on the {side} side: p card "
+              f"{ps[0]:.6f}, cpu {ps[1]:.6f} (within {P_CUT} ± {P_BAND})")
+    return {"pairs_both": len(both), "pairs_moved": len(moved), "max_dr": dr,
+            "max_dp": dp}
+
+
+def compare_classification(got_csv, want_csv, geo_got, geo_want) -> dict:
+    """The summary rows equal, or each moved row printed beside the largest
+    relative difference of its timepoint's subject-mean features, which is
+    held to CLF_FEATURE_TOL."""
+    import pandas as pd
+
+    from lesionvae_tpu_torch.pipeline import classification as clf
+
+    got, want = pd.read_csv(got_csv), pd.read_csv(want_csv)
+    if list(got.columns) != list(want.columns) or len(got) != len(want) or not (
+            got[["timepoint", "model"]].equals(want[["timepoint", "model"]])):
+        fail(f"classification_summary.csv: {len(got)} rows against {len(want)}")
+    dfs = [clf.load_and_prepare_data(f) for f in (geo_got, geo_want)]
+    cols = clf.get_feature_columns(dfs[1])
+    metrics = ["accuracy", "auc", "sensitivity", "specificity"]
+    moved = 0
+    for i in range(len(want)):
+        a, b = got.loc[i, metrics].to_numpy(float), want.loc[i, metrics].to_numpy(float)
+        if np.array_equal(a, b):
+            continue
+        tp = want.loc[i, "timepoint"]
+        xa, xb = (clf.aggregate_features_per_subject(d, tp, cols)[cols].to_numpy(float)
+                  for d in dfs)
+        feat = float(np.nanmax(np.abs(xa - xb) / np.maximum(1.0, np.abs(xb))))
+        print(f"[all] classification row {tp} {want.loc[i, 'model']} moved by "
+              f"{np.abs(a - b).max():.4f}; its subject-mean features differ by at most "
+              f"{feat:.3e} (tol {CLF_FEATURE_TOL})")
+        if feat > CLF_FEATURE_TOL:
+            fail(f"classification row {tp} {want.loc[i, 'model']} moved and its "
+                 f"features differ by {feat:.3e}")
+        moved += 1
+    return {"rows": len(want), "rows_moved": moved}
+
+
+def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
+              own: dict) -> dict:
+    """The ``all`` phase on the full-scale cohort under ``root``: geometry
+    (100 streamlines a bundle) -> lesion (2000 directions, 48^3 volumes) ->
+    the float32 fleet (64 members x 40 epochs x batch 64) -> classify ->
+    correlate, on the card through ``cli.main``.  Where scikit-learn is not
+    installed (an import check decides) ``all`` must refuse before its first
+    stage, and the phase runs its device stages through ``geometry``,
+    ``lesion`` and ``vae-cohort`` and then ``correlate``, in that order.
+    Returns the kernels' launches in the phase and its spans."""
+    import importlib.util
+    import pandas as pd
+
+    from lesionvae_tpu_torch import cli
+    from lesionvae_tpu_torch.ops import radius
+    from lesionvae_tpu_torch.pipeline import correlation
+    from lesionvae_tpu_torch.utils import profiling
+
+    have_sklearn = importlib.util.find_spec("sklearn") is not None
+    out = root / "results_all"
+    common = ["--config", str(root / "config.json"), "--base-path", str(root),
+              "--seed", str(SEED), "--device", "cuda", "--output-dir", str(out)]
+    geo_flags = ["--max-streamlines", str(GEO_STREAMLINES)]
+    les_flags = ["--num-samples", str(NUM_SAMPLES)]
+    if not have_sklearn:
+        # the refusal: before any stage, naming the package, nothing written
+        try:
+            cli.main(["all", *common, *geo_flags, *les_flags, "--with-vae",
+                      "--epochs", str(VAE_EPOCHS), "--no-plots"])
+        except ImportError as e:
+            refusal = e
+        else:
+            fail("all ran on a machine without scikit-learn")
+        if refusal.name != "sklearn" or out.exists():
+            fail(f"all without scikit-learn: {refusal!r}, output written {out.exists()}")
+    profiling.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    if have_sklearn:
+        runs = [["all", *common, *geo_flags, *les_flags, "--with-vae", "--epochs",
+                 str(VAE_EPOCHS), "--no-plots"]]
+    else:
+        runs = [["geometry", *common, *geo_flags], ["lesion", *common, *les_flags],
+                ["vae-cohort", *common, "--epochs", str(VAE_EPOCHS)],
+                ["correlate", *common, "--no-plots"]]
+    for argv in runs:
+        rc = cli.main(argv)
+        if rc != 0:
+            fail(f"{argv[0]} exited {rc} in the all phase")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"radius": radius.sample_radii.launches, "geometry": geometry_launches()}
+    spans = profiling.report()
+    if launches != {"radius": 1, "geometry": 9}:
+        fail(f"the all phase launched {launches}; radius 1 and geometry 9 expected")
+
+    # its geometry and lesion CSVs: the bits of the phase's own geometry and
+    # lesion runs on the same cohort (and of path 3a's lesion CSV, written
+    # from the same volumes)
+    for argv in (["geometry", *common[:-1], str(root / "results_own"), *geo_flags],
+                 ["lesion", *common[:-1], str(root / "results_own"), *les_flags]):
+        if cli.main(argv) != 0:
+            fail(f"{argv[0]} exited non-zero in the all phase")
+    geo_dir = "comprehensive_tract_geometry"
+    les = Path("lesion_sh_heme_comprehensive") / "lesion_sh_heme_comprehensive.csv"
+    pairs = [(Path(geo_dir) / f, Path(geo_dir) / f) for f in GEO_CSVS] + [(les, les)]
+    for rel, _ in pairs:
+        if (out / rel).read_bytes() != (root / "results_own" / rel).read_bytes():
+            fail(f"the all phase's {rel} differs from its own standalone run")
+    if (out / les).read_bytes() != own["lesion_cuda"].read_bytes():
+        fail("the all phase's lesion CSV differs from path 3a's on the same volumes")
+
+    # the fleet: vae-cohort's file names at the same flags, finite summaries
+    fleet = out / "vae_cohort"
+    names = sorted(p.name for p in fleet.iterdir())
+    want_names = sorted(p.name for p in cohort_out.iterdir() if p.is_file())
+    if names != want_names or len(names) != 2 * COHORT_MEMBERS:
+        fail(f"the all phase's fleet wrote {len(names)} files, vae-cohort "
+             f"{len(want_names)}: {sorted(set(names) ^ set(want_names))[:6]}")
+    for name in names:
+        if name.endswith(".npz"):
+            z = np.load(fleet / name, allow_pickle=True)
+            for k in ("magnitude", "norm_mean", "norm_std", "subj_profile"):
+                if not np.isfinite(z[k]).all():
+                    fail(f"the all phase's {name}: {k} not finite")
+        else:
+            hist = pd.read_csv(fleet / name)
+            if (len(hist) != VAE_EPOCHS or not np.isfinite(hist.to_numpy()).all()
+                    or not hist["loss"].iloc[-1] < hist["loss"].iloc[0]):
+                fail(f"the all phase's {name}: {len(hist)} epochs, not finite or not "
+                     f"falling")
+
+    # the host stages against the same stages on the CPU float32 CSVs
+    ref = root / "results_all_cpu_inputs"
+    card_geo = out / geo_dir / GEO_CSVS[0]
+    corr_csv = Path("lesion_tract_correlations") / "significant_correlations.csv"
+    correlation.run_correlation(cpu_lesion, cpu_geo, ref / corr_csv.parent,
+                                make_plots=False)
+    merged = [correlation.merge_lesion_tract_data(*correlation.load_data(lc, gc))
+              for lc, gc in ((out / les, card_geo), (cpu_lesion, cpu_geo))]
+    corr = compare_correlations(pd.read_csv(out / corr_csv), pd.read_csv(ref / corr_csv),
+                                *merged)
+    clf = None
+    if have_sklearn:
+        from lesionvae_tpu_torch.pipeline.classification import run_classification
+        summ = Path("tbi_pte_classification") / "classification_summary.csv"
+        run_classification(cpu_geo, ref / summ.parent, make_plots=False)
+        clf = compare_classification(out / summ, ref / summ, card_geo, cpu_geo)
+    host_code_lines()
+    card = card_line()
+    note = ("classify ran: " + json.dumps(clf) if have_sklearn else
+            f"classify could not run here: scikit-learn is not installed on this "
+            f"machine (an import check; `all` refused before its first stage: "
+            f"{refusal}); its device stages ran as geometry -> lesion -> vae-cohort, "
+            f"then correlate")
+    print(f"[all] {'all --with-vae' if have_sklearn else 'the all phase'} on cuda: "
+          f"{wall:.2f}s; launches {json.dumps(launches)}; geometry and lesion CSVs "
+          f"bit-equal to the phase's own runs; fleet {len(names)} files, summaries "
+          f"finite; correlate vs the CPU float32 CSVs {json.dumps(corr)} (r, p tol "
+          f"{CORR_TOL}, band {P_BAND}); {note}; spans {json.dumps(spans)}; {card}")
+    return {"launches": launches, "spans": spans, "wall": wall}
+
+
+def check_chunks() -> dict:
+    """upload_chunks=1 against "auto" (8 chunks) and against two blocks
+    launched with the canonical draws, 64 members x CHUNK_EPOCHS epochs at
+    full width on the card, with the normative summary; each launch timed."""
+    from lesionvae_tpu_torch.models.fleet import FleetState, layout
+    from lesionvae_tpu_torch.train import batched
+
+    T, n_pad, L = COHORT_MEMBERS, COHORT_PAD, 100
+    g = np.random.default_rng(SEED)
+    Xm = g.normal(size=(T, n_pad, L, 13)).astype(np.float32)
+    Xl = g.uniform(size=(T, n_pad, L, 3)).astype(np.float32)
+    n_real = g.integers(900, n_pad + 1, size=T).astype(np.int32)
+    for i, n in enumerate(n_real):
+        Xm[i, n:] = Xl[i, n:] = 0
+    sham = (np.arange(n_pad)[None, :] < 300).astype(np.float32).repeat(T, 0)
+    seg = np.tile(np.arange(n_pad) % 37, (T, 1))
+    kw = dict(latent_dim=VAE_LATENT, epochs=CHUNK_EPOCHS, batch_size=VAE_BATCH,
+              seed=VAE_SEED, normalize_on_device=True, device="cuda",
+              summary_spec=(sham, seg, 38, VAE_SEED))
+    # the canonical draws, made before the clock starts for all three forms
+    hyper = layout(L, 13, 3, VAE_LATENT).hyper
+    full = batched.member_draws(T, n_pad, hyper, CHUNK_EPOCHS, VAE_BATCH, VAE_SEED)
+    blocks = [slice(0, T // 2), slice(T // 2, T)]
+    draws = [batched.member_draws(T, n_pad, hyper, CHUNK_EPOCHS, VAE_BATCH, VAE_SEED,
+                                  block=b) for b in blocks]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = fn()
+        torch.cuda.synchronize()
+        return h, time.perf_counter() - t0
+
+    one, s1 = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, **kw, **full))
+    auto, s8 = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, upload_chunks="auto",
+                                                      **kw, **full))
+    split, s2 = timed(lambda: batched.cat_handles([
+        batched.launch_many_vaes(Xm[b], Xl[b], n_real[b], **dict(
+            kw, summary_spec=(sham[b], seg[b], 38, VAE_SEED)), **d)
+        for b, d in zip(blocks, draws)]))
+    out = {"members": T, "epochs": CHUNK_EPOCHS, "single_s": s1, "auto_s": s8,
+           "auto_chunks": batched.resolve_chunks("auto", T), "two_blocks_s": s2}
+    print(f"[chunks] times: {json.dumps(out)}")
+    s0 = FleetState.from_state_dicts(full["state_dicts"], one.state.layout, device="cuda")
+
+    def moved(h, ref, shift=0) -> float:
+        """The largest L2 distance of a member's tensor in ``h`` from the same
+        tensor of member (i + shift) % T in ``ref``, over the distance that
+        tensor moved in ``ref`` from its start."""
+        worst = 0.0
+        for name, r in {**ref.state.leaves, **ref.state.stats}.items():
+            a = {**h.state.leaves, **h.state.stats}[name].float().flatten(1)
+            b, start_ = r.float().flatten(1), {**s0.leaves, **s0.stats}[name].float().flatten(1)
+            b = torch.roll(b, -shift, 0)
+            start_ = torch.roll(start_, -shift, 0)
+            ratio = (a - b).norm(dim=1) / (b - start_).norm(dim=1).clamp(min=1e-30)
+            worst = max(worst, float(ratio.max()))
+        return worst
+
+    def hist_rel(a, b) -> float:
+        return rel_err(a.cpu(), b.cpu())
+
+    for label, h in (("auto", auto), ("two_blocks", split)):
+        bits = all(torch.equal(getattr(h.state, b), getattr(one.state, b))
+                   for b in ("weights", "affine")) and torch.equal(h.hist, one.hist)
+        readings = {
+            "history_max_abs": float((h.hist - one.hist).abs().max()),
+            "history_max_rel": hist_rel(h.hist, one.hist),
+            "weights_max_abs": float((h.state.weights - one.state.weights).abs().max()),
+            "test_bounds_hold": bool(
+                torch.allclose(h.hist, one.hist, **CHUNK_HIST) and all(
+                    torch.allclose(getattr(h.state, b), getattr(one.state, b),
+                                   **CHUNK_WEIGHTS) for b in ("weights", "affine"))),
+            "tensor_off_of_movement": moved(h, one),
+            "control_next_member": [hist_rel(h.hist, torch.roll(one.hist, -1, 0)),
+                                    moved(h, one, shift=1)]}
+        if bits:
+            held = "bit-equal"
+        elif readings["test_bounds_hold"]:
+            held = "tests/test_upload_chunks.py's bounds"
+        elif (readings["history_max_rel"] <= ALONE_TOL
+              and readings["tensor_off_of_movement"] <= ALONE_MOVE):
+            held = (f"the card's member-against-alone bounds (history {ALONE_TOL}, "
+                    f"tensors {ALONE_MOVE} of their movement in L2)")
+        else:
+            held = None
+        control = readings["control_next_member"]
+        if held is None or control[0] <= ALONE_TOL or control[1] <= ALONE_MOVE:
+            fail(f"fleet {label} vs one launch: {json.dumps(readings)}")
+        out[label] = {"held": held, **readings}
+    print(f"[chunks] {json.dumps(out)}")
+    return out
+
+
 def start_cohort(root: Path, cfg, pool, profiles: bool):
-    """Write the full-scale cohort of paths 3c-3e under ``root`` (16 tracts,
-    37 subjects x 4 timepoints: bundles of 100 streamlines and, with
-    ``profiles``, the profile CSVs), one subject a task on ``pool``.  A
-    subject's files depend on the seed, the subject and the timepoint alone,
-    so the cohort is the one a single call writes."""
-    return [pool.submit(generate_cohort, root, cfg, seed=SEED, volume_shape=(8,) * 3,
+    """Write the full-scale cohort of paths 3c-3f under ``root`` (16 tracts,
+    37 subjects x 4 timepoints: the volumes at the lesion path's 48^3, so
+    that every lesion of the ``all`` phase is real, bundles of 100
+    streamlines and, with ``profiles``, the profile CSVs), one subject a
+    task on ``pool``.  A subject's files depend on the seed, the subject and
+    the timepoint alone, so the cohort is the one a single call writes, and
+    its TBI/PTE volumes are those of path 3a."""
+    return [pool.submit(generate_cohort, root, cfg, seed=SEED, volume_shape=(VOLUME,) * 3,
                         subjects={group: [sid]}, with_profiles=profiles,
                         with_bundles=True, n_streamlines=VAE_STREAMLINES)
             for group, sids in cfg.subjects_by_group().items() for sid in sids]
@@ -1447,9 +1815,10 @@ def run_vae_paths(root: Path, cfg) -> int:
 
 
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-vae", action="store_true",
-                    help="leave out the vae and score paths (a shorter run "
+                    help="leave out the vae, score and all paths (a shorter run "
                          "while working on a kernel; not the full check)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1523,14 +1892,28 @@ def main(argv=None) -> int:
                             subjects=cfg.subjects_by_group(only=("TBI", "PTE")))
             print(f"[path] synthetic cohort written in {time.perf_counter() - t0:.1f}s")
             launches, path_inputs = check_path(root)
+            # path 3a's CSVs for the all phase: its volumes are the cohort's
+            own = {"lesion_cuda": cohort_root / "lesion_3a_cuda.csv",
+                   "lesion_cpu": cohort_root / "lesion_3a_cpu_f32.csv"}
+            les = "lesion_sh_heme_comprehensive.csv"
+            shutil.copy(root / "results" / "lesion_sh_heme_comprehensive" / les,
+                        own["lesion_cuda"])
+            shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
         probe, probe_launches = check_probe()
         geo = check_geometry(cohort_root, cfg)
         sr_launches = 0
+        all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
-            print("[path] vae, score, vae-cohort and score-cohort paths skipped "
+            print("[path] vae, score, vae-cohort, score-cohort and all paths skipped "
                   "(--skip-vae)")
         else:
             sr_launches = run_vae_paths(cohort_root, cfg)
+            all_phase = check_all(
+                cohort_root, cohort_root / "results" / "vae_cohort",
+                cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
+                own["lesion_cpu"], own)
+            check_chunks()
+            torch.cuda.empty_cache()
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)
@@ -1560,7 +1943,9 @@ def main(argv=None) -> int:
         "name": "radius", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/radius.cu",
         "replaces": "lesionvae_tpu/ops/pallas_radius.py:29",
-        "launches": launches, "max_abs_err": err, "ms": ms,
+        "launches": launches + all_phase["launches"]["radius"],
+        "launches_by_path": {"lesion": launches, "all": all_phase["launches"]["radius"]},
+        "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "issue_bound_ms": radius_issue_bound_ms(path_inputs), "library_ms": None}, {
         "name": "resident_adam", "route": "cuda",
@@ -1583,13 +1968,17 @@ def main(argv=None) -> int:
         "name": "geometry", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/geometry.cu",
         "replaces": "lesionvae_tpu/ops/geometry.py:347 (XLA fusion, no Pallas kernel)",
-        "launches": geo["launches"], "max_abs_err": max(geo_worst, gt["max_abs_err"]),
+        "launches": geo["launches"] + all_phase["launches"]["geometry"],
+        "launches_by_path": {"geometry": geo["launches"],
+                             "all": all_phase["launches"]["geometry"]},
+        "max_abs_err": max(geo_worst, gt["max_abs_err"]),
         "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
         "bound_by": gt["bound_by"], "issue_bound_ms": gt["issue_bound_ms"],
         "library_ms": None, "shape": [gt["S"], gt["P"]],
         "u16_ms": gt["u16_ms"], "u16_issue_bound_ms": gt["u16_issue_bound_ms"],
         "stage_ms": gt["stage_ms"], "stage_bound_ms": gt["stage_bound_ms"],
         "stage_issue_bound_ms": gt["stage_issue_bound_ms"]}]}))
+    print(f"[time] chip_smoke.py wall {time.perf_counter() - t_script:.1f}s; {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

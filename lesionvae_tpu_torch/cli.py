@@ -4,22 +4,30 @@
     python -m lesionvae_tpu_torch lesion [--strict] [--device {cuda,cpu}] ...
     python -m lesionvae_tpu_torch vae    --tract atr_left [--no-plots] ...
     python -m lesionvae_tpu_torch score  --checkpoint DIR --normative NPZ --tract T --timepoint TP
-    python -m lesionvae_tpu_torch vae-cohort   [--tracts ...] [--store bf16] [--save-checkpoints] ...
+    python -m lesionvae_tpu_torch vae-cohort   [--tracts ...] [--store bf16] [--upload-chunks {N,auto}] ...
     python -m lesionvae_tpu_torch score-cohort [--cohort-dir DIR] [--subjects ...]
+    python -m lesionvae_tpu_torch classify  [--geometry-csv CSV] [--no-plots]
+    python -m lesionvae_tpu_torch correlate [--geometry-csv CSV] [--lesion-csv CSV] [--no-plots]
+    python -m lesionvae_tpu_torch all    [--with-vae] [--epochs N] [--no-plots]
+                                         (geometry -> lesion -> [vae-cohort] -> classify -> correlate)
     python -m lesionvae_tpu_torch synth  [--n-streamlines N] [--volume V]
 
-Ported so far: the tract-geometry stage, the lesion SH + heme stage, the
-single-tract VAE stage, serving a saved VAE, the cohort forms of both (the
-whole (tract x timepoint) fleet trained and served as one program), and the
-synthetic cohort; ``classify``, ``correlate`` and ``all`` of
-``python -m lesionvae_tpu`` come with their slices.  Every stage runs on the card unless ``--device cpu`` is
-given; there is no automatic fallback.
+Every subcommand of ``python -m lesionvae_tpu`` is here, with its flags and
+default paths.  Every device stage runs on the card unless ``--device cpu``
+is given; there is no automatic fallback.  ``classify`` and ``correlate``
+are host work (sklearn, scipy) on the CSVs the device stages wrote;
+``--no-plots`` (also on ``all``) leaves out their matplotlib figures.  A
+stage that needs a host package the machine lacks (sklearn for
+``classify``, matplotlib and seaborn for figures) raises an ImportError
+naming it before anything runs; ``all`` checks them all before its first
+stage.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import sys
 import time
 from pathlib import Path
@@ -54,7 +62,25 @@ def _resolve(args):
     return config, base, data_dir, out_root
 
 
-def main(argv=None) -> int:
+#: host packages each analysis stage imports, and those of its figures
+NEEDS = {"classify": ("sklearn",), "correlate": ("scipy",)}
+FIGURES_NEED = ("matplotlib", "seaborn")
+
+
+def require_host_packages(stages, make_plots: bool) -> None:
+    """Raise ImportError naming every host package that ``stages`` need and
+    this machine lacks (an import check: nothing is run)."""
+    need = [m for st in stages for m in NEEDS[st]]
+    if make_plots:
+        need += FIGURES_NEED
+    missing = sorted({m for m in need if importlib.util.find_spec(m) is None})
+    if missing:
+        hint = " (--no-plots leaves out the figures)" if make_plots else ""
+        raise ImportError(f"{' and '.join(stages)} need {', '.join(missing)}, not "
+                          f"installed here; nothing was run{hint}", name=missing[0])
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lesionvae_tpu_torch")
     sub = parser.add_subparsers(dest="stage", required=True)
 
@@ -99,6 +125,11 @@ def main(argv=None) -> int:
     p.add_argument("--quantize-upload", action="store_true",
                    help="upload the raw tensors as uint16 fixed-point codes "
                         "(train.quantize)")
+    p.add_argument("--upload-chunks", default="1",
+                   help="member-axis launch chunks, each its own copy to the "
+                        "device and its own training run ('auto' = the "
+                        "largest divisor of the fleet size <= 8; "
+                        "train.batched)")
     p.add_argument("--save-z", action="store_true",
                    help="also fetch and store the full per-streamline z-score "
                         "block per member (default: z stays on the device, "
@@ -108,6 +139,29 @@ def main(argv=None) -> int:
     p.add_argument("--save-checkpoints", action="store_true",
                    help="save every member with its normalization stats: the "
                         "serving bundles of score and score-cohort")
+
+    p = sub.add_parser("classify", help="TBI-vs-PTE classification (sklearn)")
+    _add_common(p)
+    p.add_argument("--geometry-csv", default=None)
+    p.add_argument("--no-plots", action="store_true")
+
+    p = sub.add_parser("correlate", help="lesion-tract correlation (scipy)")
+    _add_common(p)
+    p.add_argument("--geometry-csv", default=None)
+    p.add_argument("--lesion-csv", default=None)
+    p.add_argument("--no-plots", action="store_true")
+
+    p = sub.add_parser("all", help="full pipeline: geometry -> lesion -> "
+                                   "[vae-cohort] -> classify -> correlate")
+    _add_common(p)
+    p.add_argument("--max-streamlines", type=int, default=100)
+    p.add_argument("--num-samples", type=int, default=2000)
+    p.add_argument("--with-vae", action="store_true",
+                   help="also train the (tract x timepoint) VAE fleet "
+                        "(run_vae_cohort) as part of the pipeline")
+    p.add_argument("--epochs", type=int, default=40,
+                   help="VAE epochs when --with-vae is set")
+    p.add_argument("--no-plots", action="store_true")
 
     p = sub.add_parser("score-cohort",
                        help="serving: z-score subjects against every saved "
@@ -137,7 +191,24 @@ def main(argv=None) -> int:
     p.add_argument("--n-streamlines", type=int, default=30)
     p.add_argument("--volume", type=int, default=32)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def _geometry_csv(out_root: Path) -> Path:
+    return (out_root / "comprehensive_tract_geometry"
+            / "comprehensive_tract_geometry_metrics.csv")
+
+
+def _lesion_csv(out_root: Path) -> Path:
+    return (out_root / "lesion_sh_heme_comprehensive"
+            / "lesion_sh_heme_comprehensive.csv")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.stage in ("classify", "correlate", "all"):
+        require_host_packages(("classify", "correlate") if args.stage == "all"
+                              else (args.stage,), not args.no_plots)
     config, base, data_dir, out_root = _resolve(args)
     t0 = time.perf_counter()
     with (profiling.trace(args.trace, args.device) if args.trace
@@ -191,8 +262,50 @@ def main(argv=None) -> int:
                            compute_dtype=bf16[args.dtype],
                            store_dtype=bf16[args.store],
                            quantize_upload=args.quantize_upload,
+                           upload_chunks=(args.upload_chunks
+                                          if args.upload_chunks == "auto"
+                                          else int(args.upload_chunks)),
                            save_checkpoints=args.save_checkpoints,
                            device=args.device)
+
+        elif args.stage == "classify":
+            from .pipeline.classification import run_classification
+            run_classification(Path(args.geometry_csv) if args.geometry_csv
+                               else _geometry_csv(out_root),
+                               out_root / "tbi_pte_classification",
+                               make_plots=not args.no_plots)
+
+        elif args.stage == "correlate":
+            from .pipeline.correlation import run_correlation
+            run_correlation(Path(args.lesion_csv) if args.lesion_csv
+                            else _lesion_csv(out_root),
+                            Path(args.geometry_csv) if args.geometry_csv
+                            else _geometry_csv(out_root),
+                            out_root / "lesion_tract_correlations",
+                            make_plots=not args.no_plots)
+
+        elif args.stage == "all":
+            from .pipeline.classification import run_classification
+            from .pipeline.correlation import run_correlation
+            from .pipeline.geometry_run import run_geometry
+            from .pipeline.lesion_run import run_lesion_analysis
+            run_geometry(config, data_dir, _geometry_csv(out_root).parent,
+                         max_streamlines=args.max_streamlines, device=args.device)
+            run_lesion_analysis(config, data_dir, _lesion_csv(out_root).parent,
+                                num_samples=args.num_samples, seed=args.seed,
+                                device=args.device)
+            if args.with_vae:
+                from .pipeline.vae_run import run_vae_cohort
+                run_vae_cohort(list(config.geometry_tracts), epochs=args.epochs,
+                               config=config, base_path=base,
+                               output_dir=out_root / "vae_cohort", seed=args.seed,
+                               device=args.device)
+            run_classification(_geometry_csv(out_root),
+                               out_root / "tbi_pte_classification",
+                               make_plots=not args.no_plots)
+            run_correlation(_lesion_csv(out_root), _geometry_csv(out_root),
+                            out_root / "lesion_tract_correlations",
+                            make_plots=not args.no_plots)
 
         elif args.stage == "score-cohort":
             from .pipeline.infer import score_cohort

@@ -7,9 +7,10 @@ consumer masks (or, in the kernels, stops) by length.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -61,3 +62,14 @@ def pad_batch(arrays: Sequence[np.ndarray], max_rows: int | None = None,
         out[i, :n] = a[:n]
         counts[i] = n
     return out, counts
+
+
+def unpad(values, lengths) -> List[np.ndarray]:
+    """The inverse of both packers: row i of ``values`` cut to its first
+    ``lengths[i]`` entries, as host arrays.  ``values`` and ``lengths`` may
+    be numpy arrays or tensors on any device."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.cpu().numpy()
+    return [np.asarray(values[i, :n]) for i, n in enumerate(lengths)]

@@ -164,6 +164,7 @@ def run_vae_cohort(tracts: Sequence[str], latent_dim: int = 10,
                    compute_dtype: Optional[torch.dtype] = None,
                    store_dtype: Optional[torch.dtype] = None,
                    quantize_upload: bool = False,
+                   upload_chunks: "int | str" = 1,
                    save_checkpoints: bool = False, device="cuda",
                    dtype: torch.dtype = torch.float32,
                    **launch_kwargs) -> Dict[tuple, dict]:
@@ -177,7 +178,9 @@ def run_vae_cohort(tracts: Sequence[str], latent_dim: int = 10,
     precision; ``store_dtype=torch.bfloat16``: bfloat16 storage of weights
     and moments with stochastic rounding (``train.lowmem``);
     ``quantize_upload``: uint16 upload of the raw tensors
-    (``train.quantize``).  ``launch_kwargs`` go to ``launch_many_vaes``
+    (``train.quantize``); ``upload_chunks`` (an int or ``"auto"``): the
+    launch split into member-axis chunks, each its own copy and training
+    run (``train.batched``).  ``launch_kwargs`` go to ``launch_many_vaes``
     (tests inject weights and draws).
 
     Returns {(tract, timepoint): {"model", "history", "magnitude",
@@ -238,8 +241,8 @@ def run_vae_cohort(tracts: Sequence[str], latent_dim: int = 10,
             batch_size=batch_size, lr=lr, seed=seed, compute_dtype=compute_dtype,
             summary_spec=(sham_T, subj_idx_T, n_seg, seed),
             normalize_on_device=True, store_dtype=store_dtype,
-            quantize_upload=quantize_upload, device=device, dtype=dtype,
-            **launch_kwargs)
+            quantize_upload=quantize_upload, upload_chunks=upload_chunks,
+            device=device, dtype=dtype, **launch_kwargs)
         models, hist = handle.fetch()
 
     with stage("vae_cohort.normative"):

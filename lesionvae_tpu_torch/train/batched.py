@@ -38,7 +38,7 @@ from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32
 from . import data as vdata
-from .lowmem import LowmemOptimizer, draw_salts
+from .lowmem import FlatLowmemOptimizer, LowmemOptimizer, draw_salts
 from .normative import member_summary
 from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
 from .trainer import TrainedVAE, betas
@@ -171,6 +171,61 @@ def init_state_dicts(members: int, hyper: Mapping[str, int], seed: int):
         return [LesionConditionedVAE(**hyper).state_dict() for _ in range(members)]
 
 
+DRAWS = ("state_dicts", "perms", "noise", "salts")
+
+
+def member_draws(members: int, n_pad: int, hyper: Mapping[str, int], epochs: int,
+                 batch_size: int, seed: int, block: slice = slice(None)
+                 ) -> Dict[str, object]:
+    """The canonical fleet's per-member draws, what ``launch_many_vaes``
+    draws from ``seed`` for a ``members``-member fleet of ``n_pad`` padded
+    rows (``hyper``: ``models.fleet.layout(...).hyper``), cut to the members
+    ``block``: initial weights, permutations, noise and stochastic-rounding
+    salts, as the keyword arguments of that name.  Launching the blocks of
+    one logical fleet with these (each block padded to the same ``n_pad``)
+    trains every member as the single launch does (the counterpart of the
+    JAX package's ``member_keys``: lesionvae_tpu/train/batched.py:401-420)."""
+    gen = torch.Generator().manual_seed(seed)
+    perms, noise = draw_fleet(members, n_pad, epochs, batch_size, hyper["latent"], gen)
+    return {"state_dicts": init_state_dicts(members, hyper, seed)[block],
+            "perms": perms[block], "noise": noise[block],
+            "salts": draw_salts(members, gen)[block]}
+
+
+def resolve_chunks(upload_chunks, members: int) -> int:
+    """``upload_chunks`` as a count: an int >= 1 that divides the fleet, or
+    ``"auto"``, the largest divisor of the fleet size that is <= 8."""
+    if upload_chunks == "auto":
+        return max(k for k in range(1, 9) if members % k == 0)
+    if not isinstance(upload_chunks, int) or upload_chunks < 1:
+        raise ValueError("upload_chunks must be >= 1 or 'auto'")
+    if members % upload_chunks != 0:
+        raise ValueError(f"fleet size {members} not divisible by "
+                         f"upload_chunks ({upload_chunks})")
+    return upload_chunks
+
+
+def cat_handles(handles: Sequence[FleetHandle]) -> FleetHandle:
+    """One handle of the members of ``handles`` (chunks or blocks of one
+    fleet) in order: every output is member-leading, so each is the
+    handles' outputs stacked."""
+    first = handles[0]
+    cat = lambda ts: torch.cat(list(ts), dim=0)  # noqa: E731
+    state = FleetState(first.state.layout, sum(h.state.members for h in handles),
+                       first.state.dtype, first.state.store_dtype, first.state.device)
+    for name in ("weights", "affine"):
+        getattr(state, name).copy_(cat(getattr(h.state, name) for h in handles))
+    state.stats = {k: cat(h.state.stats[k] for h in handles) for k in first.state.stats}
+    summary = (None if first.summary is None else
+               tuple(cat(parts) for parts in zip(*(h.summary for h in handles))))
+    norm_stats = (None if first.norm_stats is None else
+                  {k: cat(h.norm_stats[k] for h in handles) for k in first.norm_stats})
+    return FleetHandle(state, cat(h.hist for h in handles), first._epochs,
+                       first._n_batches, cat(h.Xm for h in handles),
+                       cat(h.Xl for h in handles), summary=summary,
+                       norm_stats=norm_stats)
+
+
 def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
                      latent_dim: int = 10, epochs: int = 40,
                      batch_size: int = 64, lr: float = 2e-4,
@@ -178,7 +233,8 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
                      seed: int = 42, compute_dtype: Optional[torch.dtype] = None,
                      summary_spec=None, normalize_on_device: bool = False,
                      store_dtype: Optional[torch.dtype] = None,
-                     quantize_upload: bool = False, device="cuda",
+                     quantize_upload: bool = False, flat_opt: bool = False,
+                     upload_chunks: "int | str" = 1, device="cuda",
                      dtype: torch.dtype = torch.float32,
                      state_dicts: Optional[Sequence[Mapping]] = None,
                      perms: Optional[torch.Tensor] = None,
@@ -198,12 +254,21 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
     (``train.data.normalize_on_device``); non-finite values are kept for its
     median imputation.  Otherwise NaN -> 0 as in the single trainer.
     ``store_dtype=torch.bfloat16``: weight leaves and their Adam moments
-    stored in bfloat16 with stochastic rounding (``train.lowmem``).
+    stored in bfloat16 with stochastic rounding (``train.lowmem``);
+    ``flat_opt`` takes the noise of the JAX package's flat optimizer
+    (``train.lowmem.FlatLowmemOptimizer``) and needs ``store_dtype``.
     ``compute_dtype=torch.bfloat16``: mixed precision, parameters and
     BatchNorm statistics float32, convolutions and dense layers in
     bfloat16, loss in float32.
     ``quantize_upload``: the raw blocks cross to the device as uint16 codes
     (``train.quantize``); needs ``normalize_on_device``.
+    ``upload_chunks``: split the launch into this many member-axis chunks,
+    each its own copy to the device and its own training run (``"auto"``:
+    the largest divisor of T that is <= 8).  The draws are made once for
+    all T members and sliced, and normalization, quantization ranges and
+    the summary are per member, so every member trains as in one launch.
+    ``state_dicts``, ``perms``, ``noise`` and ``salts`` replace the seeded
+    draws (``member_draws`` gives the canonical fleet's for a block of it).
     ``dtype`` is the arithmetic's (float64 on the CPU for tests); on
     ``cuda`` the fleet is float32."""
     device = torch.device(device)
@@ -213,16 +278,66 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
         raise ValueError("quantize_upload requires normalize_on_device (the "
                          "decoded raw values feed the on-device normalization; "
                          "see train.quantize)")
+    if flat_opt and store_dtype is None:
+        raise ValueError("flat_opt is part of the lowmem fast path; set "
+                         "store_dtype (torch.bfloat16) to enable it")
     if store_dtype not in (None, torch.bfloat16) or compute_dtype not in (
             None, torch.bfloat16):
         raise ValueError("store_dtype and compute_dtype are None or torch.bfloat16")
-    full_fp32(device)
     T, n_pad, seq_len, micro_ch = Xm.shape
     lesion_ch = Xl.shape[3]
     if (n_pad // batch_size) * batch_size != n_pad:
         raise ValueError("pad the row axis to a multiple of batch_size")
-    n_batches = n_pad // batch_size
+    chunks = resolve_chunks(upload_chunks, T)
     lay = layout(seq_len, micro_ch, lesion_ch, latent_dim)
+
+    # weights, draws and salts: from the seed on the CPU, or injected
+    if state_dicts is None:
+        state_dicts = init_state_dicts(T, lay.hyper, seed)
+    gen = torch.Generator().manual_seed(seed)
+    if perms is None or noise is None:
+        drawn = draw_fleet(T, n_pad, epochs, batch_size, latent_dim, gen)
+        perms = drawn[0] if perms is None else perms
+        noise = drawn[1] if noise is None else noise
+    if salts is None:
+        salts = draw_salts(T, gen)
+    draws = dict(zip(DRAWS, (state_dicts, perms, noise, salts)))
+    for name, d in draws.items():
+        if len(d) != T:
+            raise ValueError(f"{name} has {len(d)} members for a {T}-member fleet")
+    if perms.shape[-1] != n_pad:
+        raise ValueError(f"perms permute {perms.shape[-1]} rows, the blocks hold "
+                         f"{n_pad}: pad every block of one fleet to the same rows")
+
+    common = dict(epochs=epochs, batch_size=batch_size, lr=lr,
+                  weight_decay=weight_decay, grad_clip=grad_clip,
+                  compute_dtype=compute_dtype, normalize_on_device=normalize_on_device,
+                  store_dtype=store_dtype, quantize_upload=quantize_upload,
+                  flat_opt=flat_opt, device=device, dtype=dtype,
+                  summary_noise=summary_noise)
+
+    def block(sl: slice) -> FleetHandle:
+        spec = None
+        if summary_spec is not None:
+            sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
+            spec = (sham_T[sl], subj_idx_T[sl], n_seg, norm_seed)
+        return _launch_block(Xm[sl], Xl[sl], n_real[sl], lay, spec,
+                             {k: v[sl] for k, v in draws.items()}, **common)
+
+    if chunks == 1:
+        return block(slice(None))
+    Tc = T // chunks
+    return cat_handles([block(slice(j * Tc, (j + 1) * Tc)) for j in range(chunks)])
+
+
+def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, lr,
+                  weight_decay, grad_clip, compute_dtype, normalize_on_device,
+                  store_dtype, quantize_upload, flat_opt, device, dtype,
+                  summary_noise) -> FleetHandle:
+    """One launch: the members' blocks to the device, normalization,
+    training and the summary, with the given draws."""
+    full_fp32(device)
+    n_batches = Xm.shape[1] // batch_size
 
     # the data, once onto the device
     def put(X):
@@ -245,21 +360,14 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
         Xm_d, Xl_d = (torch.nan_to_num(X, nan=0.0) for X in (Xm_d, Xl_d))
     Xm_d, Xl_d = Xm_d.to(dtype), Xl_d.to(dtype)
 
-    # weights, draws and salts: from the seed on the CPU, or injected
-    if state_dicts is None:
-        state_dicts = init_state_dicts(T, lay.hyper, seed)
-    gen = torch.Generator().manual_seed(seed)
-    if perms is None or noise is None:
-        drawn = draw_fleet(T, n_pad, epochs, batch_size, latent_dim, gen)
-        perms = drawn[0] if perms is None else perms
-        noise = drawn[1] if noise is None else noise
-    if salts is None:
-        salts = draw_salts(T, gen)
-    state = FleetState.from_state_dicts(state_dicts, lay, dtype, store_dtype, device)
-    opt = LowmemOptimizer(state, lr, weight_decay, grad_clip, salts=salts)
+    state = FleetState.from_state_dicts(draws["state_dicts"], lay, dtype,
+                                        store_dtype, device)
+    opt = (FlatLowmemOptimizer if flat_opt else LowmemOptimizer)(
+        state, lr, weight_decay, grad_clip, salts=draws["salts"])
 
-    hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, perms.to(device),
-                       noise.to(device, dtype), epochs, batch_size, compute_dtype)
+    hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, draws["perms"].to(device),
+                       draws["noise"].to(device, dtype), epochs, batch_size,
+                       compute_dtype)
     summary = None
     if summary_spec is not None:
         sham_T, subj_idx_T, n_seg, norm_seed = summary_spec

@@ -23,6 +23,16 @@ too); the port stores channel-first with permuted dense columns
 (``models.convert``), so ``sr_index_table`` carries each element's
 ``index * 0x9E3779B9 + leaf * 0x9E3779B1`` across with the same maps that
 carry the weights.
+
+The JAX package's flat form (``flatten_partition``, ``FlatLowmemOptimizer``,
+lesionvae_tpu/train/lowmem.py:162-262) runs the same update on two flat
+buffers, ``fw`` (the weight leaves in flax tree order and layout) and
+``fo`` (the BatchNorm leaves).  The port's buffers are flat already, so
+that form changes the numerics only: an element's noise index is its
+position in ``fw`` (``sr_index_table(lay, flat=True)``), the float32 ``fo``
+leaves take the update without rounding (as here), and the gradient norm
+reduces over the two buffers (as here).  ``flatten_partition`` gives the
+order of ``fw`` and ``fo`` in the port's buffers.
 """
 
 from __future__ import annotations
@@ -62,42 +72,82 @@ def _flax_shape(name: str, shape: Sequence[int]) -> tuple:
     return (shape[1], shape[0])     # dense (out, in) <- (in, out)
 
 
-@functools.lru_cache(maxsize=16)
-def sr_index_table(lay: Layout) -> torch.Tensor:
-    """int32 (n_weights,): for each element of a member's weight buffer, the
-    bit pattern of ``index * 0x9E3779B9 + leaf * 0x9E3779B1`` modulo 2^32,
-    where index and leaf are the JAX package's (see the module docstring).
-    ``hash_bits(table, step_salt)`` is then the element's noise."""
+def _carried_codes(lay: Layout, code) -> Dict[str, np.ndarray]:
+    """Each parameter of the port's model filled with integer codes made in
+    the flax layout and carried across by ``from_jax_params``.  ``code(leaf,
+    offset, shape)`` fills one flax leaf: ``leaf`` is its place in flax's
+    tree order (every leaf counted), ``offset`` the elements of the leaves of
+    its own buffer (``fw`` for a weight leaf, ``fo`` else) before it."""
     params: Dict[str, dict] = {}
     stats: Dict[str, dict] = {}
     leaf = 0
+    offsets = {True: 0, False: 0}
 
-    def base(shape):
+    def fill(name: str, weight: bool):
         nonlocal leaf
-        n = int(np.prod(shape))
-        out = ((np.arange(n, dtype=np.int64) * 0x9E3779B9
-                + ((leaf * 0x9E3779B1) & MASK32)) & MASK32).reshape(shape)
+        shape = _flax_shape(name, lay.leaves[name][2])
+        out = code(leaf, offsets[weight], shape)
         leaf += 1
+        offsets[weight] += int(np.prod(shape))
         return out
 
     # flax's tree order: module names sorted, then bias before kernel/scale
     for module in sorted(_BNS + _CONVS + _CONV_TS + _DENSES):
-        shape = lambda kind: _flax_shape(  # noqa: E731
-            f"{module}.{kind}", lay.leaves[f"{module}.{kind}"][2])
         if module in _BNS:
-            params[module] = {"bias": base(shape("bias")),
-                              "scale": base(shape("weight"))}
+            params[module] = {"bias": fill(f"{module}.bias", False),
+                              "scale": fill(f"{module}.weight", False)}
             stats[module] = {"mean": np.zeros(1), "var": np.zeros(1)}
         else:
             inner = "dense" if module in _DENSES else "conv"
-            params[module] = {inner: {"bias": base(shape("bias")),
-                                      "kernel": base(shape("weight"))}}
-    carried = from_jax_params(params, stats)
-    table = np.empty(lay.n_weights, np.int64)
-    for name in lay.names("weights"):
-        _which, off, shape = lay.leaves[name]
+            params[module] = {inner: {
+                "bias": fill(f"{module}.bias", True),
+                "kernel": fill(f"{module}.weight", True)}}
+    return from_jax_params(params, stats)
+
+
+def _buffer(lay: Layout, carried: Mapping[str, torch.Tensor], which: str) -> np.ndarray:
+    """One member's ``which`` buffer ("weights" or "affine") of carried codes."""
+    out = np.empty(lay.n_weights if which == "weights" else lay.n_affine, np.int64)
+    for name in lay.names(which):
+        _w, off, shape = lay.leaves[name]
         assert tuple(carried[name].shape) == shape, name
-        table[off:off + carried[name].numel()] = carried[name].numpy().reshape(-1)
+        out[off:off + carried[name].numel()] = carried[name].numpy().reshape(-1)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def flatten_partition(lay: Layout):
+    """The JAX package's ``flatten_partition`` order in the port's buffers:
+    (w_order, o_order), int64 index tensors such that ``weights[:, w_order]``
+    is each member's ``fw`` (the weight leaves in flax tree order and flax
+    layout, concatenated) and ``affine[:, o_order]`` its ``fo`` (the
+    BatchNorm scales and shifts).  Writing ``fw`` back is
+    ``weights[:, w_order] = fw``."""
+    carried = _carried_codes(
+        lay, lambda leaf, offset, shape:
+        offset + np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape))
+    return tuple(torch.from_numpy(np.argsort(_buffer(lay, carried, which)))
+                 for which in ("weights", "affine"))
+
+
+@functools.lru_cache(maxsize=32)
+def sr_index_table(lay: Layout, flat: bool = False) -> torch.Tensor:
+    """int32 (n_weights,): for each element of a member's weight buffer, the
+    bit pattern of ``index * 0x9E3779B9 + leaf * 0x9E3779B1`` modulo 2^32,
+    where index and leaf are the JAX package's ``LowmemOptimizer``'s (see
+    the module docstring); with ``flat``, of ``position * 0x9E3779B9`` for
+    the element's position in the flat ``fw`` buffer of its
+    ``FlatLowmemOptimizer`` (whose ``fw`` salt offset is 0).
+    ``hash_bits(table, step_salt)`` is then the element's noise."""
+    def code(leaf, offset, shape):
+        n = int(np.prod(shape))
+        index = np.arange(n, dtype=np.int64)
+        if flat:
+            return ((offset + index) * 0x9E3779B9 & MASK32).reshape(shape)
+        return ((index * 0x9E3779B9 + ((leaf * 0x9E3779B1) & MASK32))
+                & MASK32).reshape(shape)
+
+    table = _buffer(lay, _carried_codes(lay, code), "weights")
     # the uint32 values as int32 bit patterns
     return torch.from_numpy(table.astype(np.uint32).view(np.int32).copy())
 
@@ -114,6 +164,8 @@ class LowmemOptimizer:
     float32 (or float64) storage: ``ClipDecayAdam``'s arithmetic per member.
     bfloat16 storage of the weight buffer: ``sr_adam_step`` for the weights
     and the float32 arithmetic for the BatchNorm leaves."""
+
+    flat = False
 
     def __init__(self, state: FleetState, lr: float, weight_decay: float,
                  grad_clip: float, salts: Optional[torch.Tensor] = None,
@@ -134,7 +186,7 @@ class LowmemOptimizer:
         if self.lowmem:
             salts = torch.zeros(T, dtype=torch.int64) if salts is None else salts
             self.salt = salts.to(device=dev, dtype=torch.int64)
-            self.base = sr_index_table(lay).to(dev)
+            self.base = sr_index_table(lay, self.flat).to(dev)
             self.consts = sr_adam.consts(lr, weight_decay, grad_clip, b1, b2, eps)
         self._slots = [(name, *lay.leaves[name]) for name in lay.leaves]
 
@@ -175,3 +227,18 @@ class LowmemOptimizer:
         self._adam(st.affine, self.mu_a, self.nu_a, g_a, col(g_norm), col(bc1),
                    col(bc2), col(finite))
         self.count = torch.where(finite, count_inc, self.count)
+
+
+class FlatLowmemOptimizer(LowmemOptimizer):
+    """``LowmemOptimizer`` with the JAX package's flat-buffer numerics
+    (``FlatLowmemOptimizer``, lesionvae_tpu/train/lowmem.py:211): the noise
+    of a weight element is indexed by its position in ``fw``.  It is part of
+    the bfloat16-storage path, as there."""
+
+    flat = True
+
+    def __init__(self, state: FleetState, *args, **kwargs):
+        if state.weights.dtype != torch.bfloat16:
+            raise ValueError("FlatLowmemOptimizer is part of the bfloat16-storage "
+                             "path; store the weights in torch.bfloat16")
+        super().__init__(state, *args, **kwargs)

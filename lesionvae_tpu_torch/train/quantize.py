@@ -1,6 +1,6 @@
 """uint16 fixed-point upload of the fleet's raw tensors (opt-in): the port of
-lesionvae_tpu/train/quantize.py (its numpy encoder, :104-143, and the
-decoder, :146-155).
+lesionvae_tpu/train/quantize.py (its native and numpy encoders, :42-143,
+and the decoder, :146-155).
 
 The raw blocks feed the on-device normalization
 (``train.data.normalize_on_device``), whose output is z-scored and clamped,
@@ -14,15 +14,23 @@ codes, so that the median-imputation on the device sees them as it would
 in float32:
 
     0xFFFF -> NaN   0xFFFE -> +inf   0xFFFD -> -inf   values <= 0xFFFC
+
+The host encoder is the repository's native one (native/quantize.cpp, one
+min/max pass and one code pass a (member, feature), built with ``make`` at
+first use) where it builds, else the numpy one: the two give the same
+codes, bit for bit.  This is a choice of host encoder, not of device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import warnings
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import native
 
 SENT_NAN = 0xFFFF
 SENT_PINF = 0xFFFE
@@ -40,11 +48,57 @@ def _codes(X: np.ndarray, lo: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return codes
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.quant_u16.restype = ctypes.c_int
+    lib.quant_u16.argtypes = [f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.POINTER(ctypes.c_uint16),
+                              f32p, f32p]
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The native encoder's library, or None where it cannot be built."""
+    return native.load("libquantize.so", _bind)
+
+
+def _quantize_native(X: np.ndarray
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """``quantize_u16`` by the native encoder; None where the library is
+    missing or refuses the block (more than 256 features)."""
+    lib = _load()
+    if lib is None:
+        return None
+    X = np.ascontiguousarray(X, np.float32)
+    T, n, L, C = X.shape
+    codes = np.empty((T, n, L, C), np.uint16)
+    lo = np.empty((T, C), np.float32)
+    scale = np.empty((T, C), np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    rc = lib.quant_u16(X.ctypes.data_as(f32p), T, n, L, C,
+                       codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                       lo.ctypes.data_as(f32p), scale.ctypes.data_as(f32p))
+    if rc != 0:
+        return None
+    return codes, lo.reshape(T, 1, 1, C), scale.reshape(T, 1, 1, C)
+
+
+def encoder() -> str:
+    """Which host encoder ``quantize_u16`` uses here: "native" or "numpy"."""
+    return "native" if _load() is not None else "numpy"
+
+
 def quantize_u16(X: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """A (T, n, L, C) float32 block -> (codes (T, n, L, C) uint16,
     lo (T, 1, 1, C) float32, scale (T, 1, 1, C) float32), with the range of
     each (member, feature) taken over its finite values.  Constant and
-    all-non-finite features get scale 0 (their codes decode to lo)."""
+    all-non-finite features get scale 0 (their codes decode to lo).  The
+    native encoder where it builds, else ``quantize_u16_numpy``."""
+    out = _quantize_native(X)
+    return out if out is not None else quantize_u16_numpy(X)
+
+
+def quantize_u16_numpy(X: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``quantize_u16`` in numpy (lesionvae_tpu/train/quantize.py:104-143)."""
     X = np.asarray(X, np.float32)
     lo = np.min(X, axis=(1, 2), keepdims=True)
     hi = np.max(X, axis=(1, 2), keepdims=True)

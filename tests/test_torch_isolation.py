@@ -117,3 +117,50 @@ def test_entry_point_defaults_to_cuda(tmp_path):
         lesion_run.run_lesion_analysis(cfg, data_dir=root / "data",
                                        output_dir=tmp_path / "out",
                                        dtype=torch.float64)
+
+
+def test_the_pipeline_modules_are_on_the_list():
+    """The modules of the whole pipeline (classify, correlate, all, the flat
+    optimizer, chunked launches and the native host readers) are among the
+    sources checked above."""
+    checked = {str(p.relative_to(REPO / "lesionvae_tpu_torch"))
+               for p in (REPO / "lesionvae_tpu_torch").rglob("*.py")}
+    assert {"pipeline/classification.py", "pipeline/correlation.py",
+            "viz/classify_viz.py", "viz/correlation_viz.py",
+            "io/profiles_native.py", "utils/native.py", "ops/padding.py",
+            "train/quantize.py", "train/lowmem.py", "train/batched.py",
+            "cli.py"} <= checked
+
+
+@pytest.mark.parametrize("stage", ["classify", "correlate", "all"])
+def test_analysis_stages_default_to_cuda(stage):
+    """``classify``, ``correlate`` and ``all`` take ``--device`` with the
+    card as its default, as every stage of the CLI does."""
+    from lesionvae_tpu_torch import cli
+
+    args = cli.build_parser().parse_args([stage])
+    assert args.device == "cuda" and args.no_plots is False
+
+
+def test_all_defaults_to_cuda(tmp_path):
+    """``all`` without ``--device`` starts its geometry stage on the card: a
+    CUDA error on a host without one, never a quiet CPU run."""
+    import json
+
+    import torch
+
+    from lesionvae_tpu_torch import cli
+    from lesionvae_tpu_torch.io import synth
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only host")
+    cfg = synth.tiny_config(n_per_group=1, tracts=["atr_left"])
+    root = synth.generate_cohort(tmp_path, cfg, seed=2, n_streamlines=4,
+                                 volume_shape=(4, 4, 4), subjects={"TBI": ["9101"]},
+                                 with_bundles=True)
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(cfg.to_json_dict()))
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|accelerator"):
+        cli.main(["all", "--config", str(cfg_path), "--base-path", str(root),
+                  "--no-plots"])
+    assert not (root / "results" / "lesion_sh_heme_comprehensive").exists()

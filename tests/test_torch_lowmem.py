@@ -275,3 +275,101 @@ def test_cast_params_storage_selects_weight_leaves():
         == torch.float32
     assert tlow.is_weight_leaf("dec_t3.bias", lay)
     assert not tlow.is_weight_leaf("dec_b2.bias", lay)
+
+
+# ---------------------------------------------------------------- the flat form
+def test_flatten_partition_order_equals_jax():
+    """``weights[:, w_order]`` is the JAX package's ``fw`` and
+    ``affine[:, o_order]`` its ``fo``, value for value."""
+    params, _grads, stats = _jax_tree(3)
+    fw, fo, _unflat = jlow.flatten_partition(params)
+    lay = layout(SEQ, MC, LC, LAT)
+    state = FleetState.from_state_dicts([_carry(params, stats)], lay, device="cpu")
+    w_order, o_order = tlow.flatten_partition(lay)
+    assert w_order.shape == (lay.n_weights,) and o_order.shape == (lay.n_affine,)
+    assert fw.shape == (lay.n_weights,) and fo.shape == (lay.n_affine,)
+    np.testing.assert_array_equal(state.weights[0, w_order].numpy(), np.asarray(fw))
+    np.testing.assert_array_equal(state.affine[0, o_order].numpy(), np.asarray(fo))
+    # both are permutations, and writing fw back restores the buffer
+    assert torch.equal(torch.sort(w_order).values, torch.arange(lay.n_weights))
+    back = torch.empty_like(state.weights[0])
+    back[w_order] = torch.from_numpy(np.array(fw))
+    assert torch.equal(back, state.weights[0])
+
+
+@pytest.mark.parametrize("salt", [0, 0x9E3779B1, 2 ** 32 - 5])
+def test_flat_index_table_is_the_jax_flat_hash(salt):
+    """The flat table, read in ``fw`` order, is ``position * 0x9E3779B9``, and
+    its noise is the JAX package's ``_hash_bits`` over ``fw`` bit for bit."""
+    lay = layout(SEQ, MC, LC, LAT)
+    table = tlow.sr_index_table(lay, flat=True)
+    w_order, _ = tlow.flatten_partition(lay)
+    n = lay.n_weights
+    in_fw = table[w_order].numpy().view(np.uint32).astype(np.int64)
+    np.testing.assert_array_equal(in_fw, (np.arange(n) * 0x9E3779B9) % 2 ** 32)
+    got = sr_adam.hash_bits(table, torch.tensor(salt))[w_order].numpy().astype(np.uint32)
+    want = np.asarray(jlow._hash_bits((n,), jnp.uint32(salt)))
+    np.testing.assert_array_equal(got, want)
+    # and it is not the per-leaf table
+    assert not torch.equal(table, tlow.sr_index_table(lay))
+
+
+def test_flat_lowmem_step_matches_jax():
+    """Two steps of the JAX ``FlatLowmemOptimizer`` (one below the clip, one
+    above it) against the port's, same salt, under the budget of
+    ``test_lowmem_step_matches_jax_on_a_model_tree``: at most 0.1% of the
+    weight elements differ, each by at most 1 bf16 ulp; the float32
+    BatchNorm leaves (``fo``: updated without rounding) to 5e-5."""
+    params32, grads32, stats = _jax_tree(1)
+    params = jlow.cast_params_storage(params32, jnp.bfloat16)
+    fw, fo, unflat = jlow.flatten_partition(params)
+    salt = 0x13579BDF
+    tx = jlow.FlatLowmemOptimizer(LR, WD, CLIP)
+    jstate = tx.init((fw, fo), salt=jnp.uint32(salt))
+
+    lay = layout(SEQ, MC, LC, LAT)
+    state = FleetState.from_state_dicts([_carry(params, stats)], lay,
+                                        store_dtype=torch.bfloat16, device="cpu")
+    opt = tlow.FlatLowmemOptimizer(state, LR, WD, CLIP, salts=torch.tensor([salt]))
+    assert torch.equal(opt.base, tlow.sr_index_table(lay, flat=True))
+    total = differing = 0
+    pp = (fw, fo)
+    for scale in (1.0, 40.0):
+        g = jax.tree.map(lambda a, p: (scale * a).astype(p.dtype), grads32, params)
+        gw, go, _ = jlow.flatten_partition(g)
+        pp, jstate = jax.jit(tx.step)((gw, go), jstate, pp)
+        carried_g = _carry(g, stats)
+        opt.step({n: carried_g[n][None].to(state.leaves[n].dtype) for n in lay.leaves},
+                 torch.tensor([True]))
+        want = {"p": _carry(unflat(*pp), stats), "mu": _carry(unflat(*jstate["mu"]), stats),
+                "nu": _carry(unflat(*jstate["nu"]), stats)}
+        got = {"p": state.state_dict(0), "mu": _moment_dict(opt, state, "mu"),
+               "nu": _moment_dict(opt, state, "nu")}
+        for kind in want:
+            for name in lay.leaves:
+                a, b = got[kind][name].float(), want[kind][name].float()
+                if lay.leaves[name][0] == "weights":
+                    ulp = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -10) * 2.0 ** -7
+                    off = (a != b)
+                    assert bool(((a - b).abs() <= ulp)[off].all()), (kind, name)
+                    total += a.numel()
+                    differing += int(off.sum())
+                else:
+                    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-5,
+                                               atol=1e-9, err_msg=f"{kind} {name}")
+    assert int(opt.count[0]) == 2 and int(jstate["count"]) == 2
+    assert total > 100_000 and differing <= 1e-3 * total, (differing, total)
+
+
+def test_flat_opt_needs_bf16_storage():
+    from lesionvae_tpu_torch.train.batched import launch_many_vaes
+
+    X = np.zeros((1, 8, SEQ, MC), np.float32)
+    with pytest.raises(ValueError, match="flat_opt .* store_dtype"):
+        launch_many_vaes(X, np.zeros((1, 8, SEQ, LC), np.float32), np.array([8]),
+                         latent_dim=LAT, epochs=1, batch_size=8, flat_opt=True,
+                         device="cpu")
+    lay = layout(SEQ, MC, LC, LAT)
+    state = FleetState(lay, 1, device="cpu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        tlow.FlatLowmemOptimizer(state, LR, WD, CLIP)

@@ -73,3 +73,52 @@ def test_roundtrip_precision_and_sentinels():
     assert np.all(np.abs(back[fin] - X[fin]) <= 0.55 * step[fin])
     # the upload is two bytes a value
     assert tq.codes_to_tensor(codes, "cpu").element_size() == 2
+
+
+# ---------------------------------------------------------------- the native encoder
+def _native_block() -> np.ndarray:
+    """tests/test_quantize_upload.py:92's block: scales 1e-3..1e3, NaN, ±inf
+    and a constant feature."""
+    rng = np.random.default_rng(9)
+    X = (rng.normal(size=(4, 50, 10, 7)) * 10.0 ** rng.integers(
+        -3, 4, (4, 1, 1, 7))).astype(np.float32)
+    X[0, 1, 2, 3] = np.nan
+    X[1, 0, 0, 0] = np.inf
+    X[2, 5, 5, 5] = -np.inf
+    X[:, :, :, 6] = -2.5      # constant feature
+    return X
+
+
+@pytest.mark.parametrize("case", ["native_block", "finite", "non_finite", "empty_feature"])
+def test_native_encoder_matches_numpy_and_jax_native(monkeypatch, case):
+    """The port's native encoder, its numpy encoder and the JAX package's
+    native encoder give the same codes, lo and scale, bit for bit."""
+    if tq._load() is None:
+        pytest.skip("native quantizer cannot be built on this host")
+    monkeypatch.setattr(jq, "_lib_tried", False)    # the JAX native route again
+    X = _native_block() if case == "native_block" else _block(case)
+    got = tq._quantize_native(X)
+    want = jq._quantize_native(X)
+    assert got is not None and want is not None
+    for g, n, w in zip(got, tq.quantize_u16_numpy(X), want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, n)
+    assert tq.encoder() == "native"
+    for g, q in zip(got, tq.quantize_u16(X)):
+        np.testing.assert_array_equal(g, q)
+
+
+def test_encoder_falls_back_to_numpy(monkeypatch):
+    """Without the library, and for a block the native encoder refuses (more
+    than 256 features), ``quantize_u16`` is the numpy encoder."""
+    X = _block("non_finite")
+    want = tq.quantize_u16_numpy(X)
+    monkeypatch.setattr(tq, "_load", lambda: None)
+    assert tq.encoder() == "numpy" and tq._quantize_native(X) is None
+    for g, w in zip(tq.quantize_u16(X), want):
+        np.testing.assert_array_equal(g, w)
+    monkeypatch.undo()
+    wide = np.random.default_rng(2).normal(size=(1, 2, 3, 257)).astype(np.float32)
+    assert tq._quantize_native(wide) is None
+    for g, w in zip(tq.quantize_u16(wide), jq.quantize_u16(wide)):
+        np.testing.assert_array_equal(g, w)
