@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d-3g)
+    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d-3g, 3h's c-d)
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -94,6 +94,20 @@ Phases; any failure exits non-zero before the result line is printed:
       members x 2 epochs): ``upload_chunks=1`` against "auto" (8 chunks) and
       against two blocks with the canonical draws (``member_draws``), each
       timed, bit-equal or within tests/test_upload_chunks.py's bounds;
+   h. the parallel paths (``check_parallel``): (a) one rank over NCCL,
+      ``make_mesh(1)`` and a full-size chunk (32,768 x 64) through
+      ``launch_bundle_metrics(mesh=)``, bit-equal to the unsharded call;
+      then two gloo ranks sharing the card: (b) the geometry stage over 3c's
+      cohort, bundles read once and handed over, its three CSVs byte-equal
+      to 3c's; (c) the member-sharded fleet (64 members at full width,
+      bf16 storage, normalization and summary, 2 epochs, 32 a rank), no
+      collective in training, bit-equal to the same two blocks launched in
+      one process and within ALONE_TOL of the one 64-member launch in
+      history, the next member as control; (d) ``dryrun_flagship(2)`` at
+      the full widths and ``dryrun_train_step(2, model_parallel=2)`` with
+      their own assertions.  Every rank must launch geometry (b) and SR Adam
+      (c); a rank that exits non-zero fails the script ((a) and (b) only
+      with --skip-vae);
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
@@ -1694,13 +1708,41 @@ def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
     return {"launches": launches, "spans": spans, "wall": wall}
 
 
-def check_chunks() -> dict:
-    """upload_chunks=1 against "auto" (8 chunks) and against two blocks
-    launched with the canonical draws, 64 members x CHUNK_EPOCHS epochs at
-    full width on the card, with the normative summary; each launch timed."""
-    from lesionvae_tpu_torch.models.fleet import FleetState, layout
-    from lesionvae_tpu_torch.train import batched
+def fleet_tensors(arrays: dict, lay) -> dict:
+    """name -> (T, elements) of a fleet's parameters and running statistics
+    from its ``parallel.ranks.state_arrays`` form (views of the buffers)."""
+    T = arrays["weights"].shape[0]
+    out = {}
+    for name, (which, off, shape) in lay.leaves.items():
+        out[name] = arrays[which][:, off:off + int(np.prod(shape))]
+    out.update({k: arrays[f"stats.{k}"].reshape(T, -1) for k in lay.stats})
+    return out
 
+
+def movement_by_tensor(got: dict, ref: dict, start: dict, shift: int = 0) -> dict:
+    """Per tensor, the largest L2 distance of a member's tensor in ``got``
+    from the same tensor of member (i + shift) % T in ``ref``, over the
+    distance that tensor moved in ``ref`` from its start."""
+    out = {}
+    for name, r in ref.items():
+        a = got[name].astype(np.float64)
+        b = np.roll(r, -shift, 0).astype(np.float64)
+        s0 = np.roll(start[name], -shift, 0).astype(np.float64)
+        ratio = np.linalg.norm(a - b, axis=1) / np.maximum(
+            np.linalg.norm(b - s0, axis=1), 1e-30)
+        out[name] = float(ratio.max())
+    return out
+
+
+def off_of_movement(got: dict, ref: dict, start: dict, shift: int = 0) -> float:
+    """The largest of ``movement_by_tensor``."""
+    return max(movement_by_tensor(got, ref, start, shift).values())
+
+
+def fleet_case():
+    """64 members of 925-960 random rows at full width (pad rows zero), a
+    Sham set and 37 subjects: the raw blocks of the chunked and the parallel
+    fleet checks.  Returns (Xm, Xl, n_real, sham, seg)."""
     T, n_pad, L = COHORT_MEMBERS, COHORT_PAD, 100
     g = np.random.default_rng(SEED)
     Xm = g.normal(size=(T, n_pad, L, 13)).astype(np.float32)
@@ -1710,6 +1752,19 @@ def check_chunks() -> dict:
         Xm[i, n:] = Xl[i, n:] = 0
     sham = (np.arange(n_pad)[None, :] < 300).astype(np.float32).repeat(T, 0)
     seg = np.tile(np.arange(n_pad) % 37, (T, 1))
+    return Xm, Xl, n_real, sham, seg
+
+
+def check_chunks() -> dict:
+    """upload_chunks=1 against "auto" (8 chunks) and against two blocks
+    launched with the canonical draws, 64 members x CHUNK_EPOCHS epochs at
+    full width on the card, with the normative summary; each launch timed."""
+    from lesionvae_tpu_torch.models.fleet import FleetState, layout
+    from lesionvae_tpu_torch.parallel.ranks import fleet_arrays, state_arrays
+    from lesionvae_tpu_torch.train import batched
+
+    T, n_pad, L = COHORT_MEMBERS, COHORT_PAD, 100
+    Xm, Xl, n_real, sham, seg = fleet_case()
     kw = dict(latent_dim=VAE_LATENT, epochs=CHUNK_EPOCHS, batch_size=VAE_BATCH,
               seed=VAE_SEED, normalize_on_device=True, device="cuda",
               summary_spec=(sham, seg, 38, VAE_SEED))
@@ -1738,20 +1793,12 @@ def check_chunks() -> dict:
            "auto_chunks": batched.resolve_chunks("auto", T), "two_blocks_s": s2}
     print(f"[chunks] times: {json.dumps(out)}")
     s0 = FleetState.from_state_dicts(full["state_dicts"], one.state.layout, device="cuda")
+    lay = one.state.layout
+    start, ref = (fleet_tensors(state_arrays(s0), lay),
+                  fleet_tensors(fleet_arrays(one), lay))
 
-    def moved(h, ref, shift=0) -> float:
-        """The largest L2 distance of a member's tensor in ``h`` from the same
-        tensor of member (i + shift) % T in ``ref``, over the distance that
-        tensor moved in ``ref`` from its start."""
-        worst = 0.0
-        for name, r in {**ref.state.leaves, **ref.state.stats}.items():
-            a = {**h.state.leaves, **h.state.stats}[name].float().flatten(1)
-            b, start_ = r.float().flatten(1), {**s0.leaves, **s0.stats}[name].float().flatten(1)
-            b = torch.roll(b, -shift, 0)
-            start_ = torch.roll(start_, -shift, 0)
-            ratio = (a - b).norm(dim=1) / (b - start_).norm(dim=1).clamp(min=1e-30)
-            worst = max(worst, float(ratio.max()))
-        return worst
+    def moved(h, shift=0) -> float:
+        return off_of_movement(fleet_tensors(fleet_arrays(h), lay), ref, start, shift)
 
     def hist_rel(a, b) -> float:
         return rel_err(a.cpu(), b.cpu())
@@ -1767,9 +1814,9 @@ def check_chunks() -> dict:
                 torch.allclose(h.hist, one.hist, **CHUNK_HIST) and all(
                     torch.allclose(getattr(h.state, b), getattr(one.state, b),
                                    **CHUNK_WEIGHTS) for b in ("weights", "affine"))),
-            "tensor_off_of_movement": moved(h, one),
+            "tensor_off_of_movement": moved(h),
             "control_next_member": [hist_rel(h.hist, torch.roll(one.hist, -1, 0)),
-                                    moved(h, one, shift=1)]}
+                                    moved(h, shift=1)]}
         if bits:
             held = "bit-equal"
         elif readings["test_bounds_hold"]:
@@ -1785,6 +1832,211 @@ def check_chunks() -> dict:
             fail(f"fleet {label} vs one launch: {json.dumps(readings)}")
         out[label] = {"held": held, **readings}
     print(f"[chunks] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------- the parallel paths
+# two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device; gloo takes CUDA tensors for broadcast, all_reduce and barrier, all
+# that parallel.mesh uses); NCCL runs at world size 1.  The fleet of (c) is
+# not held to ALONE_MOVE against the one 64-member launch, only printed
+# beside it: with bf16 storage a tensor that moves a few bf16 steps in 30
+# steps (fc_logv's bias) is moved a large share by one stochastic rounding
+# that flips when cuBLAS sums a 32-member batch in another order (0.284 on an
+# H100 80GB HBM3, the same for the split launch in one process);
+# bit-equality with that split launch holds instead
+PARALLEL_RANKS = 2
+
+
+def same_bits(got, want) -> bool:
+    """Equal bit for bit (NaN payloads and signed zeros included)."""
+    got, want = np.asarray(got), np.asarray(want)
+    return got.shape == want.shape and got.dtype == want.dtype and \
+        got.tobytes() == want.tobytes()
+
+
+def summary_bits(got, want) -> bool:
+    """Two lists of bundle summaries, bit for bit."""
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and same_bits(np.array(list(g.values()), np.float64),
+                                           np.array(list(w.values()), np.float64))
+        for g, w in zip(got, want))
+
+
+def parallel_nccl() -> dict:
+    """(a) One rank over NCCL: ``make_mesh(1)`` and one full-size chunk (32,768
+    streamlines of 49-64 points, P = 64) through ``sharded_streamline_metrics``
+    and ``launch_bundle_metrics(mesh=)`` (512 bundles of 64): bit-equal to
+    the unsharded calls."""
+    from lesionvae_tpu_torch.ops.geometry import streamline_metrics_stacked, unstack_metrics
+    from lesionvae_tpu_torch.ops.padding import pad_streamlines
+    from lesionvae_tpu_torch.parallel import mesh, ranks
+    from lesionvae_tpu_torch.pipeline import geometry_run as gr
+
+    g = np.random.default_rng(SEED + 8)
+    sls = [np.cumsum(g.normal(size=(int(n), 3)), axis=0)
+           for n in g.integers(49, 65, size=32768)]
+    pts, lens = pad_streamlines(sls, max_points=64)
+    bundles = [sls[i:i + 64] for i in range(0, len(sls), 64)]
+    t0 = time.perf_counter()
+    (per_sl, c1), (per_bundle, c2) = mesh.spawn(ranks.run, 1, "nccl", "cuda", [
+        ("streamlines", 1, dict(points=pts, lengths=lens)),
+        ("bundle_metrics", 1, dict(bundles=bundles))])[0]
+    wall = time.perf_counter() - t0
+    want = unstack_metrics(streamline_metrics_stacked(
+        torch.from_numpy(pts).cuda(), torch.from_numpy(lens).cuda()).cpu().numpy())
+    if per_sl.keys() != want.keys() or not all(same_bits(per_sl[k], want[k]) for k in want):
+        fail("parallel (a): sharded_streamline_metrics over NCCL differs from the "
+             "unsharded kernel")
+    summaries, launches = per_bundle
+    if launches != 1 or not summary_bits(summaries, gr.batched_bundle_metrics(bundles)):
+        fail(f"parallel (a): launch_bundle_metrics(mesh=) over NCCL ({launches} launches) "
+             "differs from the unsharded call")
+    return {"wall_s": wall, "streamlines": len(sls), "bit_equal": True,
+            "launches": {"geometry": [c1["geometry"] + c2["geometry"]]},
+            "collectives": c1["collectives"] + c2["collectives"]}
+
+
+def parallel_fleet_reference(Xm, Xl, n_real, sham, seg, kw) -> tuple:
+    """What (c) is held to, in this process: the 64-member launch, the same
+    fleet launched as the ranks' two blocks of members with the canonical
+    draws (``member_draws``; the split launch of path 3g), and the fleet's starting
+    weights, as ``parallel.ranks`` arrays; and the single launch's seconds."""
+    from lesionvae_tpu_torch.models.fleet import FleetState, layout
+    from lesionvae_tpu_torch.parallel.ranks import fleet_arrays, state_arrays
+    from lesionvae_tpu_torch.train import batched
+
+    kw = dict(kw)
+    n_seg, norm_seed = kw.pop("n_seg"), kw.pop("norm_seed")
+    T, n_pad = Xm.shape[:2]
+    lay = layout(100, 13, 3, VAE_LATENT)
+    t0 = time.perf_counter()
+    one = batched.launch_many_vaes(Xm, Xl, n_real, summary_spec=(sham, seg, n_seg, norm_seed),
+                                   device="cuda", **kw)
+    one.fetch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    blocks = [slice(r * T // PARALLEL_RANKS, (r + 1) * T // PARALLEL_RANKS)
+              for r in range(PARALLEL_RANKS)]
+    split = batched.cat_handles([batched.launch_many_vaes(
+        Xm[b], Xl[b], n_real[b], summary_spec=(sham[b], seg[b], n_seg, norm_seed),
+        device="cuda", **kw, **batched.member_draws(T, n_pad, lay.hyper, kw["epochs"],
+                                                    kw["batch_size"], kw["seed"], block=b))
+        for b in blocks])
+    split.fetch()
+    start = FleetState.from_state_dicts(
+        batched.init_state_dicts(T, lay.hyper, kw["seed"]), lay,
+        store_dtype=kw["store_dtype"], device="cuda")
+    out = fleet_arrays(one), fleet_arrays(split), state_arrays(start), wall
+    del one, split, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_parallel(cohort_root: Path, cfg, with_vae: bool) -> dict:
+    """The parallel phase, after the paths above (README, the port's
+    section): (a) NCCL at world size 1; then two gloo ranks on the card in
+    one start: (b) the geometry stage over the cohort of 3c, its bundles
+    read once here and handed over, the three CSVs byte-equal to 3c's; (c)
+    the member-sharded fleet, 64 members at full width with bf16 storage,
+    normalization and the summary, CHUNK_EPOCHS epochs, 32 members a rank,
+    no collective between upload and fetch, bit-equal to the same two
+    blocks launched in this process (each rank's block is such a launch),
+    and against the one 64-member launch: history within ALONE_TOL, the
+    next member outside ALONE_TOL and ALONE_MOVE (see PARALLEL_RANKS);
+    (d) ``dryrun_flagship(2)`` at the full widths and
+    ``dryrun_train_step(2, model_parallel=2)``, with their own assertions.
+    Every rank must launch the geometry kernel (b) and SR Adam (c)."""
+    import pickle
+
+    from lesionvae_tpu_torch.models.fleet import layout
+    from lesionvae_tpu_torch.parallel import mesh, ranks, sharded
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"a_nccl": parallel_nccl()}
+    work = cohort_root / "parallel"
+    work.mkdir()
+    bundles = read_bundles(cfg, cohort_root / "data")
+    meta = [dict(subject_id=sid, timepoint=tp, tract=tract, group=group)
+            for group, sids in cfg.subjects_by_group().items() for sid in sorted(sids)
+            for tp in cfg.timepoints for tract in cfg.geometry_tracts]
+    with open(work / "bundles.pkl", "wb") as f:
+        pickle.dump((bundles, meta), f, protocol=pickle.HIGHEST_PROTOCOL)
+    jobs = [("geometry_csvs", 1, dict(bundles_file=str(work / "bundles.pkl"),
+                                      output_dir=str(work / "geometry")))]
+    if with_vae:
+        Xm, Xl, n_real, sham, seg = fleet_case()
+        np.savez(work / "fleet.npz", Xm=Xm, Xl=Xl, n_real=n_real, sham=sham, subj=seg)
+        fleet_kw = dict(latent_dim=VAE_LATENT, epochs=CHUNK_EPOCHS, batch_size=VAE_BATCH,
+                        seed=VAE_SEED, normalize_on_device=True,
+                        store_dtype=torch.bfloat16, n_seg=38, norm_seed=VAE_SEED)
+        ref, split, start, ref_s = parallel_fleet_reference(Xm, Xl, n_real, sham, seg,
+                                                            fleet_kw)
+        del Xm, Xl
+        jobs.append(("fleet", 1, dict(data=str(work / "fleet.npz"), kwargs=fleet_kw,
+                                      out=str(work / "fleet_out.npz"))))
+    t0 = time.perf_counter()
+    per_rank = mesh.spawn(ranks.run, PARALLEL_RANKS, "gloo", "cuda", jobs)
+    gloo_s = time.perf_counter() - t0
+    geo = [r[0] for r in per_rank]
+    csv_equal = {f: (work / "geometry" / f).read_bytes()
+                 == (cohort_root / "results" / "geometry_cuda" / f).read_bytes()
+                 for f in GEO_CSVS}
+    if not all(csv_equal.values()):
+        fail(f"parallel (b): the two-rank geometry CSVs differ from path 3c's: {csv_equal}")
+    launches = {"geometry": [counts["geometry"] for _res, counts in geo]}
+    out["b_geometry"] = {"bundles": len(bundles), "csvs_byte_equal": True,
+                         "launches_by_rank": launches["geometry"],
+                         "seconds_by_rank": [c["seconds"] for _r, c in geo]}
+    if with_vae:
+        fl = [r[1] for r in per_rank]
+        lay = layout(100, 13, 3, VAE_LATENT)
+        got = dict(np.load(work / "fleet_out.npz"))
+        got_t, ref_t, start_t = (fleet_tensors(a, lay) for a in (got, ref, start))
+        readings = {
+            "bit_equal_to_split_launch": got.keys() == split.keys() and all(
+                same_bits(got[k], split[k]) for k in split),
+            "history_max_rel": rel_err(got["hist"], ref["hist"]),
+            "tensor_off_of_movement": off_of_movement(got_t, ref_t, start_t),
+            "worst_tensors": sorted(movement_by_tensor(got_t, ref_t, start_t).items(),
+                                    key=lambda kv: -kv[1])[:3],
+            "summary_max_rel": max(rel_err(got[f"summary.{i}"], ref[f"summary.{i}"])
+                                   for i in range(5)),
+            "control_next_member": [rel_err(got["hist"], np.roll(ref["hist"], -1, 0)),
+                                    off_of_movement(got_t, ref_t, start_t, shift=1)],
+            "collectives_in_training": [res[1]["collectives"] for res, _c in fl],
+            "ledger_members": [[s[0].shape[0] for _n, s in res[1]["ledger"]]
+                               for res, _c in fl]}
+        launches["sr_adam"] = [counts["sr_adam"] for _res, counts in fl]
+        control = readings["control_next_member"]
+        if (not readings["bit_equal_to_split_launch"]
+                or readings["history_max_rel"] > ALONE_TOL
+                or control[0] <= ALONE_TOL or control[1] <= ALONE_MOVE
+                or any(readings["collectives_in_training"])
+                or readings["ledger_members"] != [[COHORT_MEMBERS // PARALLEL_RANKS]] * 2):
+            fail(f"parallel (c): the member-sharded fleet against one launch: "
+                 f"{json.dumps(readings)}")
+        out["c_fleet"] = {"members": COHORT_MEMBERS, "epochs": CHUNK_EPOCHS,
+                          "one_process_s": ref_s,
+                          "seconds_by_rank": [c["seconds"] for _r, c in fl],
+                          "bounds": {"history": ALONE_TOL, "tensor": ALONE_MOVE},
+                          **readings}
+        t0 = time.perf_counter()
+        flag = sharded.dryrun_flagship(PARALLEL_RANKS, verbose=True)
+        flag_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss, delta = sharded.dryrun_train_step(PARALLEL_RANKS, model_parallel=2)
+        out["d_dryruns"] = {"flagship": flag, "flagship_s": flag_s,
+                            "train_step": {"loss": loss, "delta": delta,
+                                           "seconds": time.perf_counter() - t0}}
+    for name, counts in launches.items():
+        if len(counts) != PARALLEL_RANKS or min(counts) < 1:
+            fail(f"parallel: a rank did not launch {name}: {counts}")
+    out["gloo_spawn_s"] = gloo_s
+    out["launches_by_rank"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] {json.dumps(out)}; {card_line()}")
     return out
 
 
@@ -1914,6 +2166,7 @@ def main(argv=None) -> int:
                 own["lesion_cpu"], own)
             check_chunks()
             torch.cuda.empty_cache()
+        check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)

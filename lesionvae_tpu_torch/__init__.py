@@ -10,8 +10,10 @@ as a CUDA kernel written by hand for Hopper (ops/csrc/radius.cu); the
 single-tract VAE stage (``run_vae_analysis``: train -> normative z-scores)
 and serving a saved VAE (``score_subjects``); and the optimizer probe
 (benchmarks/opt_probe.py) with its resident bf16 Adam kernel
-(ops/csrc/resident_adam.cu).  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+(ops/csrc/resident_adam.cu); the cohort fleet and the rest of the CLI; and
+the multi-rank layer on ``torch.distributed`` (``parallel``) with the card's
+accounting (``utils.cost_model``, ``utils.device_trace``).  Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .core.config import AnalysisParams, Config, ModelParams, load_config

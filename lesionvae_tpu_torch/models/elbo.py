@@ -24,20 +24,31 @@ def beta_schedule(epoch, total):
 
 
 def elbo(xh: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
-         logv: torch.Tensor, beta=1.0, mask: Optional[torch.Tensor] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (loss, recon, kld), all scalars; ``mask`` (N,), 1 = real row."""
+         logv: torch.Tensor, beta=1.0, mask: Optional[torch.Tensor] = None,
+         axis=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (loss, recon, kld), all scalars; ``mask`` (N,), 1 = real row.
+
+    ``axis`` (a ``parallel.mesh.Axis``, needs ``mask``): the other rows of
+    the batch lie on that axis's ranks; the squared error, the KL sum and
+    both counts are summed over it before the means, as
+    lesionvae_tpu/parallel/sharded.py:123-131 does, so every rank holds the
+    whole batch's loss."""
     if mask is None:
+        if axis is not None:
+            raise ValueError("a loss summed over a mesh axis needs the row mask")
         recon = torch.mean((xh - x) ** 2)
         kld = -0.5 * torch.mean(1 + logv - mu ** 2 - torch.exp(logv))
     else:
         m = mask.to(xh.dtype)
         per_elem = x[0].numel()  # L*C per row
-        denom_x = torch.clamp(m.sum() * per_elem, min=1.0)
-        recon = torch.sum(((xh - x) ** 2) * m[:, None, None]) / denom_x
-        denom_z = torch.clamp(m.sum() * mu.shape[1], min=1.0)
-        kld = -0.5 * torch.sum(
-            (1 + logv - mu ** 2 - torch.exp(logv)) * m[:, None]) / denom_z
+        sse = torch.sum(((xh - x) ** 2) * m[:, None, None])
+        n_x = m.sum() * per_elem
+        kl = torch.sum((1 + logv - mu ** 2 - torch.exp(logv)) * m[:, None])
+        n_z = m.sum() * mu.shape[1]
+        if axis is not None:
+            sse, n_x, kl, n_z = (axis.psum(t) for t in (sse, n_x, kl, n_z))
+        recon = sse / torch.clamp(n_x, min=1.0)
+        kld = -0.5 * kl / torch.clamp(n_z, min=1.0)
     return recon + beta * kld, recon, kld
 
 

@@ -31,11 +31,18 @@ KERNEL, PADDING = 5, 2
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (N, L) per channel with a validity mask on N."""
+    """BatchNorm over (N, L) per channel with a validity mask on N.
 
-    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+    ``axis``: a mesh axis (``parallel.mesh.Axis``) whose ranks hold the other
+    rows of the batch.  The count, the sum and then the squared deviations
+    are summed over it, differentiably, where the JAX package psums them
+    (lesionvae_tpu/models/layers.py:80-91), so the statistics, and the
+    running ones, are the whole batch's.  ``None``: this rank's rows only."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 axis=None):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.axis = momentum, eps, axis
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -51,9 +58,16 @@ class MaskedBatchNorm(nn.Module):
                 m = x32.new_ones((x.shape[0], 1, 1))
             else:
                 m = mask.to(stat_dtype)[:, None, None]
-            cnt = torch.clamp(m.sum() * x.shape[2], min=1.0)
-            mean = (x32 * m).sum(dim=(0, 2)) / cnt
-            var = (((x32 - mean[None, :, None]) ** 2) * m).sum(dim=(0, 2)) / cnt
+            cnt = m.sum() * x.shape[2]
+            s1 = (x32 * m).sum(dim=(0, 2))
+            if self.axis is not None:
+                cnt, s1 = self.axis.psum(cnt), self.axis.psum(s1)
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = s1 / cnt
+            s2 = (((x32 - mean[None, :, None]) ** 2) * m).sum(dim=(0, 2))
+            if self.axis is not None:
+                s2 = self.axis.psum(s2)
+            var = s2 / cnt
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 self.running_mean.copy_((1 - self.momentum) * self.running_mean

@@ -22,6 +22,10 @@ lesionvae_tpu/models/lesion_vae.py:36-39: parameters and BatchNorm
 statistics stay float32, the inputs and every convolution and dense layer
 compute in bfloat16, and the outputs come back in bfloat16 (the trainer
 takes the loss in float32).
+
+``axis`` (a ``parallel.mesh.Axis``; the JAX model's ``axis_name``): every
+BatchNorm sums its statistics over the ranks of that axis, which hold the
+other rows of the batch (``MaskedBatchNorm``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from .layers import (MaskedBatchNorm, avg_pool_half, conv1d, conv_transpose1d,
 class LesionConditionedVAE(nn.Module):
     def __init__(self, seq_len: int = 100, micro_ch: int = 13,
                  lesion_ch: int = 3, latent: int = 10,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, axis=None):
         super().__init__()
         self.seq_len, self.micro_ch = seq_len, micro_ch
         self.lesion_ch, self.latent = lesion_ch, latent
@@ -69,6 +73,13 @@ class LesionConditionedVAE(nn.Module):
         self.dec_t2 = conv_transpose1d(64, 64)
         self.dec_b2 = MaskedBatchNorm(64)
         self.dec_t3 = conv_transpose1d(64, micro_ch)
+        self.set_axis(axis)
+
+    def set_axis(self, axis) -> None:
+        """Sum every BatchNorm's statistics over ``axis`` (None: not)."""
+        for mod in self.modules():
+            if isinstance(mod, MaskedBatchNorm):
+                mod.axis = axis
 
     def hyperparameters(self) -> dict:
         return {"seq_len": self.seq_len, "micro_ch": self.micro_ch,

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import pandas as pd
 import torch
+from torch.profiler import record_function
 
 from ..core.config import Config, load_config
 from ..io.vtk import read_streamlines
@@ -135,7 +136,7 @@ def chunk_plan(bundles: List[List[np.ndarray]]
 
 def launch_bundle_metrics(bundles: List[List[np.ndarray]],
                           dtype: torch.dtype = torch.float32,
-                          upload: str = "f32", device="cuda"):
+                          upload: str = "f32", device="cuda", mesh=None):
     """Enqueue every chunk's launch for many bundles and return a
     zero-argument ``finish()`` producing the bundle summaries.
 
@@ -154,9 +155,22 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
     kernel, and replaces the torsion column with the host's float64 value
     from the original points (the codec's noise is too large for tau; every
     other metric moves by p99 <= 3e-4 in the JAX package's probe).
+
+    ``mesh`` (``parallel.mesh.make_mesh``): each chunk's streamline axis is
+    padded to a multiple of the data axis (``pad_to_multiple``) and split
+    over it; a rank launches the kernel on its rows, on the mesh's device,
+    and ``drain`` assembles every chunk's (19, S) exactly before the float64
+    refinement and the group-by, so the summaries do not depend on the
+    number of ranks.  Every rank of the mesh calls ``drain`` (``finish``
+    does) and gets the whole result; ``finish.launches`` counts its own.
     """
     if upload not in ("f32", "u16d"):
         raise ValueError(f"unknown geometry upload codec: {upload!r}")
+    axis = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device, pad_to_multiple
+        device = mesh_device(mesh, device)
+        axis = mesh.axis("data")
     device = _check_target(device, dtype)
     if upload == "u16d":
         from ..ops.geo_codec import encode_u16_delta, torsion_f64
@@ -170,18 +184,25 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
         f[0] += sum(len(sl) for sl in sls)
         f[1] += S_pad * P
         pts, lens = pad_streamlines(sls + [sls[-1]] * (S_pad - S), max_points=P)
-        d_lens = _to_device(lens, device)
-        if upload == "u16d":
-            codes, p0, lo, sc = encode_u16_delta(pts, lens)
-            # the codes cross as int16 bit patterns (ops.geo_codec)
-            stacked = streamline_metrics_stacked_u16(
-                _to_device(codes.view(np.int16), device),
-                *(_to_device(a, device) for a in (p0, lo, sc)), d_lens, dtype=dtype)
-            host_tau = torsion_f64(pts[:S], lens[:S])
-        else:
-            stacked = streamline_metrics_stacked(_to_device(pts, device), d_lens,
-                                                 dtype=dtype)
-            host_tau = None
+        rows = slice(None)
+        if axis is not None:
+            pts = pad_to_multiple(pts, axis.size)[0]
+            lens = pad_to_multiple(lens, axis.size)[0]
+            rows = axis.block(len(lens))
+        d_lens = _to_device(lens[rows], device)
+        with record_function("streamline_metrics"):
+            if upload == "u16d":
+                codes, p0, lo, sc = encode_u16_delta(pts, lens)
+                # the codes cross as int16 bit patterns (ops.geo_codec)
+                stacked = streamline_metrics_stacked_u16(
+                    _to_device(codes.view(np.int16)[rows], device),
+                    *(_to_device(a[rows], device) for a in (p0, lo, sc)), d_lens,
+                    dtype=dtype)
+                host_tau = torsion_f64(pts[:S], lens[:S])
+            else:
+                stacked = streamline_metrics_stacked(_to_device(pts[rows], device),
+                                                     d_lens, dtype=dtype)
+                host_tau = None
         pending.append((stacked, S, np.fromiter((bi for bi, _ in chunk), np.int64,
                                                 count=S), sls, host_tau))
 
@@ -200,7 +221,9 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
     def drain() -> None:
         """The one device-to-host copy: every chunk's real columns."""
         if not _drained and pending:
-            allv = torch.cat([st[:, :S] for st, S, _, _, _ in pending], dim=1)
+            whole = ((lambda st: st) if axis is None
+                     else (lambda st: axis.gather(st, dim=1)))
+            allv = torch.cat([whole(st)[:, :S] for st, S, _, _, _ in pending], dim=1)
             _drained.append(allv.cpu().numpy().T)
 
     def finish() -> List[Dict[str, float]]:
@@ -258,9 +281,10 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
 
 def batched_bundle_metrics(bundles: List[List[np.ndarray]],
                            dtype: torch.dtype = torch.float32, upload: str = "f32",
-                           device="cuda") -> List[Dict[str, float]]:
+                           device="cuda", mesh=None) -> List[Dict[str, float]]:
     """Synchronous form of :func:`launch_bundle_metrics`."""
-    return launch_bundle_metrics(bundles, dtype=dtype, upload=upload, device=device)()
+    return launch_bundle_metrics(bundles, dtype=dtype, upload=upload, device=device,
+                                 mesh=mesh)()
 
 
 # ----------------------------------------------------------------------------
@@ -365,19 +389,27 @@ def launch_all_tracts(config: Config, data_dir: Path,
         with stage("geometry.compute"):
             summaries = finish_metrics()
         log.info("computed %d bundle summaries", len(summaries))
-        rows = []
-        for summ, m in zip(summaries, meta):
-            if summ["n_streamlines"] == 0:
-                log.warning("no valid streamlines for %s", m)
-                continue
-            row = dict(summ)
-            row.update(m)   # metadata columns last, as in the reference (:112-115)
-            rows.append(row)
-        return pd.DataFrame(rows)
+        return summaries_frame(summaries, meta)
 
     finish.drain = finish_metrics.drain
     finish.metrics = finish_metrics
     return finish
+
+
+def summaries_frame(summaries: List[Dict[str, float]],
+                    meta: List[Dict[str, str]]) -> pd.DataFrame:
+    """The cohort metrics DataFrame: a bundle's summary, then its metadata
+    columns, as in the reference (:112-115); bundles without a valid
+    streamline are logged and left out."""
+    rows = []
+    for summ, m in zip(summaries, meta):
+        if summ["n_streamlines"] == 0:
+            log.warning("no valid streamlines for %s", m)
+            continue
+        row = dict(summ)
+        row.update(m)
+        rows.append(row)
+    return pd.DataFrame(rows)
 
 
 def process_all_tracts(config: Config, data_dir: Path,
@@ -437,6 +469,13 @@ def generate_summary_statistics(results_df: pd.DataFrame, output_dir: Path
     return summary_df, tract_summary_df
 
 
+def write_geometry_csvs(results_df: pd.DataFrame, output_dir: Path) -> None:
+    """The stage's three CSVs (reference: :299-329)."""
+    results_df.to_csv(output_dir / "comprehensive_tract_geometry_metrics.csv",
+                      index=False)
+    generate_summary_statistics(results_df, output_dir)
+
+
 def launch_geometry(config: Optional[Config] = None,
                     data_dir: str | Path | None = None,
                     output_dir: str | Path | None = None,
@@ -464,9 +503,7 @@ def launch_geometry(config: Optional[Config] = None,
             log.error("no tracts successfully processed")
             return results_df
         with stage("geometry.write"):
-            results_df.to_csv(output_dir / "comprehensive_tract_geometry_metrics.csv",
-                              index=False)
-            generate_summary_statistics(results_df, output_dir)
+            write_geometry_csvs(results_df, output_dir)
         log.info("geometry stage complete: %d records -> %s", len(results_df),
                  output_dir)
         return results_df

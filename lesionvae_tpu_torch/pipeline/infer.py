@@ -15,6 +15,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import pandas as pd
 import torch
+from torch.profiler import record_function
 
 from ..core.config import Config, load_config
 from ..train import data as vdata
@@ -86,7 +87,8 @@ def score_cohort(cohort_dir: str | Path, base_path: str | Path,
                  subjects: Sequence, config: Optional[Config] = None,
                  keys: Optional[Sequence] = None, seed: int = 0,
                  output_dir: str | Path | None = None, device="cuda",
-                 dtype: torch.dtype = torch.float32, eps=None) -> pd.DataFrame:
+                 dtype: torch.dtype = torch.float32, eps=None,
+                 mesh=None) -> pd.DataFrame:
     """Score a whole cohort of saved members in one pass.
 
     Every ``(tract, timepoint)`` member under ``cohort_dir/checkpoints``
@@ -102,12 +104,23 @@ def score_cohort(cohort_dir: str | Path, base_path: str | Path,
     Returns one summary row per (tract, timepoint, subject): mean/std/max/
     count of per-streamline z magnitudes; also writes ``cohort_scores.csv``
     when ``output_dir`` is given (with the columns alone when no member
-    could be scored)."""
+    could be scored).
+
+    ``mesh`` (``parallel.mesh.make_mesh``): when the members tile its data
+    axis each rank scores its block of them on the mesh's device and the
+    magnitudes are gathered exactly; otherwise a warning is logged and the
+    first rank of the axis scores them all and broadcasts them, as
+    lesionvae_tpu/pipeline/infer.py:213-230 falls back to one device.
+    Every rank returns the same rows; rank 0 alone writes the CSV."""
     from ..models.fleet import FleetState, layout
     from ..train.batched import pad_datasets
     from ..train.normative import fleet_reconstruct, z_residual
     from ..utils.precision import full_fp32
 
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+        device = mesh_device(mesh, device)
+    writes = mesh is None or mesh.is_main
     device = torch.device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"serving runs float32 on cuda, got {dtype}")
@@ -168,7 +181,7 @@ def score_cohort(cohort_dir: str | Path, base_path: str | Path,
         tensors.append((Xm, Xl))
     if not members:
         out = pd.DataFrame(columns=SCORE_COLUMNS)
-        if output_dir is not None:
+        if output_dir is not None and writes:
             output_dir = Path(output_dir)
             output_dir.mkdir(parents=True, exist_ok=True)
             out.to_csv(output_dir / "cohort_scores.csv", index=False)
@@ -178,25 +191,45 @@ def score_cohort(cohort_dir: str | Path, base_path: str | Path,
     # batch_size=1 pads to the largest member's row count exactly
     Xm_T, Xl_T, n_real = pad_datasets(tensors, batch_size=1)
     T, n_pad = Xm_T.shape[:2]
-    state = FleetState.from_state_dicts(
-        [m["model"].module.state_dict() for m in members], layout(**hyper),
-        dtype=dtype, device=device)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
-    stack = lambda f: f32(np.stack([f(m) for m in members]))  # noqa: E731
-    # float32 normalization with the saved stats, as on the host
-    Xz, Xl_d = vdata.apply_normalization_device(
-        f32(Xm_T), f32(Xl_T),
-        {k: stack(lambda m, k=k: m["norm_stats"][k])
-         for k in ("median", "mean", "std")})
-    Xz, Xl_d = Xz.to(dtype), Xl_d.to(dtype)
     if eps is None:
         eps = torch.randn((T, n_pad, hyper["latent"]),
                           generator=torch.Generator().manual_seed(seed))
-    xh = fleet_reconstruct(state, Xz, Xl_d, torch.as_tensor(eps).to(device, dtype))
-    nm = stack(lambda m: m["norm"]["mean"]).to(dtype)
-    ns = stack(lambda m: m["norm"]["std"]).to(dtype)
-    z = z_residual(Xz.transpose(0, 1), xh.transpose(0, 1), nm, ns)   # (n, T, L, C)
-    mags = torch.sqrt(torch.mean(z ** 2, dim=(2, 3))).transpose(0, 1).cpu().numpy()
+    eps = torch.as_tensor(eps)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+
+    def magnitudes(sl: slice) -> torch.Tensor:
+        """(members, n_pad) z magnitudes of the members ``sl``."""
+        part = members[sl]
+        state = FleetState.from_state_dicts(
+            [m["model"].module.state_dict() for m in part], layout(**hyper),
+            dtype=dtype, device=device)
+        stack = lambda f: f32(np.stack([f(m) for m in part]))  # noqa: E731
+        # float32 normalization with the saved stats, as on the host
+        Xz, Xl_d = vdata.apply_normalization_device(
+            f32(Xm_T[sl]), f32(Xl_T[sl]),
+            {k: stack(lambda m, k=k: m["norm_stats"][k])
+             for k in ("median", "mean", "std")})
+        Xz, Xl_d = Xz.to(dtype), Xl_d.to(dtype)
+        with record_function("score_fleet"):
+            xh = fleet_reconstruct(state, Xz, Xl_d, eps[sl].to(device, dtype))
+        nm = stack(lambda m: m["norm"]["mean"]).to(dtype)
+        ns = stack(lambda m: m["norm"]["std"]).to(dtype)
+        z = z_residual(Xz.transpose(0, 1), xh.transpose(0, 1), nm, ns)  # (n, T, L, C)
+        return torch.sqrt(torch.mean(z ** 2, dim=(2, 3))).transpose(0, 1)
+
+    if mesh is None:
+        mags = magnitudes(slice(None))
+    else:
+        axis = mesh.axis("data")
+        if T % axis.size == 0:
+            mags = axis.gather(magnitudes(axis.block(T)), 0)
+        else:
+            log.warning("score_cohort: %d members don't tile the mesh's data axis "
+                        "(%d); scoring on one rank", T, axis.size)
+            mags = (magnitudes(slice(None)) if axis.index == 0 else
+                    torch.empty((T, n_pad), dtype=dtype, device=device))
+            axis.broadcast_(mags, 0)
+    mags = mags.cpu().numpy()
 
     rows = []
     for i, m in enumerate(members):
@@ -210,7 +243,7 @@ def score_cohort(cohort_dir: str | Path, base_path: str | Path,
     out = pd.concat(rows, ignore_index=True)
     log.info("scored %d members x %d subjects in one pass on %s", T,
              out["subject_id"].nunique(), device)
-    if output_dir is not None:
+    if output_dir is not None and writes:
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         out.to_csv(output_dir / "cohort_scores.csv", index=False)

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import pandas as pd
 import torch
+from torch.profiler import record_function
 
 from ..core.config import Config, load_config
 from ..io import nifti
@@ -149,9 +150,10 @@ def _sh_device_launch(prepared: List[_PreparedLesion], max_l: int,
     surf, counts, cens = radius_inputs(prepared, dtype, device)
     scales = torch.tensor([p.scale for p in prepared], dtype=dtype,
                           device=device)
-    radii = sample_radii(surf, counts, cens, directions)
-    radii_normalized = radii * scales[:, None]  # :392-393
-    return sh_fit_batch_packed(radii_normalized, basis, chol_c, max_l=max_l)
+    with record_function("sh_fit"):
+        radii = sample_radii(surf, counts, cens, directions)
+        radii_normalized = radii * scales[:, None]  # :392-393
+        return sh_fit_batch_packed(radii_normalized, basis, chol_c, max_l=max_l)
 
 
 def _sh_device_finish(packed, n: int, max_l: int

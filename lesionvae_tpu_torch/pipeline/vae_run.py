@@ -42,14 +42,19 @@ def run_vae_analysis(tract: str, latent_dim: int = 10, epochs: int = 40,
                      timepoints: Optional[Sequence[str]] = None,
                      output_dir: str | Path | None = None,
                      seed: int = 42, make_plots: bool = True,
-                     device="cuda", dtype: torch.dtype = torch.float32
-                     ) -> Dict[str, dict]:
+                     device="cuda", dtype: torch.dtype = torch.float32,
+                     mesh=None) -> Dict[str, dict]:
     """Train a lesion-conditioned VAE per timepoint and compute normative
     z-score deviation maps.
 
     Returns {timepoint: {"model", "history", "Z", "magnitude", "subj_ids",
     "group_labels", "latents", "lesion_burden", "s"}}.
+
+    ``mesh``: training is data-parallel over its ranks
+    (``train_lesion_vae(mesh=)``); every rank returns the same results and
+    rank 0 alone writes the files.
     """
+    writes = mesh is None or mesh.is_main
     config = config or load_config()
     base_path = Path(base_path) if base_path else Path(config.base_path)
     timepoints = list(timepoints if timepoints is not None else config.timepoints)
@@ -86,8 +91,9 @@ def run_vae_analysis(tract: str, latent_dim: int = 10, epochs: int = 40,
             model, hist = train_lesion_vae(
                 Xz, Xl, latent_dim=latent_dim, epochs=epochs,
                 batch_size=batch_size, lr=lr, seed=seed, device=device,
-                dtype=dtype)
-        hist.to_csv(output_dir / f"training_history_{tp}.csv", index=False)
+                dtype=dtype, mesh=mesh)
+        if writes:
+            hist.to_csv(output_dir / f"training_history_{tp}.csv", index=False)
 
         sham = group_labels == "Sham"
         if not sham.any():
@@ -100,10 +106,11 @@ def run_vae_analysis(tract: str, latent_dim: int = 10, epochs: int = 40,
             mu = mu.cpu().numpy()
         lesion_burden = Xl[:, :, 0].mean(axis=1)  # mean in_lesion per streamline
 
-        np.savez_compressed(
-            output_dir / f"zscores_{tp}.npz", Z=Z, magnitude=magnitude,
-            subj_ids=subj_ids, group_labels=group_labels, latents=mu,
-            lesion_burden=lesion_burden, norm_mean=mean_r, norm_std=std_r)
+        if writes:
+            np.savez_compressed(
+                output_dir / f"zscores_{tp}.npz", Z=Z, magnitude=magnitude,
+                subj_ids=subj_ids, group_labels=group_labels, latents=mu,
+                lesion_burden=lesion_burden, norm_mean=mean_r, norm_std=std_r)
 
         results[tp] = dict(model=model, history=hist, Z=Z, magnitude=magnitude,
                            subj_ids=subj_ids, group_labels=group_labels,
@@ -124,7 +131,7 @@ def run_vae_analysis(tract: str, latent_dim: int = 10, epochs: int = 40,
         burden_by_tp[tp] = lesion_burden
         groups_by_tp[tp] = subj_ids  # per-streamline subject ids for grouping
 
-    if make_plots and bundle_profiles:
+    if make_plots and bundle_profiles and writes:
         with stage("vae.figures"):
             _make_vae_figures(bundle_profiles, lesion_profiles, group_mappings,
                               latents_by_tp, burden_by_tp, groups_by_tp,

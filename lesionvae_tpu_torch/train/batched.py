@@ -23,14 +23,23 @@ numbers; ``perms=``, ``noise=``, ``salts=`` and ``state_dicts=`` inject
 others (the tests pass the JAX package's).  Nothing inside training waits
 for the device: history, finite flags and epoch sums stay on it until
 ``FleetHandle.fetch``.
+
+``FLEET_LAUNCH_LEDGER`` records one entry a block launch, as the JAX
+package's does a program dispatch: the program's name and the (shape,
+dtype) of each staged argument; ``utils/cost_model.bench_traffic_fields``
+reads it.  With ``mesh=`` each data rank trains its own block of members
+with no collective (lesionvae_tpu/train/batched.py:58-66), and ``fetch``
+assembles the fleet on every rank.
 """
 
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layout
@@ -44,6 +53,18 @@ from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
 from .trainer import TrainedVAE, betas
 
 log = get_logger("batched")
+
+#: one ("fleet_train", (ArgSpec, ...)) entry a block launch since the last
+#: reset: the staged arguments' shapes and dtypes (the raw or uint16 blocks
+#: Xm and Xl, n_real and, with a summary, sham and the subject index), as
+#: lesionvae_tpu/train/batched.py:505 records them.  A chunked launch adds
+#: one entry a chunk, a mesh rank one for its own block.
+FLEET_LAUNCH_LEDGER: list = []
+ArgSpec = namedtuple("ArgSpec", "shape dtype")
+
+
+def reset_fleet_ledger() -> None:
+    FLEET_LAUNCH_LEDGER.clear()
 
 
 def pad_datasets(tensors, batch_size: int = 64, min_rows: int = 0
@@ -146,13 +167,39 @@ class FleetHandle:
 
     def __init__(self, state: FleetState, hist: torch.Tensor, epochs: int,
                  n_batches: int, Xm: torch.Tensor, Xl: torch.Tensor,
-                 summary=None, norm_stats: Optional[Dict[str, torch.Tensor]] = None):
+                 summary=None, norm_stats: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         self.state, self.hist = state, hist
         self.Xm, self.Xl = Xm, Xl
         self.summary, self.norm_stats = summary, norm_stats
         self._epochs, self._n_batches = epochs, n_batches
+        self.mesh = mesh
+
+    def assemble(self) -> None:
+        """A mesh rank's handle holds its own block of members.  This
+        gathers every block over the data axis, bit for bit, so that state,
+        history, summary and normalization statistics hold all T members on
+        every rank (the device blocks ``Xm`` / ``Xl`` stay the rank's own).
+        Every rank of the mesh must call it; ``fetch`` does."""
+        if self.mesh is None:
+            return
+        axis = self.mesh.axis("data")
+        gather = lambda t: axis.gather(t, 0)  # noqa: E731
+        own = self.state
+        state = FleetState(own.layout, own.members * axis.size, own.dtype,
+                           own.store_dtype, own.device)
+        state.weights.copy_(gather(own.weights))
+        state.affine.copy_(gather(own.affine))
+        state.stats = {k: gather(v) for k, v in own.stats.items()}
+        self.state, self.hist = state, gather(self.hist)
+        if self.summary is not None:
+            self.summary = tuple(gather(t) for t in self.summary)
+        if self.norm_stats is not None:
+            self.norm_stats = {k: gather(v) for k, v in self.norm_stats.items()}
+        self.mesh = None
 
     def fetch(self) -> Tuple[List[TrainedVAE], np.ndarray]:
+        self.assemble()
         hist = self.hist.cpu().numpy()
         models = [TrainedVAE(self.state.member(i))
                   for i in range(self.state.members)]
@@ -240,7 +287,7 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
                      perms: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
                      salts: Optional[torch.Tensor] = None,
-                     summary_noise=None) -> FleetHandle:
+                     summary_noise=None, mesh=None) -> FleetHandle:
     """Train T VAEs as one program on ``device``; returns a FleetHandle.
 
     Xm: (T, n_pad, L, Cm) padded microstructure tensors (pad rows zero), Xl:
@@ -270,7 +317,26 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
     ``state_dicts``, ``perms``, ``noise`` and ``salts`` replace the seeded
     draws (``member_draws`` gives the canonical fleet's for a block of it).
     ``dtype`` is the arithmetic's (float64 on the CPU for tests); on
-    ``cuda`` the fleet is float32."""
+    ``cuda`` the fleet is float32.
+    ``mesh`` (``parallel.mesh.make_mesh``): each data rank trains the
+    members ``[r*T/w, (r+1)*T/w)`` on the mesh's device, with the canonical
+    fleet's draws sliced, so the number of ranks changes no draw, and no
+    collective until ``fetch`` assembles the fleet (every rank calls it).  T
+    must divide by the data axis; ``upload_chunks`` must be 1 (``"auto"``
+    gives 1)."""
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+        device = mesh_device(mesh, device)
+        if Xm.shape[0] % mesh.shape["data"] != 0:
+            raise ValueError(f"fleet size {Xm.shape[0]} not divisible by the mesh's "
+                             f"data axis ({mesh.shape['data']})")
+        if upload_chunks == "auto":
+            upload_chunks = 1
+        elif not isinstance(upload_chunks, int) or upload_chunks < 1:
+            raise ValueError("upload_chunks must be >= 1 or 'auto'")
+        elif upload_chunks > 1:
+            raise ValueError("upload_chunks is a single-card option; a mesh fleet "
+                             "already splits the member axis across devices")
     device = torch.device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"the VAE trains float32 on cuda, got {dtype}")
@@ -324,6 +390,10 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
         return _launch_block(Xm[sl], Xl[sl], n_real[sl], lay, spec,
                              {k: v[sl] for k, v in draws.items()}, **common)
 
+    if mesh is not None:
+        handle = block(mesh.axis("data").block(T))
+        handle.mesh = mesh
+        return handle
     if chunks == 1:
         return block(slice(None))
     Tc = T // chunks
@@ -344,15 +414,23 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
         return torch.from_numpy(np.asarray(X, np.float32)).to(device)
 
     if quantize_upload:
-        blocks = []
+        blocks, staged = [], []
         for X in (Xm, Xl):
             codes, lo, scale = quantize_u16(X)
+            staged.append(codes)
             blocks.append(dequantize_u16(codes_to_tensor(codes, device),
                                          put(lo), put(scale)))
         Xm_d, Xl_d = blocks
     else:
         Xm_d, Xl_d = put(Xm), put(Xl)
+        staged = [np.asarray(Xm, np.float32), np.asarray(Xl, np.float32)]
     n_d = torch.from_numpy(np.asarray(n_real, np.int64)).to(device)
+    staged.append(np.asarray(n_real, np.int32))
+    if summary_spec is not None:
+        staged += [np.asarray(summary_spec[0], np.float32),
+                   np.asarray(summary_spec[1], np.int32)]
+    FLEET_LAUNCH_LEDGER.append(("fleet_train", tuple(
+        ArgSpec(tuple(a.shape), str(a.dtype)) for a in staged)))
     norm_stats = None
     if normalize_on_device:
         Xm_d, Xl_d, norm_stats = vdata.normalize_on_device(Xm_d, Xl_d, n_d)
@@ -365,17 +443,19 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
     opt = (FlatLowmemOptimizer if flat_opt else LowmemOptimizer)(
         state, lr, weight_decay, grad_clip, salts=draws["salts"])
 
-    hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, draws["perms"].to(device),
-                       draws["noise"].to(device, dtype), epochs, batch_size,
-                       compute_dtype)
+    with record_function("fleet_train"):
+        hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, draws["perms"].to(device),
+                           draws["noise"].to(device, dtype), epochs, batch_size,
+                           compute_dtype)
     summary = None
     if summary_spec is not None:
         sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
-        summary = member_summary(
-            state, Xm_d, Xl_d, put(sham_T).to(dtype),
-            torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device),
-            int(n_seg), seed=int(norm_seed), noise=summary_noise,
-            compute_dtype=compute_dtype)
+        with record_function("member_summary"):
+            summary = member_summary(
+                state, Xm_d, Xl_d, put(sham_T).to(dtype),
+                torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device),
+                int(n_seg), seed=int(norm_seed), noise=summary_noise,
+                compute_dtype=compute_dtype)
     return FleetHandle(state, hist, epochs, n_batches, Xm_d, Xl_d,
                        summary=summary, norm_stats=norm_stats)
 

@@ -102,8 +102,17 @@ class ClipDecayAdam:
 
     @torch.no_grad()
     def step(self, grads, finite: torch.Tensor) -> None:
-        g = torch.cat([x.reshape(-1) for x in grads])
-        g_norm = torch.sqrt(torch.sum(g * g))
+        self.step_flat(torch.cat([x.reshape(-1) for x in grads]), finite)
+
+    def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """The global norm the update clips by."""
+        return torch.sqrt(torch.sum(g * g))
+
+    @torch.no_grad()
+    def step_flat(self, g: torch.Tensor, finite: torch.Tensor) -> None:
+        """``step`` with the gradients as one flat buffer laid out as
+        ``self.flat``."""
+        g_norm = self.grad_norm(g)
         g = torch.where(g_norm < self.grad_clip, g, (g / g_norm) * self.grad_clip)
         g = g + self.weight_decay * self.flat
         m2 = (1 - self.b1) * g + self.b1 * self.mu
@@ -126,22 +135,34 @@ def betas(epochs: int):
 
 
 def train_step(module: LesionConditionedVAE, opt: ClipDecayAdam, xb_m, xb_l,
-               mask, eps, beta: float) -> torch.Tensor:
+               mask, eps, beta: float, axis=None) -> torch.Tensor:
     """One batch: train-mode forward (advances BN running stats), ELBO,
     gradients, and the update unless the loss is not finite.  Returns
     [loss*n, recon*n, kld*n, n] for the real rows n, zeroed for a skipped
-    batch (NaN times zero stays NaN, as in the JAX program)."""
+    batch (NaN times zero stays NaN, as in the JAX program).
+
+    ``axis`` (a ``parallel.mesh.Axis``; the module's BatchNorms must sum
+    over it too): the rows given are this rank's part of the batch.  The
+    loss and n are the whole batch's, and the gradients are summed over the
+    axis in one all-reduce of the flat buffer.  Every rank seeds the same
+    global loss and ``psum``'s gradient sums the ranks' gradients, so that
+    sum holds the gradient ``axis.size`` times: it is divided once."""
     module.train()
     xh, mu, logv = module(xb_m, xb_l, mask=mask, eps=eps)
     # nan_to_num on outputs, as the reference does (vae_model.py:189-191)
     xh = torch.nan_to_num(xh, nan=0.0)
     mu = torch.nan_to_num(mu, nan=0.0)
     logv = torch.nan_to_num(logv, nan=0.0)
-    loss, recon, kld = elbo(xh, xb_m, mu, logv, beta=beta, mask=mask)
+    loss, recon, kld = elbo(xh, xb_m, mu, logv, beta=beta, mask=mask, axis=axis)
     grads = torch.autograd.grad(loss, opt.params)
     finite = torch.isfinite(loss)
-    opt.step(grads, finite)
     n_valid = mask.sum()
+    if axis is None:
+        opt.step(grads, finite)
+    else:
+        g = axis.total_(torch.cat([x.reshape(-1) for x in grads]))
+        opt.step_flat(g / axis.size, finite)
+        n_valid = axis.total_(n_valid.detach().clone())
     loss, recon, kld = loss.detach(), recon.detach(), kld.detach()
     return finite.to(loss.dtype) * torch.stack(
         [loss * n_valid, recon * n_valid, kld * n_valid, n_valid])
@@ -162,10 +183,11 @@ def draw_run(n: int, n_pad: int, epochs: int, batch_size: int, latent: int,
 def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
                  Xl: torch.Tensor, n: int, perms: torch.Tensor,
                  noise: torch.Tensor, epochs: int, batch_size: int, lr: float,
-                 weight_decay: float, grad_clip: float) -> np.ndarray:
+                 weight_decay: float, grad_clip: float, axis=None) -> np.ndarray:
     """Train ``module`` in place on padded device tensors (n_pad, L, C)
     whose first ``n`` rows are real.  Returns the (epochs, 4) history
-    [loss, recon, kld, beta]."""
+    [loss, recon, kld, beta].  ``axis``: this rank trains its block of each
+    batch's rows (``train_step``)."""
     n_pad = Xm.shape[0]
     n_batches = n_pad // batch_size
     opt = ClipDecayAdam(module, lr, weight_decay, grad_clip)
@@ -180,8 +202,13 @@ def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
         sums = Xm.new_zeros(4)
         for b in range(n_batches):
             sl = slice(b * batch_size, (b + 1) * batch_size)
+            eps = noise[ep, b]
+            if axis is not None:
+                own = axis.block(batch_size)
+                sl = slice(sl.start + own.start, sl.start + own.stop)
+                eps = eps[own]
             sums = sums + train_step(module, opt, Xm_ep[sl], Xl_ep[sl],
-                                     mask_ep[sl], noise[ep, b], beta)
+                                     mask_ep[sl], eps, beta, axis)
         seen = sums[3]
         avg = torch.where(seen > 0, sums[:3] / seen, torch.nan)
         hist.append(torch.cat([avg, beta_t[ep:ep + 1]]))
@@ -196,7 +223,7 @@ def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,
                      dtype: torch.dtype = torch.float32,
                      module: Optional[LesionConditionedVAE] = None,
                      perms: Optional[torch.Tensor] = None,
-                     noise: Optional[torch.Tensor] = None
+                     noise: Optional[torch.Tensor] = None, mesh=None
                      ) -> Tuple[TrainedVAE, pd.DataFrame]:
     """Returns (model, history DataFrame with columns loss/recon/kld/beta,
     one row per epoch), like vae_model.py:140-222.
@@ -205,7 +232,22 @@ def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,
     come from ``seed`` on the CPU; ``module``, ``perms`` and ``noise``
     replace them when given (initial weights are then taken from
     ``module``, which is trained in place).  On ``cuda`` the run is
-    float32."""
+    float32.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): data-parallel over the rows of
+    each batch, as GSPMD runs the JAX trainer
+    (lesionvae_tpu/train/trainer.py:250-255).  Every rank draws the same
+    weights, permutations and noise from ``seed`` and trains its block of
+    each batch (``batch_size`` must divide by the data axis); BatchNorm
+    statistics and the masked ELBO are the whole batch's and the gradients
+    are summed in one all-reduce a step, so the run is the one-process run.
+    The mesh's device is used; ``device`` must be of its type."""
+    axis = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+        device = mesh_device(mesh, device)
+        axis = mesh.axis("data")
+        axis.block(batch_size)          # raises unless it divides
     device = torch.device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"the VAE trains float32 on cuda, got {dtype}")
@@ -234,8 +276,13 @@ def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,
         out[:n] = torch.from_numpy(X).to(device=device, dtype=dtype)
         return out
 
-    hist = train_module(module, padded(X_micro), padded(X_lesion), n, perms,
-                        noise, epochs, batch_size, lr, weight_decay, grad_clip)
+    module.set_axis(axis)
+    try:
+        hist = train_module(module, padded(X_micro), padded(X_lesion), n, perms,
+                            noise, epochs, batch_size, lr, weight_decay, grad_clip,
+                            axis)
+    finally:
+        module.set_axis(None)
     hist_df = pd.DataFrame(hist, columns=["loss", "recon", "kld", "beta"])
     for ep in (1, 10, 20, 30, 40):
         if ep <= epochs:

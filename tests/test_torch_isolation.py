@@ -164,3 +164,64 @@ def test_all_defaults_to_cuda(tmp_path):
         cli.main(["all", "--config", str(cfg_path), "--base-path", str(root),
                   "--no-plots"])
     assert not (root / "results" / "lesion_sh_heme_comprehensive").exists()
+
+
+def test_the_parallel_modules_are_on_the_list():
+    """The multi-rank layer and the card's accounting utilities are among the
+    sources checked above."""
+    checked = {str(p.relative_to(REPO / "lesionvae_tpu_torch"))
+               for p in (REPO / "lesionvae_tpu_torch").rglob("*.py")}
+    assert {"parallel/mesh.py", "parallel/sharded.py", "parallel/ranks.py",
+            "utils/cost_model.py", "utils/device_trace.py"} <= checked
+
+
+def test_a_spawned_rank_loads_no_jax():
+    """A rank started by ``parallel.mesh.spawn`` (the ``spawn`` start method
+    imports the module of its function afresh) has neither JAX nor the JAX
+    package in ``sys.modules``."""
+    from lesionvae_tpu_torch.parallel import mesh, ranks
+
+    for (modules, _counts), in mesh.spawn(ranks.run, 2, "gloo", "cpu",
+                                         [("imported", 1, {})]):
+        assert "torch" in modules and "lesionvae_tpu_torch" in modules
+        assert not set(modules) & set(FORBIDDEN), sorted(set(modules) & set(FORBIDDEN))
+
+
+def test_the_mesh_and_its_entry_points_default_to_cuda(tmp_path):
+    """``make_mesh`` and every entry point that takes ``mesh=`` target the
+    card unless told otherwise, and refuse a mesh on another device type;
+    on a host without a card the mesh is a CUDA error, never a CPU mesh."""
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+
+    from lesionvae_tpu_torch.parallel import mesh
+    from lesionvae_tpu_torch.pipeline import geometry_run, infer, vae_run
+    from lesionvae_tpu_torch.train import batched, trainer
+
+    assert inspect.signature(mesh.make_mesh).parameters["device"].default == "cuda"
+    assert inspect.signature(mesh.spawn).parameters["device"].default == "cuda"
+    for fn in (batched.launch_many_vaes, trainer.train_lesion_vae,
+               vae_run.run_vae_analysis, infer.score_cohort,
+               geometry_run.launch_bundle_metrics, geometry_run.batched_bundle_metrics):
+        params = inspect.signature(fn).parameters
+        assert params["device"].default == "cuda" and params["mesh"].default is None, fn
+    with pytest.raises(ValueError, match="the mesh's rank holds cpu, the call asks for cuda"):
+        geometry_run.batched_bundle_metrics([[np.zeros((4, 3))]],
+                                            mesh=mesh.Mesh(1, 1, 0, "cpu"))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only host")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.spawn(print, 2)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh.make_mesh()
+        cpu = mesh.make_mesh(device="cpu")
+        assert cpu.device == torch.device("cpu") and cpu.shape == {"data": 1, "model": 1}
+        with pytest.raises(ValueError, match="2 devices asked, 1 ranks"):
+            mesh.make_mesh(2, device="cpu")
+    finally:
+        dist.destroy_process_group()
