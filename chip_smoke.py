@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lesionvae_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d-3g, 3h's c-d)
+    python3 chip_smoke.py [--skip-vae]      (--skip-vae leaves out 3d-3g, 3h's c-d, 3i)
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -108,6 +108,24 @@ Phases; any failure exits non-zero before the result line is printed:
       their own assertions.  Every rank must launch geometry (b) and SR Adam
       (c); a rank that exits non-zero fails the script ((a) and (b) only
       with --skip-vae);
+   i. the programs (``check_programs``): training runs as one device
+      program on the card, each epoch one replay of a captured CUDA graph
+      (train/program.py), and so do paths 3d-3h above (their lines print
+      the captures and replays; 3e's SR Adam count is one a fleet step at
+      the replays plus one a step of the epoch run before the capture; 3g's
+      chunks replay one program).  (a) The single VAE (one member's rows of
+      the chunked case, 2 epochs) and the bf16-storage 64-member fleet (2
+      epochs) at full width, graph against eager (``train_loop``,
+      ``train_fleet``) on the same inputs: two eager runs are read first;
+      where they agree bit for bit the graph must too, else it is held to
+      the larger of that reading and ALONE_TOL / ALONE_MOVE; (b) host ms,
+      device ms, kernels and host launch calls a step of both forms
+      (``benchmarks/vae_step_profile.py --route bmm|graph``): the single
+      VAE, 4 float32 members, 64 bf16-storage members; (c) the fleet's SR
+      Adam launches counted at each replay; (d) ``warm_compile``: a fleet
+      launch (one capture) and then the real launch with no new capture,
+      and the geometry kernel launched at every chunk shape of 3c's plan
+      with no row refined; (e) ``torch.cuda.max_memory_allocated``;
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
@@ -215,10 +233,20 @@ def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
     from lesionvae_tpu_torch.ops import geometry, radius, resident_adam, sr_adam
 
+    from lesionvae_tpu_torch.train import program
+
     radius.sample_radii.launches = 0
     resident_adam.resident_adam.launches = 0
     sr_adam.sr_adam_step.launches = 0
     geometry.streamline_metrics_stacked.launches = 0
+    program.reset_counts()
+
+
+def graph_counts() -> str:
+    """The training graphs' captures and replays since the last reset."""
+    from lesionvae_tpu_torch.train import program
+
+    return f"graph captures {program.COUNTS['captures']}, replays {program.COUNTS['replays']}"
 
 
 def card_line() -> str:
@@ -1193,7 +1221,8 @@ def check_vae(root: Path, cfg, tract: str) -> None:
           f"{VAE_ROWS} rows, {SINGLE_EPOCHS} epochs, {steps} train steps in "
           f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
           f"stage {wall:.2f}s; kernel launches radius "
-          f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}")
+          f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
+          f"{graph_counts()} (an epoch a replay)")
     print("[path] vae spans on cuda (s): " + json.dumps(spans))
 
     # one model of the path, trained again on cuda for the comparisons and
@@ -1275,8 +1304,11 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
     from lesionvae_tpu_torch.ops import radius, resident_adam as ra, sr_adam
     from lesionvae_tpu_torch.utils import profiling
 
+    from lesionvae_tpu_torch.train import program
+
     profiling.reset()
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["vae-cohort", "--store", "bf16", "--dtype", "f32",
                    "--save-checkpoints", "--epochs", str(VAE_EPOCHS),
@@ -1285,12 +1317,17 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sr_adam.sr_adam_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     spans = profiling.report()
     if rc != 0:
         fail(f"vae-cohort stage exited {rc}")
-    if launches != COHORT_STEPS:
+    # one a fleet step, counted at each replay of an epoch's graph, and one
+    # a step of the epoch run eagerly before a capture (train/program.py)
+    captures, replays = program.COUNTS["captures"], program.COUNTS["replays"]
+    warm_up = COHORT_STEPS // VAE_EPOCHS * captures
+    if launches != COHORT_STEPS + warm_up or captures > 1 or replays != VAE_EPOCHS:
         fail(f"vae-cohort with bf16 storage launched the SR Adam kernel {launches} "
-             f"times in {COHORT_STEPS} fleet steps")
+             f"times in {COHORT_STEPS} fleet steps, {graph_counts()}")
     out = root / "results" / "vae_cohort"
     members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
     for tract, tp in members:
@@ -1313,8 +1350,10 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
           f"{COHORT_STEPS} fleet steps in {spans['vae_cohort.train']:.2f}s "
           f"({COHORT_STEPS / spans['vae_cohort.train']:.2f} fleet steps/s, upload, "
           f"normalization and summary included); stage {wall:.2f}s; kernel "
-          f"launches sr_adam {launches}, radius {radius.sample_radii.launches}, "
-          f"resident {ra.resident_adam.launches}")
+          f"launches sr_adam {launches} ({COHORT_STEPS} in {replays} epoch replays, "
+          f"{warm_up} in the epoch run before the capture), radius "
+          f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
+          f"{graph_counts()}; max_memory_allocated {peak_gb:.2f} GB")
     print("[path] vae-cohort spans on cuda (s): " + json.dumps(spans))
 
     profiling.reset()
@@ -1703,7 +1742,8 @@ def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
     print(f"[all] {'all --with-vae' if have_sklearn else 'the all phase'} on cuda: "
           f"{wall:.2f}s; launches {json.dumps(launches)}; geometry and lesion CSVs "
           f"bit-equal to the phase's own runs; fleet {len(names)} files, summaries "
-          f"finite; correlate vs the CPU float32 CSVs {json.dumps(corr)} (r, p tol "
+          f"finite, {graph_counts()}; correlate vs the CPU float32 CSVs "
+          f"{json.dumps(corr)} (r, p tol "
           f"{CORR_TOL}, band {P_BAND}); {note}; spans {json.dumps(spans)}; {card}")
     return {"launches": launches, "spans": spans, "wall": wall}
 
@@ -1761,7 +1801,7 @@ def check_chunks() -> dict:
     full width on the card, with the normative summary; each launch timed."""
     from lesionvae_tpu_torch.models.fleet import FleetState, layout
     from lesionvae_tpu_torch.parallel.ranks import fleet_arrays, state_arrays
-    from lesionvae_tpu_torch.train import batched
+    from lesionvae_tpu_torch.train import batched, program
 
     T, n_pad, L = COHORT_MEMBERS, COHORT_PAD, 100
     Xm, Xl, n_real, sham, seg = fleet_case()
@@ -1775,22 +1815,33 @@ def check_chunks() -> dict:
     draws = [batched.member_draws(T, n_pad, hyper, CHUNK_EPOCHS, VAE_BATCH, VAE_SEED,
                                   block=b) for b in blocks]
 
-    def timed(fn):
+    graphs = {}
+
+    def timed(label, fn):
         torch.cuda.synchronize()
+        program.reset_counts()
         t0 = time.perf_counter()
         h = fn()
         torch.cuda.synchronize()
+        graphs[label] = dict(program.COUNTS)
         return h, time.perf_counter() - t0
 
-    one, s1 = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, **kw, **full))
-    auto, s8 = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, upload_chunks="auto",
-                                                      **kw, **full))
-    split, s2 = timed(lambda: batched.cat_handles([
+    one, s1 = timed("single", lambda: batched.launch_many_vaes(Xm, Xl, n_real, **kw,
+                                                                 **full))
+    auto, s8 = timed("auto", lambda: batched.launch_many_vaes(
+        Xm, Xl, n_real, upload_chunks="auto", **kw, **full))
+    split, s2 = timed("two_blocks", lambda: batched.cat_handles([
         batched.launch_many_vaes(Xm[b], Xl[b], n_real[b], **dict(
             kw, summary_spec=(sham[b], seg[b], 38, VAE_SEED)), **d)
         for b, d in zip(blocks, draws)]))
+    chunks = batched.resolve_chunks("auto", T)
+    # every chunk (and block) of a launch replays one cached program
+    if (graphs["auto"]["captures"] > 1 or graphs["two_blocks"]["captures"] > 1
+            or graphs["auto"]["replays"] != chunks * CHUNK_EPOCHS
+            or graphs["two_blocks"]["replays"] != 2 * CHUNK_EPOCHS):
+        fail(f"chunked launches' graphs: {json.dumps(graphs)}")
     out = {"members": T, "epochs": CHUNK_EPOCHS, "single_s": s1, "auto_s": s8,
-           "auto_chunks": batched.resolve_chunks("auto", T), "two_blocks_s": s2}
+           "auto_chunks": chunks, "two_blocks_s": s2, "graphs": graphs}
     print(f"[chunks] times: {json.dumps(out)}")
     s0 = FleetState.from_state_dicts(full["state_dicts"], one.state.layout, device="cuda")
     lay = one.state.layout
@@ -1904,7 +1955,7 @@ def parallel_fleet_reference(Xm, Xl, n_real, sham, seg, kw) -> tuple:
     weights, as ``parallel.ranks`` arrays; and the single launch's seconds."""
     from lesionvae_tpu_torch.models.fleet import FleetState, layout
     from lesionvae_tpu_torch.parallel.ranks import fleet_arrays, state_arrays
-    from lesionvae_tpu_torch.train import batched
+    from lesionvae_tpu_torch.train import batched, program
 
     kw = dict(kw)
     n_seg, norm_seed = kw.pop("n_seg"), kw.pop("norm_seed")
@@ -2040,6 +2091,237 @@ def check_parallel(cohort_root: Path, cfg, with_vae: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the programs
+# training as one device program (train/program.py): each epoch one replay
+# of a captured CUDA graph, against the same epochs as eager launches
+# (train_loop, train_fleet) on the same inputs, PROGRAM_EPOCHS epochs at
+# full width.  Two eager runs are read against each other first: where they
+# agree bit for bit the graph must too, else the graph is held to the larger
+# of that reading and the member-against-alone bounds (ALONE_TOL in history,
+# ALONE_MOVE of each tensor's movement in L2)
+PROGRAM_EPOCHS = 2
+# the step profile: steps read a form (vae_step_profile rounds the graph
+# form's up to whole epochs of 15 steps)
+PROFILE_STEPS = {"single": 45, "fleet": 15}
+
+
+def run_readings(got, ref, start) -> dict:
+    """``got`` against ``ref``, each (history, {name: tensor}) on the host,
+    from the tensors ``start``."""
+    moved = {k: float((ref[1][k].double() - start[k].double()).norm()) for k in ref[1]}
+    off = {k: float((got[1][k].double() - ref[1][k].double()).norm()) / max(moved[k], 1e-30)
+           for k in ref[1]}
+    worst = max(off, key=off.get)
+    return {"bit_equal": bool(torch.equal(got[0], ref[0]) and all(
+                torch.equal(got[1][k], ref[1][k]) for k in ref[1])),
+            "history_max_rel": rel_err(got[0], ref[0]),
+            "tensor_off_of_movement": off[worst], "worst_tensor": worst}
+
+
+def hold_graph(label: str, graph: dict, eager: dict) -> str:
+    """The graph-against-eager reading held as the phase's rule says."""
+    if eager["bit_equal"]:
+        if not graph["bit_equal"]:
+            fail(f"{label}: two eager runs agree bit for bit, the graph does not: "
+                 f"{json.dumps(graph)}")
+        return "bit-equal, as eager against eager"
+    tol = max(ALONE_TOL, eager["history_max_rel"])
+    move = max(ALONE_MOVE, eager["tensor_off_of_movement"])
+    if graph["history_max_rel"] > tol or graph["tensor_off_of_movement"] > move:
+        fail(f"{label}: graph against eager {json.dumps(graph)} beyond history {tol} "
+             f"and tensors {move} (eager against eager {json.dumps(eager)})")
+    return f"within history {tol:.3e} and tensors {move:.3e} of their movement"
+
+
+def check_programs(cohort_root: Path, cfg) -> dict:
+    """Phase 3i: (a) the single VAE and the bf16-storage 64-member fleet,
+    PROGRAM_EPOCHS epochs at full width, graph against eager; (b) host ms,
+    device ms and launches a step of both forms (``vae_step_profile``);
+    (c) the SR Adam kernel counted at each replay; (d) ``warm_compile``
+    launches, then the real launch with no new capture; (e) peak memory."""
+    from lesionvae_tpu_torch.benchmarks import vae_step_profile as prof
+    from lesionvae_tpu_torch.models.fleet import FleetState, layout
+    from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
+    from lesionvae_tpu_torch.ops import geometry, sr_adam
+    from lesionvae_tpu_torch.pipeline import geometry_run as gr
+    from lesionvae_tpu_torch.train import batched, data as vdata, program, trainer
+    from lesionvae_tpu_torch.train.lowmem import LowmemOptimizer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    lay = layout(100, 13, 3, VAE_LATENT)
+    Xm, Xl, n_real, sham, seg = fleet_case()
+    T, n_pad = Xm.shape[:2]
+    n_d = torch.from_numpy(n_real.astype(np.int64)).cuda()
+    Xz, Xlz, _ = vdata.normalize_on_device(torch.from_numpy(Xm).cuda(),
+                                           torch.from_numpy(Xl).cuda(), n_d)
+    opt_args = (2e-4, 1e-3, 2.0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # (a) the single VAE: member 0's rows
+    n0 = int(n_real[0])
+    gen = torch.Generator().manual_seed(VAE_SEED)
+    perms, noise = trainer.draw_run(n0, n_pad, PROGRAM_EPOCHS, VAE_BATCH, VAE_LATENT, gen)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(VAE_SEED)
+        sd0 = LesionConditionedVAE(**lay.hyper).state_dict()
+
+    def single(train):
+        module = LesionConditionedVAE(**lay.hyper).cuda()
+        module.load_state_dict(sd0)
+        hist = train(module, Xz[0], Xlz[0], n0, perms, noise, PROGRAM_EPOCHS, VAE_BATCH,
+                     *opt_args)
+        return (torch.from_numpy(np.asarray(hist)),
+                {k: v.detach().cpu() for k, v in module.state_dict().items()})
+
+    program.reset_counts()
+    (e1, s_e1), (e2, s_e2) = timed(lambda: single(trainer.train_loop)), \
+        timed(lambda: single(trainer.train_loop))
+    g1, s_g1 = timed(lambda: single(trainer.train_module))
+    g2, s_g2 = timed(lambda: single(trainer.train_module))
+    eager = run_readings(e2, e1, sd0)
+    graph = run_readings(g1, e1, sd0)
+    again = run_readings(g2, g1, sd0)
+    held = hold_graph("single VAE", graph, eager)
+    hold_graph("single VAE, graph against graph", again, eager)
+    if program.COUNTS["captures"] > 1 or program.COUNTS["replays"] != 2 * PROGRAM_EPOCHS:
+        fail(f"single VAE: {graph_counts()}")
+    out["single"] = {"eager_vs_eager": eager, "graph_vs_eager": graph, "held": held,
+                     "graph_vs_graph": again,
+                     "eager_s": [s_e1, s_e2], "graph_s": [s_g1, s_g2],
+                     "graphs": dict(program.COUNTS)}
+    print(f"[programs] single VAE, {n0} rows x {PROGRAM_EPOCHS} epochs at full width, "
+          f"graph against eager: {json.dumps(out['single'])}")
+
+    # (a) and (c) the 64-member fleet, bf16 storage
+    draws = batched.member_draws(T, n_pad, lay.hyper, PROGRAM_EPOCHS, VAE_BATCH, VAE_SEED)
+    start = FleetState.from_state_dicts(draws["state_dicts"], lay, torch.float32,
+                                        torch.bfloat16, "cpu")
+
+    def tensors(state):
+        return {"weights": state.weights.detach().cpu(), "affine": state.affine.cpu(),
+                **{k: v.cpu() for k, v in state.stats.items()}}
+
+    def fleet(form):
+        state = FleetState.from_state_dicts(draws["state_dicts"], lay, torch.float32,
+                                            torch.bfloat16, "cuda")
+        if form == "eager":
+            opt = LowmemOptimizer(state, *opt_args, salts=draws["salts"])
+            hist = batched.train_fleet(state, opt, Xz, Xlz, n_d, draws["perms"].cuda(),
+                                       draws["noise"].cuda(), PROGRAM_EPOCHS, VAE_BATCH)
+        else:
+            prog_ = batched.fleet_program(lay, T, n_pad, PROGRAM_EPOCHS, VAE_BATCH,
+                                          *opt_args, torch.bfloat16, None, False, "cuda",
+                                          torch.float32)
+            hist = prog_.run(state, draws["salts"], Xz, Xlz, n_d, draws["perms"],
+                             draws["noise"])
+        return hist.cpu(), tensors(state)
+
+    (f1, t_e1), (f2, t_e2) = timed(lambda: fleet("eager")), timed(lambda: fleet("eager"))
+    program.reset_counts()
+    sr_adam.sr_adam_step.launches = 0
+    fg, t_g = timed(lambda: fleet("graph"))
+    steps = PROGRAM_EPOCHS * (n_pad // VAE_BATCH)
+    captures = program.COUNTS["captures"]
+    launches = sr_adam.sr_adam_step.launches
+    if (launches != steps + captures * (n_pad // VAE_BATCH)
+            or program.COUNTS["replays"] != PROGRAM_EPOCHS):
+        fail(f"fleet graph: SR Adam launched {launches} times in {steps} steps, "
+             f"{graph_counts()}")
+    eager = run_readings(f2, f1, tensors(start))
+    graph = run_readings(fg, f1, tensors(start))
+    held = hold_graph("bf16 fleet", graph, eager)
+    out["fleet"] = {"members": T, "eager_vs_eager": eager, "graph_vs_eager": graph,
+                    "held": held, "eager_s": [t_e1, t_e2], "graph_s": t_g,
+                    "sr_adam_launches": launches, "steps": steps,
+                    "graphs": dict(program.COUNTS)}
+    print(f"[programs] fleet, {T} members bf16 storage x {PROGRAM_EPOCHS} epochs, graph "
+          f"against eager: {json.dumps(out['fleet'])}; SR Adam {launches} launches = "
+          f"{steps} counted at the replays + {launches - steps} in the epoch run before "
+          f"a capture")
+    del Xz, Xlz
+    torch.cuda.empty_cache()
+
+    # (b) a step of each form, read the same way
+    steps_read = {}
+    for label, fn in (
+            ("single_eager", lambda: prof.main(PROFILE_STEPS["single"], "bmm")),
+            ("single_graph", lambda: prof.main(PROFILE_STEPS["single"], "graph")),
+            ("fleet4_f32_eager", lambda: prof.main_fleet(4, "f32", "f32",
+                                                         PROFILE_STEPS["fleet"], "bmm")),
+            ("fleet4_f32_graph", lambda: prof.main_fleet(4, "f32", "f32",
+                                                         PROFILE_STEPS["fleet"], "graph")),
+            ("fleet64_bf16_eager", lambda: prof.main_fleet(64, "bf16", "f32",
+                                                           PROFILE_STEPS["fleet"], "bmm")),
+            ("fleet64_bf16_graph", lambda: prof.main_fleet(64, "bf16", "f32",
+                                                           PROFILE_STEPS["fleet"], "graph"))):
+        r = fn()
+        steps_read[label] = {k: r[k] for k in (
+            "host_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "kernel_launches_per_step", "host_launch_calls_per_step", "steps")
+            if k in r} | {k: r[k] for k in ("graph_captures", "graph_replays",
+                                            "peak_device_gb") if k in r}
+        torch.cuda.empty_cache()
+    out["per_step"] = steps_read
+    print(f"[programs] per step, eager against graph: {json.dumps(steps_read)}")
+
+    # (d) warm_compile, then the real launch: no new capture
+    batched.PROGRAMS.clear()
+    kw = dict(latent_dim=VAE_LATENT, epochs=PROGRAM_EPOCHS, batch_size=VAE_BATCH,
+              seed=VAE_SEED, normalize_on_device=True, store_dtype=torch.bfloat16,
+              summary_spec=(sham, seg, 38, VAE_SEED), device="cuda")
+    program.reset_counts()
+    warm, t_warm = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real,
+                                                          warm_compile=True, **kw))
+    warm_counts = dict(program.COUNTS)
+    h_warm = warm.hist.cpu().numpy()
+    mag = warm.summary[2].cpu().numpy()
+    if (h_warm.shape != (T, PROGRAM_EPOCHS, 4) or not np.isfinite(h_warm).all()
+            or mag.shape[0] != T or not np.isfinite(mag).all()
+            or warm_counts["captures"] != 1):
+        fail(f"warm fleet launch: history {h_warm.shape} finite "
+             f"{np.isfinite(h_warm).all()}, magnitude {mag.shape}, {graph_counts()}")
+    del warm
+    program.reset_counts()
+    real, t_real = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, **kw))
+    if program.COUNTS != {"captures": 0, "replays": PROGRAM_EPOCHS}:
+        fail(f"the real launch after a warm one: {graph_counts()}")
+    if not np.isfinite(real.hist.cpu().numpy()).all():
+        fail("the real launch after a warm one: history not finite")
+    del real
+    bundles = read_bundles(cfg, cohort_root / "data")
+    geometry.streamline_metrics_stacked.launches = 0
+    finish, t_geo = timed(lambda: gr.launch_bundle_metrics(bundles, warm_compile=True))
+    summaries = finish()
+    plan = gr.chunk_plan(bundles)
+    geo_launches = geometry.streamline_metrics_stacked.launches
+    if (geo_launches != len(plan) or finish.refined != 0
+            or not all(x["n_streamlines"] > 0 for x in summaries)):
+        fail(f"warm geometry: {geo_launches} launches for {len(plan)} chunks, "
+             f"{finish.refined} rows refined")
+    out["warm_compile"] = {
+        "fleet_warm_s": t_warm, "fleet_warm_graphs": warm_counts,
+        "fleet_real_s": t_real, "fleet_real_graphs": {"captures": 0,
+                                                      "replays": PROGRAM_EPOCHS},
+        "geometry_warm_s": t_geo, "geometry_launches": geo_launches,
+        "geometry_chunks": sorted({(S, P) for P, _c, S in plan}), "refined": 0}
+    print(f"[programs] warm_compile: {json.dumps(out['warm_compile'])}")
+    batched.PROGRAMS.clear()
+    trainer.PROGRAMS.clear()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[programs] max_memory_allocated {out['max_memory_allocated_gb']:.2f} GB; "
+          f"phase {out['phase_s']:.1f}s; {card_line()}")
+    return out
+
+
 def start_cohort(root: Path, cfg, pool, profiles: bool):
     """Write the full-scale cohort of paths 3c-3f under ``root`` (16 tracts,
     37 subjects x 4 timepoints: the volumes at the lesion path's 48^3, so
@@ -2167,6 +2449,8 @@ def main(argv=None) -> int:
             check_chunks()
             torch.cuda.empty_cache()
         check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
+        if not args.skip_vae:
+            check_programs(cohort_root, cfg)
 
     # 4. kernel timings at the main paths' shapes
     err = radius_error(path_inputs)

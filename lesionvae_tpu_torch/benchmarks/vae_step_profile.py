@@ -1,9 +1,10 @@
 """Where a training step of the full-width VAE spends its time.
 
-    python -m lesionvae_tpu_torch.benchmarks.vae_step_profile [--steps 100]
+    python -m lesionvae_tpu_torch.benchmarks.vae_step_profile [--steps 100] \
+        [--route {bmm,graph}]
     python -m lesionvae_tpu_torch.benchmarks.vae_step_profile --fleet \
         [--members 64] [--store {f32,bf16}] [--dtype {f32,bf16}] [--steps 20] \
-        [--route {bmm,grouped,vmap}]
+        [--route {bmm,grouped,vmap,graph}]
 
 Trains the slice's model (seq 100, 13 + 3 channels, latent 10, about
 2.74 M parameters) at batch 64 on random data with ``train_step``, the
@@ -12,8 +13,9 @@ step of ``train_lesion_vae``, on the card, and reports:
 - the host wall-clock per step over ``--steps`` steps, ending in a
   synchronise (what a user of ``vae.train`` waits for);
 - under ``torch.profiler``: the device time per step (the sum of kernel
-  times), the device's busy share of the wall-clock, the kernel launches
-  per step and the kernels that take the most device time.
+  times), the device's busy share of the wall-clock, the kernels run per
+  step, the host's launch calls per step (kernel launches, copies and
+  graph launches) and the kernels that take the most device time.
 
 With ``--fleet`` the step is ``fleet_step``, the step of
 ``launch_many_vaes``: ``--members`` models of that size trained as one
@@ -31,6 +33,14 @@ convolution with a group a member; ``vmap`` takes the gradients as
 single-member module with parameters and running statistics stacked (float32
 storage and compute only).  All three train the same members with the same
 optimizer and agree on the CPU (tests/test_torch_fleet.py).
+
+``--route graph`` reads the form the package trains with on the card: the
+step inside the training program (``train.trainer.TrainProgram``,
+``train.batched.FleetProgram``), an epoch of ``EPOCH_STEPS`` steps captured
+once as a CUDA graph and replayed, one ``cudaGraphLaunch`` an epoch; the
+steps read are rounded up to whole epochs, and the first epoch of the
+warm-up holds the capture.  ``bmm`` (the default) is the step as a Python
+call of eager launches, as ``train_loop`` / ``train_fleet`` run it.
 
 One JSON line closes the output.
 """
@@ -51,12 +61,20 @@ from ..models.fleet import FleetState, layout
 from ..models.layers import KERNEL, PADDING
 from ..models.lesion_vae import LesionConditionedVAE
 from ..ops import sr_adam
-from ..train.batched import fleet_step, init_state_dicts
+from ..train import program as tprog
+from ..train.batched import FleetProgram, fleet_step, init_state_dicts
 from ..train.lowmem import LowmemOptimizer
-from ..train.trainer import ClipDecayAdam, train_step
+from ..train.trainer import ClipDecayAdam, TrainProgram, train_step
 from ..utils.precision import full_fp32
 
 BATCH, SEQ, MICRO, LESION, LATENT = 64, 100, 13, 3, 10
+# steps an epoch of the graph route: the paths' 925-960 rows at batch 64
+EPOCH_STEPS = 15
+# the host's calls that put work on the device: a kernel launch each, or a
+# whole graph
+HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync"}
 
 
 def _steps(module, opt, data, n: int) -> None:
@@ -82,8 +100,9 @@ def _readout(run, steps: int, warm: int) -> dict:
         run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS)
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     return {"device": torch.cuda.get_device_name(0), "steps": steps,
@@ -92,6 +111,7 @@ def _readout(run, steps: int, warm: int) -> dict:
             "device_ms_per_step": dev_us / 1e3 / steps,
             "device_busy_share": dev_us / 1e6 / wall,
             "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "host_launch_calls_per_step": calls / steps,
             "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
                              "us_per_step": e.self_device_time_total / steps}
                             for e in top]}
@@ -108,15 +128,57 @@ def _data(device, members: int = 0):
         np.ones(lead + (BATCH,)), g.normal(size=lead + (BATCH, LATENT))))
 
 
-def main(steps: int = 100) -> dict:
+def _epochs_of(steps: int) -> int:
+    return -(-steps // EPOCH_STEPS)
+
+
+def _graph_readout(program, steps: int, warm: int) -> dict:
+    """``_readout`` of a loaded program: ``run(n)`` replays n / EPOCH_STEPS
+    epochs from epoch 0 (the draws of ``_epochs_of(steps)`` epochs)."""
+    def run(n: int) -> None:
+        program.ep.zero_()
+        program.graph.run(n // EPOCH_STEPS)
+
+    tprog.reset_counts()
+    out = _readout(run, EPOCH_STEPS * _epochs_of(steps), EPOCH_STEPS * _epochs_of(warm))
+    out.update(epoch_steps=EPOCH_STEPS, graph_captures=tprog.COUNTS["captures"],
+               graph_replays=tprog.COUNTS["replays"])
+    return out
+
+
+def _draws(device, epochs: int, members: int = 0):
+    """Random permutations and noise of ``epochs`` epochs of EPOCH_STEPS
+    batches; with ``members`` a leading member axis."""
+    lead = (members,) if members else ()
+    n_pad = EPOCH_STEPS * BATCH
+    perms = torch.rand(lead + (epochs, n_pad)).argsort(dim=-1)
+    noise = torch.randn(lead + (epochs, EPOCH_STEPS, BATCH, LATENT))
+    return perms.to(device), noise.to(device)
+
+
+def main(steps: int = 100, route: str = "bmm") -> dict:
+    if route not in ("bmm", "graph"):
+        raise ValueError("the single VAE reads --route bmm (eager) or graph")
     device = torch.device("cuda")
     full_fp32(device)
     torch.manual_seed(0)
     module = LesionConditionedVAE(SEQ, MICRO, LESION, LATENT).to(device)
-    opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
-    data = _data(device)
-    out = _readout(lambda n: _steps(module, opt, data, n), steps, warm=10)
-    out["params"] = sum(p.numel() for p in module.parameters())
+    if route == "graph":
+        n_pad = EPOCH_STEPS * BATCH
+        epochs = _epochs_of(max(steps, 10))
+        program = TrainProgram(n_pad, n_pad, tuple(sorted(module.hyperparameters().items())),
+                               None, epochs, BATCH, 2e-4, 1e-3, 2.0, device, torch.float32)
+        g = np.random.default_rng(0)
+        Xm, Xl = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+            g.normal(size=(n_pad, SEQ, MICRO)), g.uniform(size=(n_pad, SEQ, LESION))))
+        program.load(module, Xm, Xl, *_draws(device, epochs))
+        out = _graph_readout(program, steps, warm=10)
+    else:
+        opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
+        data = _data(device)
+        out = _readout(lambda n: _steps(module, opt, data, n), steps, warm=10)
+    out.update(route=route, params=sum(p.numel() for p in module.parameters()),
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(json.dumps(out))
     return out
 
@@ -171,6 +233,30 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
     state = FleetState.from_state_dicts(
         init_state_dicts(members, lay.hyper, 0), lay, torch.float32, bf16[store],
         device)
+    warm = 3
+    sr_adam.sr_adam_step.launches = 0
+    if route == "graph":
+        n_pad = EPOCH_STEPS * BATCH
+        epochs = _epochs_of(max(steps, warm))
+        program = FleetProgram(lay, members, n_pad, epochs, BATCH, 2e-4, 1e-3, 2.0,
+                               bf16[store], bf16[dtype], False, device, torch.float32)
+        g = np.random.default_rng(0)
+        Xm, Xl = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+            g.normal(size=(members, n_pad, SEQ, MICRO)),
+            g.uniform(size=(members, n_pad, SEQ, LESION))))
+        program.load(state, torch.arange(members), Xm, Xl,
+                     torch.full((members,), n_pad, device=device),
+                     *_draws(device, epochs, members))
+        out = _graph_readout(program, steps, warm)
+        # steps replayed, and the epoch run eagerly before each capture
+        calls = EPOCH_STEPS * (_epochs_of(warm) + 2 * _epochs_of(steps)
+                               + out["graph_captures"])
+        out.update(members=members, store=store, dtype=dtype, route=route,
+                   params_per_member=lay.n_weights + lay.n_affine,
+                   sr_adam_launches_per_step=sr_adam.sr_adam_step.launches / calls,
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(json.dumps(out))
+        return out
     opt = LowmemOptimizer(state, 2e-4, 1e-3, 2.0)
     xm, xl, mask, eps = _data(device, members)
 
@@ -183,8 +269,6 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
             else:
                 fleet_step(state, opt, xm, xl, mask, eps, 1.0, bf16[dtype])
 
-    warm = 3
-    sr_adam.sr_adam_step.launches = 0
     conv = fleet._conv
     if route == "grouped":
         fleet._conv = conv_grouped
@@ -208,11 +292,15 @@ if __name__ == "__main__":
     ap.add_argument("--members", type=int, default=64)
     ap.add_argument("--store", choices=["f32", "bf16"], default="f32")
     ap.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
-    ap.add_argument("--route", choices=["bmm", "grouped", "vmap"], default="bmm",
-                    help="how the members are batched (with --fleet); the "
-                         "package trains with bmm")
+    ap.add_argument("--route", choices=["bmm", "grouped", "vmap", "graph"],
+                    default="bmm",
+                    help="bmm: the step as eager launches; graph: inside the "
+                         "training program, an epoch a graph replay (the form "
+                         "the package trains with on the card); with --fleet, "
+                         "grouped and vmap batch the members the two ways the "
+                         "package does not use")
     a = ap.parse_args()
     if a.fleet:
         main_fleet(a.members, a.store, a.dtype, a.steps or 20, a.route)
     else:
-        main(a.steps or 100)
+        main(a.steps or 100, a.route)

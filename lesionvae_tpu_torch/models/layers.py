@@ -128,13 +128,14 @@ def avg_pool_half(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x[:, :, :L2].reshape(N, C, L2 // 2, 2).sum(dim=3)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def interp_matrix(L_in: int, out_size: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """(out_size, L_in) linear-interpolation matrix with align_corners=False
     semantics: src(i) = (i + 0.5)*L_in/L_out - 0.5, clamped; each row holds
     the (1-w, w) pair.  Built in float64 as the JAX package builds it, then
-    cast; cached on the device."""
+    cast; cached on the device and never evicted: a captured training graph
+    reads it at its address (train/program.py)."""
     src = np.clip((np.arange(out_size) + 0.5) * (L_in / out_size) - 0.5,
                   0.0, L_in - 1.0)
     lo = np.floor(src).astype(int)

@@ -97,6 +97,19 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches`` when
+    it runs now, in ``wrapper.captured`` when the current stream is
+    capturing a CUDA graph; the graph then adds it to ``launches`` at every
+    replay (``train.program.EpochGraph``)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def sass(name: str) -> str:
     """The machine code (SASS) of the library of ``csrc/<name>.cu``, built
     on first use, as ``cuobjdump -sass`` prints it."""

@@ -36,7 +36,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .cuda_build import load
+from .cuda_build import count_launch, load
 
 MASK32 = 0xFFFFFFFF
 BF16_MAX = 3.3895313892515355e38
@@ -204,7 +204,7 @@ def _launch(p, m, v, g, base, g_norm, bc1, bc2, salt, finite, c) -> None:
                  c["one_minus_b2"], c["neg_lr"], c["eps"], stream)
     if err != 0:
         raise RuntimeError(f"SR Adam kernel launch failed: cudaError {err}")
-    sr_adam_step.launches += 1
+    count_launch(sr_adam_step)
 
 
 def sr_adam_step(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -224,8 +224,11 @@ def sr_adam_step(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
 
 # launches of the kernel in this process; a run sets it to 0 and reads it back
-# to show its path went through the kernel
+# to show its path went through the kernel.  A launch recorded into a CUDA
+# graph counts in ``captured`` and joins ``launches`` at every replay
+# (train/program.py)
 sr_adam_step.launches = 0
+sr_adam_step.captured = 0
 
 
 def bound_ms(elements: int) -> Tuple[float, str, float]:

@@ -57,6 +57,16 @@ def _bucket_P(n: int) -> int:
     return b
 
 
+def _warm_helix(P: int) -> np.ndarray:
+    """(P, 3) helix, the points of a ``warm_compile`` launch
+    (lesionvae_tpu/pipeline/geometry_run.py:61-69): nonzero arc length (the
+    rows stay valid) and a full-rank covariance with well separated
+    eigenvalues (the float32 eigen certificate passes, so no row goes to the
+    host's float64 refinement)."""
+    t = np.linspace(0, 4 * np.pi, P, dtype=np.float32)
+    return np.stack([np.cos(t), np.sin(t), 0.1 * t], axis=1)
+
+
 def _check_target(device, dtype: torch.dtype) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and dtype != torch.float32:
@@ -136,7 +146,8 @@ def chunk_plan(bundles: List[List[np.ndarray]]
 
 def launch_bundle_metrics(bundles: List[List[np.ndarray]],
                           dtype: torch.dtype = torch.float32,
-                          upload: str = "f32", device="cuda", mesh=None):
+                          upload: str = "f32", device="cuda", mesh=None,
+                          warm_compile: bool = False):
     """Enqueue every chunk's launch for many bundles and return a
     zero-argument ``finish()`` producing the bundle summaries.
 
@@ -163,6 +174,13 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
     refinement and the group-by, so the summaries do not depend on the
     number of ranks.  Every rank of the mesh calls ``drain`` (``finish``
     does) and gets the whole result; ``finish.launches`` counts its own.
+
+    ``warm_compile``: build, load and launch the kernel at every chunk shape
+    of the plan without copying the points: every chunk's point block (or
+    its u16 codes) is ``_warm_helix(P)`` copied once to the card and tiled
+    there to the chunk's shape, with the real lengths.  No row goes to the
+    float64 refinement; the results are garbage by construction
+    (lesionvae_tpu/pipeline/geometry_run.py:140-147, :195-216).
     """
     if upload not in ("f32", "u16d"):
         raise ValueError(f"unknown geometry upload codec: {upload!r}")
@@ -190,8 +208,24 @@ def launch_bundle_metrics(bundles: List[List[np.ndarray]],
             lens = pad_to_multiple(lens, axis.size)[0]
             rows = axis.block(len(lens))
         d_lens = _to_device(lens[rows], device)
+        n_rows = len(lens[rows])
         with record_function("streamline_metrics"):
-            if upload == "u16d":
+            if warm_compile:
+                helix = _warm_helix(P)
+                tile = lambda a: _to_device(a, device).expand(  # noqa: E731
+                    n_rows, *a.shape[1:]).contiguous()
+                if upload == "u16d":
+                    codes, p0, lo, sc = encode_u16_delta(helix[None],
+                                                         np.array([P], np.int32))
+                    stacked = streamline_metrics_stacked_u16(
+                        tile(codes.view(np.int16)), *(tile(a) for a in (p0, lo, sc)),
+                        d_lens, dtype=dtype)
+                    host_tau = np.zeros(S)
+                else:
+                    stacked = streamline_metrics_stacked(tile(helix[None]), d_lens,
+                                                         dtype=dtype)
+                    host_tau = None
+            elif upload == "u16d":
                 codes, p0, lo, sc = encode_u16_delta(pts, lens)
                 # the codes cross as int16 bit patterns (ops.geo_codec)
                 stacked = streamline_metrics_stacked_u16(
@@ -326,10 +360,11 @@ def decompress_vtk_if_needed(path: Path) -> Path:
 def launch_all_tracts(config: Config, data_dir: Path,
                       max_streamlines: Optional[int] = 100,
                       dtype: torch.dtype = torch.float32, upload: str = "f32",
-                      device="cuda"):
+                      device="cuda", warm_compile: bool = False):
     """Read the cohort and enqueue its launches; returns a zero-argument
     ``finish()`` producing the cohort metrics DataFrame (reference: :134-220).
-    Missing and unreadable files are logged and skipped."""
+    Missing and unreadable files are logged and skipped.  ``warm_compile``:
+    as ``launch_bundle_metrics``'s."""
     _check_target(device, dtype)
     tasks: List[Tuple[Dict[str, str], Path]] = []
     for group, subjects in config.subjects_by_group().items():
@@ -383,7 +418,7 @@ def launch_all_tracts(config: Config, data_dir: Path,
 
     with stage("geometry.launch"):
         finish_metrics = launch_bundle_metrics(bundles, dtype=dtype, upload=upload,
-                                               device=device)
+                                               device=device, warm_compile=warm_compile)
 
     def finish() -> pd.DataFrame:
         with stage("geometry.compute"):
@@ -481,12 +516,13 @@ def launch_geometry(config: Optional[Config] = None,
                     output_dir: str | Path | None = None,
                     max_streamlines: Optional[int] = 100,
                     dtype: torch.dtype = torch.float32, upload: str = "f32",
-                    device="cuda"):
+                    device="cuda", warm_compile: bool = False):
     """The stage in two phases: read the cohort and enqueue all device work
     now; the returned ``finish()`` copies the results back and writes the
     three CSVs.  ``finish.drain()`` alone does the copy, and
     ``finish.metrics`` is the launch's own ``finish`` (its ``launches``,
-    ``streamlines`` and, after the run, ``refined``)."""
+    ``streamlines`` and, after the run, ``refined``).  ``warm_compile``: as
+    ``launch_bundle_metrics``'s (the CSVs are then garbage too)."""
     config = config or load_config()
     base = Path(config.base_path)
     data_dir = Path(data_dir) if data_dir else base / "data"
@@ -495,7 +531,8 @@ def launch_geometry(config: Optional[Config] = None,
     output_dir.mkdir(parents=True, exist_ok=True)
 
     finish_tracts = launch_all_tracts(config, data_dir, max_streamlines=max_streamlines,
-                                      dtype=dtype, upload=upload, device=device)
+                                      dtype=dtype, upload=upload, device=device,
+                                      warm_compile=warm_compile)
 
     def finish() -> pd.DataFrame:
         results_df = finish_tracts()

@@ -24,6 +24,18 @@ others (the tests pass the JAX package's).  Nothing inside training waits
 for the device: history, finite flags and epoch sums stay on it until
 ``FleetHandle.fetch``.
 
+Training is one device program (``FleetProgram``, the counterpart of the
+JAX package's ``_fleet_program``): the members' state, data, draws, history
+and a device epoch counter live in the program's buffers, the epoch body
+takes the epoch's permutations, noise and KLD weight through the counter,
+and on ``cuda`` each epoch is one replay of a captured CUDA graph
+(``train.program``).  Programs are cached by static configuration, so the
+chunks of a chunked launch, the blocks of a split one and a real launch
+after a ``warm_compile`` one replay one program with no new capture.
+``train_fleet`` is the same arithmetic as a Python loop of eager launches,
+the reference the graph is held against.  Normalization before training and
+the normative summary after it run eagerly.
+
 ``FLEET_LAUNCH_LEDGER`` records one entry a block launch, as the JAX
 package's does a program dispatch: the program's name and the (shape,
 dtype) of each staged argument; ``utils/cost_model.bench_traffic_fields``
@@ -45,10 +57,11 @@ from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layout
 from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
-from ..utils.precision import full_fp32
+from ..utils.precision import full_fp32, math_mode
 from . import data as vdata
 from .lowmem import FlatLowmemOptimizer, LowmemOptimizer, draw_salts
 from .normative import member_summary
+from .program import EpochGraph, ProgramCache
 from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
 from .trainer import TrainedVAE, betas
 
@@ -102,10 +115,11 @@ def draw_fleet(members: int, n_pad: int, epochs: int, batch_size: int,
 
 def fleet_step(state: FleetState, opt: LowmemOptimizer, xb_m: torch.Tensor,
                xb_l: torch.Tensor, mask: torch.Tensor, eps: torch.Tensor,
-               beta: float, compute_dtype: Optional[torch.dtype] = None
+               beta, compute_dtype: Optional[torch.dtype] = None
                ) -> torch.Tensor:
     """One batch of every member: train-mode forward (advances each member's
-    BatchNorm statistics), ELBO in the data's dtype, gradients, and the
+    BatchNorm statistics, written in place), ELBO in the data's dtype with
+    the KLD weight ``beta`` (a float or a 0-dim tensor), gradients, and the
     update of every member whose loss is finite.  xb_m (T, B, L, Cm), xb_l
     (T, B, L, Cl), mask (T, B), eps (T, B, latent).  Returns (T, 4):
     [loss*n, recon*n, kld*n, n] for the member's real rows n, zeroed for a
@@ -122,7 +136,9 @@ def fleet_step(state: FleetState, opt: LowmemOptimizer, xb_m: torch.Tensor,
     names = list(leaves)
     grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in names])
     finite = torch.isfinite(loss)
-    state.stats = {k: v.detach() for k, v in new_stats.items()}
+    with torch.no_grad():
+        for k, v in new_stats.items():
+            state.stats[k].copy_(v)
     opt.step(dict(zip(names, grads)), finite)
     n_valid = mask.to(wide).sum(dim=1)
     loss, recon, kld = loss.detach(), recon.detach(), kld.detach()
@@ -134,26 +150,157 @@ def train_fleet(state: FleetState, opt: LowmemOptimizer, Xm: torch.Tensor,
                 Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
                 noise: torch.Tensor, epochs: int, batch_size: int,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Train ``state`` in place on the device blocks Xm, Xl (T, n_pad, L, C).
-    Returns the (T, epochs, 4) history [loss, recon, kld, beta] on the
-    device."""
+    """Train ``state`` in place on the device blocks Xm, Xl (T, n_pad, L, C)
+    as a Python loop of eager launches, epoch by epoch: the reference the
+    program is held against (``FleetProgram``, the same operations in the
+    same order).  Returns the (T, epochs, 4) history [loss, recon, kld,
+    beta] on the device."""
     T, n_pad = Xm.shape[:2]
     rows = torch.arange(T, device=Xm.device)[:, None]
-    beta_list = betas(epochs)
-    beta_t = torch.tensor(beta_list, dtype=Xm.dtype, device=Xm.device)
+    beta_t = torch.tensor(betas(epochs), dtype=Xm.dtype, device=Xm.device)
     hist = []
-    for ep, beta in enumerate(beta_list):
+    for ep in range(epochs):
         sums = Xm.new_zeros((T, 4))
         for b in range(n_pad // batch_size):
             idx = perms[:, ep, b * batch_size:(b + 1) * batch_size]
             sums = sums + fleet_step(
                 state, opt, Xm[rows, idx], Xl[rows, idx],
-                (idx < n_real[:, None]).to(Xm.dtype), noise[:, ep, b], beta,
+                (idx < n_real[:, None]).to(Xm.dtype), noise[:, ep, b], beta_t[ep],
                 compute_dtype)
         seen = sums[:, 3:4]
         avg = torch.where(seen > 0, sums[:, :3] / seen, torch.nan)
         hist.append(torch.cat([avg, beta_t[ep].expand(T, 1)], dim=1))
     return torch.stack(hist, dim=1)
+
+
+class FleetProgram:
+    """The training of T members of one static configuration as one device
+    program: the counterpart of lesionvae_tpu/train/batched.py:48-258
+    (its training scan; normalization and the summary run beside it).
+
+    Buffers: a ``FleetState`` and its optimizer (moments, step counts, the
+    stochastic-rounding salts), the device blocks ``Xm`` / ``Xl`` and the
+    real row counts, the permutations and noise of every epoch, the KLD
+    weights, the (T, epochs, 4) history and the epoch counter ``ep``.
+    ``epoch`` is the body of one epoch (the ``n_batches`` fleet steps
+    unrolled, the epoch's draws and history column taken through ``ep``,
+    which it advances); ``run`` copies a launch's state, salts, data and
+    draws in, runs the epochs (one graph replay each on ``cuda``) and
+    copies the trained state out."""
+
+    def __init__(self, lay, members: int, n_pad: int, epochs: int, batch_size: int,
+                 lr: float, weight_decay: float, grad_clip: float,
+                 store_dtype: Optional[torch.dtype],
+                 compute_dtype: Optional[torch.dtype], flat_opt: bool,
+                 device: torch.device, dtype: torch.dtype):
+        self.epochs, self.batch_size = epochs, batch_size
+        self.n_batches = n_pad // batch_size
+        self.compute_dtype = compute_dtype
+        self.state = FleetState(lay, members, dtype, store_dtype, device)
+        self.opt = (FlatLowmemOptimizer if flat_opt else LowmemOptimizer)(
+            self.state, lr, weight_decay, grad_clip,
+            salts=torch.zeros(members, dtype=torch.int64))
+        h = lay.hyper
+        new = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+        self.Xm = new(members, n_pad, h["seq_len"], h["micro_ch"])
+        self.Xl = new(members, n_pad, h["seq_len"], h["lesion_ch"])
+        self.n_real = new(members, dt=torch.int64)
+        self.perms = new(members, epochs, n_pad, dt=torch.int64)
+        self.noise = new(members, epochs, self.n_batches, batch_size, h["latent"])
+        self.rows = torch.arange(members, device=device)[:, None]
+        self.beta_t = torch.tensor(betas(epochs), dtype=dtype, device=device)
+        self.hist = new(members, epochs, 4)
+        self.ep = new(1, dt=torch.int64)
+        self.graph = EpochGraph(self.epoch, self.state_tensors(), device)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The tensors an epoch carries to the next (the optimizer's
+        gradient buffer is scratch, written before each read)."""
+        st, o = self.state, self.opt
+        return [st.weights, st.affine, *st.stats.values(), o.mu_w, o.nu_w, o.mu_a,
+                o.nu_a, o.count, self.hist, self.ep]
+
+    def buffers(self) -> List[torch.Tensor]:
+        """Every tensor the body reads or writes."""
+        extra = [self.opt.salt] if self.opt.lowmem else []
+        return self.state_tensors() + extra + [
+            self.opt.g_w, self.Xm, self.Xl, self.n_real, self.perms, self.noise,
+            self.rows, self.beta_t]
+
+    def epoch(self) -> None:
+        B, T = self.batch_size, self.Xm.shape[0]
+        perm = self.perms.index_select(1, self.ep)[:, 0]
+        noise = self.noise.index_select(1, self.ep)[:, 0]
+        beta = self.beta_t.index_select(0, self.ep)
+        sums = self.Xm.new_zeros((T, 4))
+        for b in range(self.n_batches):
+            idx = perm[:, b * B:(b + 1) * B]
+            sums = sums + fleet_step(
+                self.state, self.opt, self.Xm[self.rows, idx], self.Xl[self.rows, idx],
+                (idx < self.n_real[:, None]).to(self.Xm.dtype), noise[:, b], beta[0],
+                self.compute_dtype)
+        seen = sums[:, 3:4]
+        avg = torch.where(seen > 0, sums[:, :3] / seen, torch.nan)
+        row = torch.cat([avg, beta.expand(T, 1)], dim=1)
+        self.hist.index_copy_(1, self.ep, row[:, None])
+        self.ep.add_(1)
+
+    @torch.no_grad()
+    def load(self, state: FleetState, salts: torch.Tensor, Xm: torch.Tensor,
+             Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
+             noise: torch.Tensor) -> None:
+        """A launch's start: its members' weights and statistics, zero
+        moments and step counts, its salts, epoch 0, its data and draws."""
+        st, o = self.state, self.opt
+        for name in ("weights", "affine"):
+            getattr(st, name).copy_(getattr(state, name))
+        for k, t in st.stats.items():
+            t.copy_(state.stats[k])
+        for t in (o.mu_w, o.nu_w, o.mu_a, o.nu_a, o.count, self.hist, self.ep):
+            t.zero_()
+        if o.lowmem:
+            o.salt.copy_(salts)
+        for dst, src in ((self.Xm, Xm), (self.Xl, Xl), (self.n_real, n_real),
+                         (self.perms, perms), (self.noise, noise)):
+            dst.copy_(src)
+
+    def run(self, state: FleetState, salts: torch.Tensor, Xm: torch.Tensor,
+            Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
+            noise: torch.Tensor) -> torch.Tensor:
+        """Train ``state`` in place; returns its (T, epochs, 4) history."""
+        self.load(state, salts, Xm, Xl, n_real, perms, noise)
+        self.graph.run(self.epochs)
+        with torch.no_grad():
+            for name in ("weights", "affine"):
+                getattr(state, name).copy_(getattr(self.state, name))
+            for k, t in state.stats.items():
+                t.copy_(self.state.stats[k])
+        return self.hist.clone()
+
+    def free(self) -> None:
+        self.graph.free()
+
+
+#: the fleet's programs by static configuration, as lru_cache(maxsize=8)
+#: holds the JAX package's
+PROGRAMS = ProgramCache(8)
+
+
+def fleet_program(lay, members: int, n_pad: int, epochs: int, batch_size: int,
+                  lr: float, weight_decay: float, grad_clip: float,
+                  store_dtype: Optional[torch.dtype],
+                  compute_dtype: Optional[torch.dtype], flat_opt: bool, device,
+                  dtype: torch.dtype) -> FleetProgram:
+    """The cached program of this configuration."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (tuple(sorted(lay.hyper.items())), members, n_pad, epochs, batch_size, lr,
+           weight_decay, grad_clip, store_dtype, compute_dtype, bool(flat_opt),
+           device, dtype, math_mode())
+    return PROGRAMS.get(key, lambda: FleetProgram(
+        lay, members, n_pad, epochs, batch_size, lr, weight_decay, grad_clip,
+        store_dtype, compute_dtype, flat_opt, device, dtype))
 
 
 class FleetHandle:
@@ -287,7 +434,8 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
                      perms: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
                      salts: Optional[torch.Tensor] = None,
-                     summary_noise=None, mesh=None) -> FleetHandle:
+                     summary_noise=None, mesh=None,
+                     warm_compile: bool = False) -> FleetHandle:
     """Train T VAEs as one program on ``device``; returns a FleetHandle.
 
     Xm: (T, n_pad, L, Cm) padded microstructure tensors (pad rows zero), Xl:
@@ -323,7 +471,16 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
     fleet's draws sliced, so the number of ranks changes no draw, and no
     collective until ``fetch`` assembles the fleet (every rank calls it).  T
     must divide by the data axis; ``upload_chunks`` must be 1 (``"auto"``
-    gives 1)."""
+    gives 1).
+    ``warm_compile``: build and capture ahead.  The blocks Xm / Xl are not
+    read: a ``batch_size``-row host pattern (standard normal, or random
+    uint16 codes with ``quantize_upload``, decoding into [-1, 1]) is tiled
+    on the device to their shapes, and the launch runs as a real one would,
+    so its program (every epoch graph of its chunks) is captured and the
+    kernels it launches built and loaded; a real launch of the same
+    configuration then replays it with no new capture.  History and summary
+    come back finite and of the real shapes, and are garbage by
+    construction (lesionvae_tpu/train/batched.py:361-367, :439-460)."""
     if mesh is not None:
         from ..parallel.mesh import mesh_device
         device = mesh_device(mesh, device)
@@ -380,7 +537,7 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
                   compute_dtype=compute_dtype, normalize_on_device=normalize_on_device,
                   store_dtype=store_dtype, quantize_upload=quantize_upload,
                   flat_opt=flat_opt, device=device, dtype=dtype,
-                  summary_noise=summary_noise)
+                  summary_noise=summary_noise, warm_compile=warm_compile)
 
     def block(sl: slice) -> FleetHandle:
         spec = None
@@ -403,34 +560,54 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
 def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, lr,
                   weight_decay, grad_clip, compute_dtype, normalize_on_device,
                   store_dtype, quantize_upload, flat_opt, device, dtype,
-                  summary_noise) -> FleetHandle:
-    """One launch: the members' blocks to the device, normalization,
-    training and the summary, with the given draws."""
+                  summary_noise, warm_compile) -> FleetHandle:
+    """One launch: the members' blocks to the device (or the warm pattern),
+    normalization, the training program and the summary, with the given
+    draws."""
     full_fp32(device)
-    n_batches = Xm.shape[1] // batch_size
+    T, n_pad = Xm.shape[:2]
+    n_batches = n_pad // batch_size
 
     # the data, once onto the device
     def put(X):
         return torch.from_numpy(np.asarray(X, np.float32)).to(device)
 
-    if quantize_upload:
-        blocks, staged = [], []
+    if warm_compile:
+        reps = n_pad // batch_size
+        rng = np.random.default_rng(0)
+        tile = lambda t: t[None].repeat(T, reps, 1, 1)  # noqa: E731
+        if quantize_upload:
+            pats = [rng.integers(0, 65536, (batch_size,) + X.shape[2:]).astype(np.uint16)
+                    for X in (Xm, Xl)]
+            Xm_d, Xl_d = (dequantize_u16(tile(codes_to_tensor(p, device)),
+                                         torch.full((T, 1, 1, p.shape[2]), -1.0,
+                                                    device=device),
+                                         torch.full((T, 1, 1, p.shape[2]),
+                                                    2.0 / 65535.0, device=device))
+                          for p in pats)
+        else:
+            pats = [rng.standard_normal((batch_size,) + X.shape[2:]).astype(np.float32)
+                    for X in (Xm, Xl)]
+            Xm_d, Xl_d = (tile(put(p)) for p in pats)
+    elif quantize_upload:
+        blocks = []
         for X in (Xm, Xl):
             codes, lo, scale = quantize_u16(X)
-            staged.append(codes)
             blocks.append(dequantize_u16(codes_to_tensor(codes, device),
                                          put(lo), put(scale)))
         Xm_d, Xl_d = blocks
     else:
         Xm_d, Xl_d = put(Xm), put(Xl)
-        staged = [np.asarray(Xm, np.float32), np.asarray(Xl, np.float32)]
     n_d = torch.from_numpy(np.asarray(n_real, np.int64)).to(device)
-    staged.append(np.asarray(n_real, np.int32))
+    # the staged arguments: the raw blocks (uint16 codes with the uint16
+    # upload), the row counts and, with a summary, sham and the subject index
+    up = "uint16" if quantize_upload else "float32"
+    specs = [ArgSpec(tuple(Xm.shape), up), ArgSpec(tuple(Xl.shape), up),
+             ArgSpec((T,), "int32")]
     if summary_spec is not None:
-        staged += [np.asarray(summary_spec[0], np.float32),
-                   np.asarray(summary_spec[1], np.int32)]
-    FLEET_LAUNCH_LEDGER.append(("fleet_train", tuple(
-        ArgSpec(tuple(a.shape), str(a.dtype)) for a in staged)))
+        specs += [ArgSpec(tuple(np.shape(summary_spec[0])), "float32"),
+                  ArgSpec(tuple(np.shape(summary_spec[1])), "int32")]
+    FLEET_LAUNCH_LEDGER.append(("fleet_train", tuple(specs)))
     norm_stats = None
     if normalize_on_device:
         Xm_d, Xl_d, norm_stats = vdata.normalize_on_device(Xm_d, Xl_d, n_d)
@@ -440,13 +617,12 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
 
     state = FleetState.from_state_dicts(draws["state_dicts"], lay, dtype,
                                         store_dtype, device)
-    opt = (FlatLowmemOptimizer if flat_opt else LowmemOptimizer)(
-        state, lr, weight_decay, grad_clip, salts=draws["salts"])
-
+    program = fleet_program(lay, T, n_pad, epochs, batch_size, lr, weight_decay,
+                            grad_clip, store_dtype, compute_dtype, flat_opt, device,
+                            dtype)
     with record_function("fleet_train"):
-        hist = train_fleet(state, opt, Xm_d, Xl_d, n_d, draws["perms"].to(device),
-                           draws["noise"].to(device, dtype), epochs, batch_size,
-                           compute_dtype)
+        hist = program.run(state, draws["salts"], Xm_d, Xl_d, n_d, draws["perms"],
+                           draws["noise"])
     summary = None
     if summary_spec is not None:
         sham_T, subj_idx_T, n_seg, norm_seed = summary_spec

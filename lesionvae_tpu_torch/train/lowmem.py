@@ -226,7 +226,7 @@ class LowmemOptimizer:
                        col(bc1), col(bc2), col(finite))
         self._adam(st.affine, self.mu_a, self.nu_a, g_a, col(g_norm), col(bc1),
                    col(bc2), col(finite))
-        self.count = torch.where(finite, count_inc, self.count)
+        self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
 class FlatLowmemOptimizer(LowmemOptimizer):

@@ -15,14 +15,23 @@ Every permutation and every reparameterisation draw of the run is made up
 front from one CPU generator seeded with ``seed`` and moved to the device
 once, so a ``cuda`` and a ``cpu`` run with the same seed see the same
 numbers; tests inject the JAX package's own draws (``perms=``, ``noise=``).
-The loop never waits for the device: losses, the finite check and the
+The run never waits for the device: losses, the finite check and the
 epoch sums stay on it until the history is read at the end.
+
+The run is one device program (``TrainProgram``, the counterpart of the JAX
+package's ``_train_program``): every tensor an epoch touches lives in the
+program's buffers, the epoch body reads its permutation, noise and KLD
+weight through a device epoch counter, and on ``cuda`` each epoch is one
+replay of a captured CUDA graph (``train.program``).  ``train_loop`` is the
+same arithmetic as a Python loop of eager launches: the data-parallel steps
+(``axis``), with a collective in every step, run it, and it is the
+reference the graph is held against.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -31,7 +40,8 @@ import torch
 from ..models.elbo import elbo
 from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
-from ..utils.precision import full_fp32
+from ..utils.precision import full_fp32, math_mode
+from .program import EpochGraph, ProgramCache
 
 log = get_logger("train")
 
@@ -124,7 +134,7 @@ class ClipDecayAdam:
         self.flat.copy_(torch.where(finite, self.flat + u, self.flat))
         self.mu.copy_(torch.where(finite, m2, self.mu))
         self.nu.copy_(torch.where(finite, v2, self.nu))
-        self.count = torch.where(finite, count_inc, self.count)
+        self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
 def betas(epochs: int):
@@ -135,8 +145,9 @@ def betas(epochs: int):
 
 
 def train_step(module: LesionConditionedVAE, opt: ClipDecayAdam, xb_m, xb_l,
-               mask, eps, beta: float, axis=None) -> torch.Tensor:
-    """One batch: train-mode forward (advances BN running stats), ELBO,
+               mask, eps, beta, axis=None) -> torch.Tensor:
+    """One batch: train-mode forward (advances BN running stats), ELBO with
+    the KLD weight ``beta`` (a float or a 0-dim tensor),
     gradients, and the update unless the loss is not finite.  Returns
     [loss*n, recon*n, kld*n, n] for the real rows n, zeroed for a skipped
     batch (NaN times zero stays NaN, as in the JAX program).
@@ -180,14 +191,14 @@ def draw_run(n: int, n_pad: int, epochs: int, batch_size: int, latent: int,
     return perms, noise
 
 
-def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
-                 Xl: torch.Tensor, n: int, perms: torch.Tensor,
-                 noise: torch.Tensor, epochs: int, batch_size: int, lr: float,
-                 weight_decay: float, grad_clip: float, axis=None) -> np.ndarray:
-    """Train ``module`` in place on padded device tensors (n_pad, L, C)
-    whose first ``n`` rows are real.  Returns the (epochs, 4) history
-    [loss, recon, kld, beta].  ``axis``: this rank trains its block of each
-    batch's rows (``train_step``)."""
+def train_loop(module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
+               n: int, perms: torch.Tensor, noise: torch.Tensor, epochs: int,
+               batch_size: int, lr: float, weight_decay: float, grad_clip: float,
+               axis=None) -> np.ndarray:
+    """``train_module`` as a Python loop of eager launches, epoch by epoch:
+    the form of the data-parallel steps (``axis``: this rank trains its
+    block of each batch's rows, ``train_step``), and the reference the
+    program is held against (the same operations in the same order)."""
     n_pad = Xm.shape[0]
     n_batches = n_pad // batch_size
     opt = ClipDecayAdam(module, lr, weight_decay, grad_clip)
@@ -195,7 +206,7 @@ def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
     noise = noise.to(Xm.device, Xm.dtype)
     beta_t = torch.tensor(betas(epochs), dtype=Xm.dtype, device=Xm.device)
     hist = []
-    for ep, beta in enumerate(betas(epochs)):
+    for ep in range(epochs):
         perm = perms[ep]
         Xm_ep, Xl_ep = Xm[perm], Xl[perm]
         mask_ep = (perm < n).to(Xm.dtype)
@@ -208,11 +219,145 @@ def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
                 sl = slice(sl.start + own.start, sl.start + own.stop)
                 eps = eps[own]
             sums = sums + train_step(module, opt, Xm_ep[sl], Xl_ep[sl],
-                                     mask_ep[sl], eps, beta, axis)
+                                     mask_ep[sl], eps, beta_t[ep], axis)
         seen = sums[3]
         avg = torch.where(seen > 0, sums[:3] / seen, torch.nan)
         hist.append(torch.cat([avg, beta_t[ep:ep + 1]]))
     return torch.stack(hist).cpu().numpy()
+
+
+class TrainProgram:
+    """A whole training run of one static configuration as one device
+    program: the counterpart of lesionvae_tpu/train/trainer.py:127-207.
+
+    Buffers: a module of the configuration whose parameters are views of
+    its ``ClipDecayAdam``'s flat buffer (with ``mu``, ``nu``, ``count``),
+    its BatchNorm statistics, the padded data ``Xm`` / ``Xl``, the run's
+    permutations and noise, the KLD weights ``beta_t``, the (epochs, 4)
+    history and the epoch counter ``ep``.  ``epoch`` is the body of one
+    epoch: the ``n_batches`` steps of ``train_step`` unrolled, the epoch's
+    permutation, noise, KLD weight and history row taken through ``ep``,
+    which it advances.  ``run`` copies a module and a run's inputs in,
+    runs the epochs (one graph replay each on ``cuda``) and copies the
+    trained module out."""
+
+    def __init__(self, n: int, n_pad: int, hyper: Tuple[Tuple[str, int], ...],
+                 compute_dtype: Optional[torch.dtype], epochs: int,
+                 batch_size: int, lr: float, weight_decay: float, grad_clip: float,
+                 device: torch.device, dtype: torch.dtype):
+        self.n, self.epochs, self.batch_size = n, epochs, batch_size
+        self.n_batches = n_pad // batch_size
+        h = dict(hyper)
+        with torch.device("meta"):      # no draw: the weights are copied in
+            module = LesionConditionedVAE(**h, compute_dtype=compute_dtype)
+        self.module = module.to_empty(device=device).to(dtype)
+        self.opt = ClipDecayAdam(self.module, lr, weight_decay, grad_clip)
+        self.stats = list(self.module.buffers())
+        new = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+        self.Xm = new(n_pad, h["seq_len"], h["micro_ch"])
+        self.Xl = new(n_pad, h["seq_len"], h["lesion_ch"])
+        self.perms = new(epochs, n_pad, dt=torch.int64)
+        self.noise = new(epochs, self.n_batches, batch_size, h["latent"])
+        self.beta_t = torch.tensor(betas(epochs), dtype=dtype, device=device)
+        self.hist = new(epochs, 4)
+        self.ep = new(1, dt=torch.int64)
+        self.graph = EpochGraph(self.epoch, self.state(), device)
+
+    def state(self) -> List[torch.Tensor]:
+        """The tensors an epoch carries to the next."""
+        o = self.opt
+        return [o.flat, o.mu, o.nu, o.count, *self.stats, self.hist, self.ep]
+
+    def buffers(self) -> List[torch.Tensor]:
+        """Every tensor the body reads or writes."""
+        return self.state() + [self.Xm, self.Xl, self.perms, self.noise, self.beta_t]
+
+    def epoch(self) -> None:
+        B = self.batch_size
+        perm = self.perms.index_select(0, self.ep)[0]
+        Xm_ep = self.Xm.index_select(0, perm)
+        Xl_ep = self.Xl.index_select(0, perm)
+        mask_ep = (perm < self.n).to(self.Xm.dtype)
+        noise = self.noise.index_select(0, self.ep)[0]
+        beta = self.beta_t.index_select(0, self.ep)
+        sums = self.Xm.new_zeros(4)
+        for b in range(self.n_batches):
+            sl = slice(b * B, (b + 1) * B)
+            sums = sums + train_step(self.module, self.opt, Xm_ep[sl], Xl_ep[sl],
+                                     mask_ep[sl], noise[b], beta[0])
+        seen = sums[3]
+        avg = torch.where(seen > 0, sums[:3] / seen, torch.nan)
+        self.hist.index_copy_(0, self.ep, torch.cat([avg, beta])[None])
+        self.ep.add_(1)
+
+    @torch.no_grad()
+    def load(self, module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
+             perms: torch.Tensor, noise: torch.Tensor) -> None:
+        """A run's start: ``module``'s weights and statistics, zero moments
+        and step count, epoch 0, and the run's data and draws."""
+        for dst, src in zip(self.opt.params + self.stats,
+                            list(module.parameters()) + list(module.buffers())):
+            dst.copy_(src)
+        for t in (self.opt.mu, self.opt.nu, self.opt.count, self.hist, self.ep):
+            t.zero_()
+        for dst, src in ((self.Xm, Xm), (self.Xl, Xl), (self.perms, perms),
+                         (self.noise, noise)):
+            dst.copy_(src)
+
+    def run(self, module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
+            perms: torch.Tensor, noise: torch.Tensor) -> np.ndarray:
+        """Train ``module`` in place; returns the (epochs, 4) history."""
+        self.load(module, Xm, Xl, perms, noise)
+        self.graph.run(self.epochs)
+        with torch.no_grad():
+            for dst, src in zip(list(module.parameters()) + list(module.buffers()),
+                                self.opt.params + self.stats):
+                dst.copy_(src)
+        # a copy: on the CPU .numpy() would share the program's buffer
+        return self.hist.cpu().numpy().copy()
+
+    def free(self) -> None:
+        self.graph.free()
+
+
+#: the trainer's programs by static configuration, as lru_cache(maxsize=16)
+#: holds the JAX package's
+PROGRAMS = ProgramCache(16)
+
+
+def train_program(n: int, n_pad: int, module: LesionConditionedVAE, epochs: int,
+                  batch_size: int, lr: float, weight_decay: float, grad_clip: float,
+                  device, dtype: torch.dtype) -> TrainProgram:
+    """The cached program of this configuration (``module`` gives the
+    widths and the compute dtype)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    hyper = tuple(sorted(module.hyperparameters().items()))
+    key = (n, n_pad, hyper, module.compute_dtype, epochs, batch_size, lr,
+           weight_decay, grad_clip, device, dtype, math_mode())
+    return PROGRAMS.get(key, lambda: TrainProgram(
+        n, n_pad, hyper, module.compute_dtype, epochs, batch_size, lr, weight_decay,
+        grad_clip, device, dtype))
+
+
+def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
+                 Xl: torch.Tensor, n: int, perms: torch.Tensor,
+                 noise: torch.Tensor, epochs: int, batch_size: int, lr: float,
+                 weight_decay: float, grad_clip: float, axis=None) -> np.ndarray:
+    """Train ``module`` in place on padded device tensors (n_pad, L, C)
+    whose first ``n`` rows are real.  Returns the (epochs, 4) history
+    [loss, recon, kld, beta].  The run is the cached ``TrainProgram`` of its
+    configuration: one graph replay an epoch on ``cuda``.  ``axis``: this
+    rank trains its block of each batch's rows with a collective every
+    step, which a graph cannot hold over gloo: ``train_loop``."""
+    if axis is not None:
+        return train_loop(module, Xm, Xl, n, perms, noise, epochs, batch_size, lr,
+                          weight_decay, grad_clip, axis)
+    program = train_program(n, Xm.shape[0], module, epochs, batch_size, lr,
+                            weight_decay, grad_clip, Xm.device, Xm.dtype)
+    return program.run(module, Xm, Xl, perms.to(Xm.device),
+                       noise.to(Xm.device, Xm.dtype))
 
 
 def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,

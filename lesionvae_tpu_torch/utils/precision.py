@@ -16,3 +16,11 @@ def full_fp32(device) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+
+
+def math_mode() -> tuple:
+    """The float32 math modes of cuBLAS and cuDNN now in force.  A captured
+    CUDA graph keeps the mode it was captured under, so a cached program is
+    keyed by it too (train/program.py)."""
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
