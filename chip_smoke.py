@@ -42,6 +42,13 @@ Phases; any failure exits non-zero before the result line is printed:
      plain version (NaN for NaN; the differing elements of every case are
      printed), the verdict columns (valid, eigen_ok, the two inf gates)
      equal in every row, and the same bits on repeated calls;
+   - the fleet's masked BatchNorm + ReLU (four kernels: statistics, apply,
+     gradient sums, gradient), at the seven layers' shapes of the cohort
+     path's step (64 members x batch 64 x L x C), float32 and bf16,
+     training with pad rows, an all-pad member and a NaN member, and eval:
+     y, mean, var, the running statistics, dx, dweight and dbias bit-equal
+     to the plain version (NaN for NaN; the sums have one fixed order), and
+     a second call the same bits;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -70,8 +77,9 @@ Phases; any failure exits non-zero before the result line is printed:
       tracts (37 subjects x 4 timepoints, 925 rows a member), the
       ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
       trained as one program, 40 epochs = 600 fleet steps, each one launch
-      of the stochastic-rounding Adam kernel) and ``score-cohort`` over the
-      saved members; then, at full width and small depth, the float32 fleet
+      of the stochastic-rounding Adam kernel and 35 of the masked BatchNorm
+      kernels, five for each of the seven layers) and ``score-cohort`` over
+      the saved members (the apply kernel alone: eval); then, at full width and small depth, the float32 fleet
       held against the CPU (normalization, a 1-epoch history, the normative
       summary, serving), one member of the fleet against the same member
       trained alone on the card, and a uint16-upload and a bf16-compute run;
@@ -121,7 +129,8 @@ Phases; any failure exits non-zero before the result line is printed:
       the larger of that reading and ALONE_TOL / ALONE_MOVE; (b) host ms,
       device ms, kernels and host launch calls a step of both forms
       (``benchmarks/vae_step_profile.py --route bmm|graph``): the single
-      VAE, 4 float32 members, 64 bf16-storage members; (c) the fleet's SR
+      VAE, 4 float32 members, 64 bf16-storage members (and their graph with
+      bf16 compute), the fleet's with device ms by layer; (c) the fleet's SR
       Adam launches counted at each replay; (d) ``warm_compile``: a fleet
       launch (one capture) and then the real launch with no new capture,
       and the geometry kernel launched at every chunk shape of 3c's plan
@@ -132,7 +141,10 @@ Phases; any failure exits non-zero before the result line is printed:
    the bound that counts the instructions the card must issue, as radius,
    SR Adam and the geometry kernel have one too; the geometry kernel at the
    path's largest chunk, 32,768 x 64, in both modes, and summed over the
-   stage's launches).
+   stage's launches; the masked BatchNorm kernels each over the seven
+   layers of one 64-member step and the seven layers' forward and
+   backward, float32 and bf16, beside the plain version and, as a
+   yardstick the port never calls, ``F.batch_norm`` + ReLU unmasked).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -231,7 +243,7 @@ def fail(msg: str) -> None:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
-    from lesionvae_tpu_torch.ops import geometry, radius, resident_adam, sr_adam
+    from lesionvae_tpu_torch.ops import geometry, masked_bn, radius, resident_adam, sr_adam
 
     from lesionvae_tpu_torch.train import program
 
@@ -239,7 +251,16 @@ def reset_launches() -> None:
     resident_adam.resident_adam.launches = 0
     sr_adam.sr_adam_step.launches = 0
     geometry.streamline_metrics_stacked.launches = 0
+    for wrapper in masked_bn.WRAPPERS:
+        wrapper.launches = 0
     program.reset_counts()
+
+
+def masked_bn_launches() -> dict:
+    """Launches of each masked BatchNorm kernel since the last reset."""
+    from lesionvae_tpu_torch.ops import masked_bn
+
+    return {w.__name__: w.launches for w in masked_bn.WRAPPERS}
 
 
 def graph_counts() -> str:
@@ -838,6 +859,88 @@ def geometry_errors() -> float:
     return worst
 
 
+# ---------------------------------------------------------------- masked BatchNorm + ReLU
+# the fleet step's seven BatchNorm + ReLU layers at the cohort path's shape:
+# 64 members x batch 64 x (L, C) of utils/cost_model.bn_layers; inputs, runs
+# and timings from benchmarks/masked_bn_timing.py
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ, NaN for NaN (payloads aside); -1 for a
+    shape or dtype mismatch."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    ai, bi = a.contiguous().view(ints), b.contiguous().view(ints)
+    return int(((na != nb) | (~na & (ai != bi))).sum())
+
+
+def masked_bn_errors() -> float:
+    """The four kernels against their plain versions at the seven layers'
+    shapes, float32 and bf16, training (pad rows, an all-pad member, a NaN
+    member) and eval: every output (y, the statistics, dx, dweight, dbias)
+    bit-equal, NaN for NaN, and a second call the same bits.  Returns the
+    largest |kernel - plain| (0 when bit-equal)."""
+    from lesionvae_tpu_torch.benchmarks.masked_bn_timing import OUTPUTS, bn_case, bn_run
+    from lesionvae_tpu_torch.utils.cost_model import bn_layers
+
+    cases, worst = 0, 0.0
+    for i, (name, (L, C)) in enumerate(bn_layers().items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            for training in (True, False):
+                case = bn_case(L, C, dtype, 100 + i, training)
+                got, want = bn_run(case, training, True), bn_run(case, training, False)
+                again = bn_run(case, training, True)
+                torch.cuda.synchronize()
+                where = f"{name} (64 x 64 x {L} x {C}) {dtype} training={training}"
+                for out, g, w, a in zip(OUTPUTS, got, want, again):
+                    differ = bits_differ(g, w)
+                    if differ:
+                        fail(f"masked BatchNorm kernel vs plain at {where}: {out}: "
+                             f"{differ} elements differ")
+                    if bits_differ(g, a):
+                        fail(f"masked BatchNorm kernel at {where}: {out}: two calls "
+                             "differ")
+                    ok = ~torch.isnan(w)
+                    worst = max(worst, float((g.float() - w.float())[ok].abs().max()))
+                y, dx = got[0], got[5]
+                nan_channel = y[2, ..., C // 3] if training else y[2, 5, L // 2, C // 3]
+                if not torch.isnan(nan_channel).all() or (
+                        training and not torch.isnan(dx[2, ..., C // 3]).all()):
+                    fail(f"masked BatchNorm at {where}: the NaN did not stay NaN")
+                if training and (got[1][1].any() or got[2][1].any()):
+                    fail(f"masked BatchNorm at {where}: the all-pad member's statistics "
+                         "are not 0 (its count clamps to 1)")
+                cases += 1
+    print(f"[kernels] masked BatchNorm + ReLU vs plain at the seven layers' shapes "
+          f"(64 members x batch 64), float32 and bf16, training with pad rows, an "
+          f"all-pad member and a NaN member, and eval ({cases} cases): y, mean, var, "
+          f"running statistics, dx, dweight, dbias bit-equal (NaN for NaN), a second "
+          f"call the same bits; max abs err {worst:.3e}")
+    return worst
+
+
+def masked_bn_sass_lines() -> None:
+    """One ``[sass]`` line per function of csrc/masked_bn.cu: its
+    instructions by class per element, the whole function counted (a
+    thread's rows are unrolled, so no loop holds the element's work; both
+    branches of a training/eval switch and the chunk-combining loop count
+    whether taken or not) over the elements a thread takes."""
+    from lesionvae_tpu_torch.ops import cuda_build
+    from lesionvae_tpu_torch.ops.masked_bn import ELEMENTS_A_THREAD as per_thread
+
+    for fn, code in cuda_build.sass_functions(cuda_build.sass("masked_bn")).items():
+        counts = {c: 0 for c in cuda_build.SASS_CLASSES}
+        for _addr, op, _full, _operands in code:
+            counts[cuda_build.sass_class(op)] += 1
+        m = re.search(r"\d+([a-z_]+_kernel)", fn)
+        kind = "bf16" if "bfloat16" in fn else "f32"
+        per = {k: round(v / per_thread, 3) for k, v in counts.items()}
+        per["total"] = round(len(code) / per_thread, 3)
+        print(f"[sass] masked_bn:{m.group(1) if m else fn}<{kind}> per element (whole "
+              f"function of {len(code)} instructions, {per_thread} elements a thread): "
+              + json.dumps(per))
+
+
 # ---------------------------------------------------------------- the path
 LENIENT_COLS = (
     ["subject_id", "timepoint", "original_volume_mm3", "brain_volume_mm3",
@@ -1294,10 +1397,10 @@ COHORT_NPZ_KEYS = ["magnitude", "subj_ids", "group_labels", "norm_mean",
                    "norm_std", "subj_profile", "subj_order"]
 
 
-def check_cohort_cli(root: Path, cfg, common) -> int:
+def check_cohort_cli(root: Path, cfg, common) -> tuple:
     """``vae-cohort`` (bf16 storage, 64 members, 40 epochs) then
     ``score-cohort`` through the CLI on cuda; returns the SR Adam kernel's
-    launches on that path."""
+    launches on that path and the masked BatchNorm kernels' by stage."""
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
@@ -1317,6 +1420,7 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sr_adam.sr_adam_step.launches
+    bn = {"vae-cohort": masked_bn_launches()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     spans = profiling.report()
     if rc != 0:
@@ -1328,6 +1432,15 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
     if launches != COHORT_STEPS + warm_up or captures > 1 or replays != VAE_EPOCHS:
         fail(f"vae-cohort with bf16 storage launched the SR Adam kernel {launches} "
              f"times in {COHORT_STEPS} fleet steps, {graph_counts()}")
+    # seven BatchNorm layers a step, two statistics launches and one of each
+    # other kernel a layer; the apply kernel again in every eval forward of
+    # the normative summary
+    steps = COHORT_STEPS + warm_up
+    want = {"bn_stats": 14 * steps, "bn_grad_sums": 7 * steps, "bn_grad_apply": 7 * steps}
+    got = bn["vae-cohort"]
+    if any(got[k] != v for k, v in want.items()) or got["bn_apply"] <= 7 * steps:
+        fail(f"vae-cohort launched the masked BatchNorm kernels {got} times in {steps} "
+             f"fleet steps (want {want} and more than {7 * steps} applies)")
     out = root / "results" / "vae_cohort"
     members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
     for tract, tp in members:
@@ -1351,12 +1464,14 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
           f"({COHORT_STEPS / spans['vae_cohort.train']:.2f} fleet steps/s, upload, "
           f"normalization and summary included); stage {wall:.2f}s; kernel "
           f"launches sr_adam {launches} ({COHORT_STEPS} in {replays} epoch replays, "
-          f"{warm_up} in the epoch run before the capture), radius "
+          f"{warm_up} in the epoch run before the capture), masked BatchNorm "
+          f"{json.dumps(bn['vae-cohort'])}, radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()}; max_memory_allocated {peak_gb:.2f} GB")
     print("[path] vae-cohort spans on cuda (s): " + json.dumps(spans))
 
     profiling.reset()
+    reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["score-cohort", *common])
     torch.cuda.synchronize()
@@ -1368,9 +1483,15 @@ def check_cohort_cli(root: Path, cfg, common) -> int:
             or not np.isfinite(served[["mean", "std", "max"]].to_numpy()).all()
             or served.groupby(["tract", "timepoint"]).ngroups != len(members)):
         fail(f"cohort_scores.csv: {len(served)} rows, columns {list(served.columns)}")
+    bn["score-cohort"] = masked_bn_launches()
+    if bn["score-cohort"]["bn_apply"] <= 0 or any(
+            v for k, v in bn["score-cohort"].items() if k != "bn_apply"):
+        fail(f"score-cohort launched the masked BatchNorm kernels {bn['score-cohort']} "
+             "times: the eval forward applies only")
     print(f"[path] score-cohort stage on cuda: {len(served)} rows = {len(members)} "
-          f"members x 37 subjects in {time.perf_counter() - t0:.2f}s")
-    return launches
+          f"members x 37 subjects in {time.perf_counter() - t0:.2f}s; masked BatchNorm "
+          f"{json.dumps(bn['score-cohort'])}")
+    return launches, bn
 
 
 def check_cohort_against_cpu(root: Path, cfg) -> None:
@@ -2261,13 +2382,15 @@ def check_programs(cohort_root: Path, cfg) -> dict:
             ("fleet64_bf16_eager", lambda: prof.main_fleet(64, "bf16", "f32",
                                                            PROFILE_STEPS["fleet"], "bmm")),
             ("fleet64_bf16_graph", lambda: prof.main_fleet(64, "bf16", "f32",
-                                                           PROFILE_STEPS["fleet"], "graph"))):
+                                                           PROFILE_STEPS["fleet"], "graph")),
+            ("fleet64_bf16_compute_graph", lambda: prof.main_fleet(
+                64, "bf16", "bf16", PROFILE_STEPS["fleet"], "graph"))):
         r = fn()
         steps_read[label] = {k: r[k] for k in (
             "host_ms_per_step", "device_ms_per_step", "device_busy_share",
             "kernel_launches_per_step", "host_launch_calls_per_step", "steps")
             if k in r} | {k: r[k] for k in ("graph_captures", "graph_replays",
-                                            "peak_device_gb") if k in r}
+                                            "peak_device_gb", "layer_ms_per_step") if k in r}
         torch.cuda.empty_cache()
     out["per_step"] = steps_read
     print(f"[programs] per step, eager against graph: {json.dumps(steps_read)}")
@@ -2336,9 +2459,10 @@ def start_cohort(root: Path, cfg, pool, profiles: bool):
             for group, sids in cfg.subjects_by_group().items() for sid in sids]
 
 
-def run_vae_paths(root: Path, cfg) -> int:
+def run_vae_paths(root: Path, cfg) -> tuple:
     """Paths 3d and 3e over the profiles cohort under ``root``; returns the
-    SR Adam kernel's launches on the cohort path."""
+    SR Adam kernel's launches on the cohort path and the masked BatchNorm
+    kernels' by stage."""
     check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
@@ -2380,9 +2504,10 @@ def main(argv=None) -> int:
         t_cohort = time.perf_counter()
         writers = start_cohort(cohort_root, cfg, pool, profiles=not args.skip_vae)
         t0 = time.perf_counter()
-        built = cuda_build.build(["radius", "resident_adam", "sr_adam", "geometry"])
+        built = cuda_build.build(cuda_build.SOURCES)
         print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
         sass_lines()
+        masked_bn_sass_lines()
 
         # 2. kernels against their plain versions
         shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
@@ -2402,6 +2527,7 @@ def main(argv=None) -> int:
         resident_worst = resident_errors()
         sr_worst = sr_adam_errors()
         geo_worst = geometry_errors()
+        bn_worst = masked_bn_errors()
         for w in writers:
             w.result()
         pool.shutdown()
@@ -2435,13 +2561,13 @@ def main(argv=None) -> int:
             shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
         probe, probe_launches = check_probe()
         geo = check_geometry(cohort_root, cfg)
-        sr_launches = 0
+        sr_launches, bn_launches = 0, {}
         all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
             print("[path] vae, score, vae-cohort, score-cohort and all paths skipped "
                   "(--skip-vae)")
         else:
-            sr_launches = run_vae_paths(cohort_root, cfg)
+            sr_launches, bn_launches = run_vae_paths(cohort_root, cfg)
             all_phase = check_all(
                 cohort_root, cohort_root / "results" / "vae_cohort",
                 cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
@@ -2475,6 +2601,15 @@ def main(argv=None) -> int:
     gt = geometry_timings(geo["chunks"])
     print("[kernels] geometry at the path's largest chunk and over the stage's "
           "launches: " + json.dumps(gt))
+    # the fleet step's seven BatchNorm + ReLU layers, float32 and bf16
+    # activations
+    from lesionvae_tpu_torch.benchmarks import masked_bn_timing
+
+    bn_t = {"f32": masked_bn_timing.timings(torch.float32),
+            "bf16": masked_bn_timing.timings(torch.bfloat16)}
+    print("[kernels] masked BatchNorm + ReLU over the seven layers of a 64-member fleet "
+          f"step (ms; bounds by ops.masked_bn.bound_ms): {json.dumps(bn_t)}; {card}")
+    bn_f32 = bn_t["f32"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "radius", "route": "cuda",
@@ -2514,7 +2649,21 @@ def main(argv=None) -> int:
         "library_ms": None, "shape": [gt["S"], gt["P"]],
         "u16_ms": gt["u16_ms"], "u16_issue_bound_ms": gt["u16_issue_bound_ms"],
         "stage_ms": gt["stage_ms"], "stage_bound_ms": gt["stage_bound_ms"],
-        "stage_issue_bound_ms": gt["stage_issue_bound_ms"]}]}))
+        "stage_issue_bound_ms": gt["stage_issue_bound_ms"]}, {
+        "name": "masked_bn", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/masked_bn.cu",
+        "replaces": "lesionvae_tpu/models/layers.py:41 + nn.relu in the vmapped fleet step "
+                    "lesionvae_tpu/train/batched.py:241 (XLA fusion, no Pallas kernel)",
+        "launches": sum(sum(v.values()) for v in bn_launches.values()),
+        "launches_by_path": bn_launches, "max_abs_err": bn_worst,
+        "ms": bn_f32["ms"], "plain_ms": bn_f32["plain_ms"], "bound_ms": bn_f32["bound_ms"],
+        "bound_by": bn_f32["bound_by"], "issue_bound_ms": bn_f32["issue_bound_ms"],
+        "library_ms": bn_f32["library_ms"],
+        "per_kernel_ms": {k: bn_f32[f"{k}_ms"] for k in (
+            "stats", "apply", "apply_eval", "grad_sums", "grad_apply", "forward",
+            "backward")},
+        "bf16": {k: bn_t["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "issue_bound_ms", "library_ms")}}]}))
     print(f"[time] chip_smoke.py wall {time.perf_counter() - t_script:.1f}s; {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

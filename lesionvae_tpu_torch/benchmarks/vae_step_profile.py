@@ -42,14 +42,29 @@ steps read are rounded up to whole epochs, and the first epoch of the
 warm-up holds the capture.  ``bmm`` (the default) is the step as a Python
 call of eager launches, as ``train_loop`` / ``train_fleet`` run it.
 
+With ``--fleet`` the profiled steps also read the step's device time by
+layer: ``models.fleet.LAYER_RANGES`` names a ``record_function`` range
+after each layer of ``fleet_forward`` (conv, bn_relu, pool, resize, dense)
+and each phase of ``fleet_step`` (loss, backward, optimizer), and every
+device event (kernel, copy, memset) is given the range that was open when
+the host launched it; ``other`` is the rest (the batch gather, the step's
+bookkeeping).  A graph replay carries no ranges, so ``--route graph`` first
+profiles one eager run of the program's epoch body and gives each replayed
+event the range of the eager event at its place in the epoch (matched by
+name).  One ``[layers]`` line prints device ms a step by range.
+
 One JSON line closes the output.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
+import os
+import tempfile
 import time
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,15 +92,101 @@ HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
                      "cudaMemsetAsync"}
 
 
+# the ranges of models.fleet.layer_range, in the order of the [layers] line
+LAYER_KINDS = ("conv", "bn_relu", "pool", "resize", "dense", "loss", "backward",
+               "optimizer")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def trace_events(prof) -> list:
+    """The Chrome trace events of a finished ``torch.profiler`` profile."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def _complete(events, cats) -> list:
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in cats]
+
+
+def _correlation(e):
+    return (e.get("args") or {}).get("correlation")
+
+
+def device_sequence(events) -> List[dict]:
+    """The device events (kernels, copies, memsets) in the order they ran."""
+    return sorted(_complete(events, DEVICE_CATS), key=lambda e: float(e["ts"]))
+
+
+def launch_kinds(events) -> Dict[int, str]:
+    """{correlation id: layer kind} of every host launch made inside a
+    ``layer:<kind>`` range.  A range is matched by time, not thread: the
+    backward's launches come from autograd's device thread while the
+    calling thread holds ``layer:backward``.  The layer ranges do not nest."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"][6:])
+                   for e in _complete(events, ("user_annotation",))
+                   if e["name"].startswith("layer:"))
+    starts = [s[0] for s in spans]
+    out = {}
+    for e in _complete(events, LAUNCH_CATS):
+        i = bisect.bisect_right(starts, float(e["ts"])) - 1
+        if i >= 0 and float(e["ts"]) <= spans[i][1] and _correlation(e) is not None:
+            out[_correlation(e)] = spans[i][2]
+    return out
+
+
+def layer_ms(labelled: Sequence[Tuple[str, float]], steps: int) -> Dict[str, float]:
+    """Device ms a step by kind from (kind, duration in us) pairs."""
+    out = {k: 0.0 for k in LAYER_KINDS + ("other",)}
+    for kind, dur in labelled:
+        out[kind if kind in out else "other"] += dur / 1e3 / steps
+    out["total"] = sum(out.values())
+    return out
+
+
+def eager_layers(events) -> List[Tuple[str, str, float]]:
+    """(kernel name, kind, duration us) of each device event of an eager
+    profile, in the order they ran."""
+    kinds = launch_kinds(events)
+    return [(e["name"], kinds.get(_correlation(e), "other"), float(e["dur"]))
+            for e in device_sequence(events)]
+
+
+def replay_layers(eager: Sequence[Tuple[str, str, float]], events,
+                  window: int = 64) -> List[Tuple[str, str, float]]:
+    """Each device event of the graph replays in ``events`` given the kind of
+    the event at its place in ``eager`` (one eager run of the captured
+    body): the replayed events are walked in order against the eager ones,
+    epoch after epoch, matched by name; an event whose name does not come
+    within ``window`` places of the walk is ``other`` (an eager launch
+    between replays)."""
+    out, j, n = [], 0, len(eager)
+    for e in device_sequence(events):
+        k = next((k for k in range(j, j + min(window, n)) if eager[k % n][0] == e["name"]),
+                 None)
+        if k is None:
+            out.append((e["name"], "other", float(e["dur"])))
+        else:
+            j = k + 1
+            out.append((e["name"], eager[k % n][1], float(e["dur"])))
+    return out
+
+
 def _steps(module, opt, data, n: int) -> None:
     xm, xl, mask, eps = data
     for _ in range(n):
         train_step(module, opt, xm, xl, mask, eps, 1.0)
 
 
-def _readout(run, steps: int, warm: int) -> dict:
+def _readout(run, steps: int, warm: int, layers=None) -> dict:
     """``run(n)`` takes n steps; times ``steps`` of them on the host's clock
-    and again under the profiler."""
+    and again under the profiler.  ``layers(trace events)``, if given,
+    labels the profiled device events by layer (``eager_layers``,
+    ``replay_layers``): the profiled run opens the layer ranges and the
+    readout gains ``layer_ms_per_step``."""
     from torch.profiler import ProfilerActivity, profile
 
     run(warm)   # warm-up: cuDNN heuristics, allocator
@@ -95,13 +196,22 @@ def _readout(run, steps: int, warm: int) -> dict:
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / steps
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    fleet.LAYER_RANGES = layers is not None
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        fleet.LAYER_RANGES = False
+    by_layer = {} if layers is None else {
+        "layer_ms_per_step": layer_ms([(k, d) for _n, k, d in layers(trace_events(prof))],
+                                      steps)}
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the layer ranges' device spans are not kernels
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("layer:")]
     calls = sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS)
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
@@ -114,7 +224,7 @@ def _readout(run, steps: int, warm: int) -> dict:
             "host_launch_calls_per_step": calls / steps,
             "top_kernels": [{"name": e.key[:90], "calls_per_step": e.count / steps,
                              "us_per_step": e.self_device_time_total / steps}
-                            for e in top]}
+                            for e in top], **by_layer}
 
 
 def _data(device, members: int = 0):
@@ -132,7 +242,23 @@ def _epochs_of(steps: int) -> int:
     return -(-steps // EPOCH_STEPS)
 
 
-def _graph_readout(program, steps: int, warm: int) -> dict:
+def _epoch_layers(program) -> List[Tuple[str, str, float]]:
+    """``eager_layers`` of one eager run of a fleet program's epoch body
+    (it advances the program's state; the epoch counter is reset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fleet.LAYER_RANGES = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            program.epoch()
+            torch.cuda.synchronize()
+    finally:
+        fleet.LAYER_RANGES = False
+    program.ep.zero_()
+    return eager_layers(trace_events(prof))
+
+
+def _graph_readout(program, steps: int, warm: int, layers=None) -> dict:
     """``_readout`` of a loaded program: ``run(n)`` replays n / EPOCH_STEPS
     epochs from epoch 0 (the draws of ``_epochs_of(steps)`` epochs)."""
     def run(n: int) -> None:
@@ -140,7 +266,8 @@ def _graph_readout(program, steps: int, warm: int) -> dict:
         program.graph.run(n // EPOCH_STEPS)
 
     tprog.reset_counts()
-    out = _readout(run, EPOCH_STEPS * _epochs_of(steps), EPOCH_STEPS * _epochs_of(warm))
+    out = _readout(run, EPOCH_STEPS * _epochs_of(steps), EPOCH_STEPS * _epochs_of(warm),
+                   layers)
     out.update(epoch_steps=EPOCH_STEPS, graph_captures=tprog.COUNTS["captures"],
                graph_replays=tprog.COUNTS["replays"])
     return out
@@ -247,7 +374,10 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
         program.load(state, torch.arange(members), Xm, Xl,
                      torch.full((members,), n_pad, device=device),
                      *_draws(device, epochs, members))
-        out = _graph_readout(program, steps, warm)
+        eager = _epoch_layers(program)
+        sr_adam.sr_adam_step.launches = 0   # count only the epochs of ``calls``
+        out = _graph_readout(program, steps, warm,
+                             lambda events: replay_layers(eager, events))
         # steps replayed, and the epoch run eagerly before each capture
         calls = EPOCH_STEPS * (_epochs_of(warm) + 2 * _epochs_of(steps)
                                + out["graph_captures"])
@@ -255,8 +385,7 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
                    params_per_member=lay.n_weights + lay.n_affine,
                    sr_adam_launches_per_step=sr_adam.sr_adam_step.launches / calls,
                    peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print(json.dumps(out))
-        return out
+        return _print_fleet(out)
     opt = LowmemOptimizer(state, 2e-4, 1e-3, 2.0)
     xm, xl, mask, eps = _data(device, members)
 
@@ -273,7 +402,7 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
     if route == "grouped":
         fleet._conv = conv_grouped
     try:
-        out = _readout(run, steps, warm)
+        out = _readout(run, steps, warm, eager_layers)
     finally:
         fleet._conv = conv
     out.update(members=members, store=store, dtype=dtype, route=route,
@@ -281,6 +410,15 @@ def main_fleet(members: int = 64, store: str = "f32", dtype: str = "f32",
                sr_adam_launches_per_step=sr_adam.sr_adam_step.launches
                / (warm + 2 * steps),
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return _print_fleet(out)
+
+
+def _print_fleet(out: dict) -> dict:
+    """The ``[layers]`` line, then the readout's JSON line."""
+    print(f"[layers] {out['members']} members, store {out['store']}, compute "
+          f"{out['dtype']}, route {out['route']}: device ms a step by range "
+          + json.dumps({k: round(v, 4) for k, v in out["layer_ms_per_step"].items()})
+          + f"; {out['device']}")
     print(json.dumps(out))
     return out
 

@@ -16,8 +16,9 @@ convolution is the k shifted copies of its input times the member's kernel
 as a matrix, one batched product for all members (cuDNN runs a grouped
 convolution as one set of kernels a group, so its launches grow with T;
 ``benchmarks/vae_step_profile.py --fleet --route`` reads that form and the
-``torch.func.vmap`` one beside this), the dense layers are batched products too, BatchNorm is
-``masked_batch_norm_fleet``.  Every member sees only
+``torch.func.vmap`` one beside this), the dense layers are batched products too, BatchNorm and
+the ReLU after it are ``ops.masked_bn.masked_bn_relu`` (on the card the
+hand-written kernels of ``ops/csrc/masked_bn.cu``).  Every member sees only
 its own rows, mask, noise and statistics; the new running statistics are
 returned, not written.  Stored bfloat16 leaves are widened in the forward,
 so autograd's backward of that cast hands the optimizer gradients rounded
@@ -26,20 +27,34 @@ to bfloat16, as ``jax.grad`` does for a bfloat16 leaf.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from ..ops.masked_bn import masked_bn_relu
 from ..ops.sr_adam import alloc_rows
-from .layers import (KERNEL, PADDING, MaskedBatchNorm, interp_matrix,
-                     masked_batch_norm_fleet)
+from .layers import KERNEL, PADDING, MaskedBatchNorm, interp_matrix
 from .lesion_vae import LesionConditionedVAE
 
 ENCODERS = {"micro": ("micro_c1", "micro_b1", "micro_c2", "micro_b2",
                       "micro_c3", "micro_b3"),
             "lesion": ("lesion_c1", "lesion_b1", "lesion_c2", "lesion_b2")}
+
+
+#: name a ``record_function`` range ``layer:<kind>`` after each layer of
+#: ``fleet_forward`` and each phase of ``train.batched.fleet_step`` (conv,
+#: bn_relu, pool, resize, dense; loss, backward, optimizer), so a profile
+#: of a step reads its device time by layer
+#: (``benchmarks/vae_step_profile.py --fleet`` sets it); off, no range is opened
+LAYER_RANGES = False
+
+
+def layer_range(kind: str):
+    return record_function(f"layer:{kind}") if LAYER_RANGES else contextlib.nullcontext()
 
 
 class Layout:
@@ -183,7 +198,8 @@ def _flat(h: torch.Tensor) -> torch.Tensor:
 
 
 class _Norm:
-    """BatchNorm of the stacked model; collects the new statistics."""
+    """BatchNorm and the ReLU after it of the stacked model
+    (``ops.masked_bn.masked_bn_relu``); collects the new statistics."""
 
     def __init__(self, leaves, stats, mask, training: bool):
         self.leaves, self.stats, self.mask = leaves, stats, mask
@@ -191,7 +207,7 @@ class _Norm:
         self.new_stats: Dict[str, torch.Tensor] = {}
 
     def __call__(self, h: torch.Tensor, name: str) -> torch.Tensor:
-        y, mean, var = masked_batch_norm_fleet(
+        y, mean, var = masked_bn_relu(
             h, self.mask, self.leaves[f"{name}.weight"], self.leaves[f"{name}.bias"],
             self.stats[f"{name}.running_mean"], self.stats[f"{name}.running_var"],
             self.training)
@@ -215,25 +231,45 @@ def fleet_forward(lay: Layout, leaves: Mapping[str, torch.Tensor],
     if cd is not None:
         x_micro, x_lesion = x_micro.to(cd), x_lesion.to(cd)
 
+    def conv(h, name, transpose=False):
+        with layer_range("conv"):
+            return _conv(h, leaves, name, cd, transpose)
+
+    def bn_relu(h, name):
+        with layer_range("bn_relu"):
+            return norm(h, name)
+
+    def pool(h):
+        with layer_range("pool"):
+            return _pool(h)
+
+    def resize(h, size):
+        with layer_range("resize"):
+            return _resize(h, size)
+
+    def dense(x, name):
+        with layer_range("dense"):
+            return _dense(x, leaves, name, cd)
+
     flat = {}
     for path, h in (("micro", x_micro), ("lesion", x_lesion)):
         names = ENCODERS[path]
-        for conv, bn in zip(names[0::2], names[1::2]):
-            h = _pool(F.relu(norm(_conv(h, leaves, conv, cd), bn)))
+        for c, bn in zip(names[0::2], names[1::2]):
+            h = pool(bn_relu(conv(h, c), bn))
         flat[path] = _flat(h)
     h_lesion = flat["lesion"]
     hcat = torch.cat([flat["micro"], h_lesion], dim=2)
-    mu = _dense(hcat, leaves, "fc_mu", cd)
-    logv = _dense(hcat, leaves, "fc_logv", cd)
+    mu = dense(hcat, "fc_mu")
+    logv = dense(hcat, "fc_logv")
     z = mu + eps.to(mu.dtype) * torch.exp(0.5 * logv)
 
-    h = _dense(torch.cat([z, h_lesion], dim=2), leaves, "fc_dec", cd)
+    h = dense(torch.cat([z, h_lesion], dim=2), "fc_dec")
     T, N = h.shape[:2]
     h = h.view(T, N, 128, L // 8).transpose(2, 3)       # channel-major rows
-    up = lambda t: _resize(t, 2 * t.shape[2])  # noqa: E731
-    h = up(F.relu(norm(_conv(h, leaves, "dec_t1", cd, True), "dec_b1")))
-    h = up(F.relu(norm(_conv(h, leaves, "dec_t2", cd, True), "dec_b2")))
-    h = up(_conv(h, leaves, "dec_t3", cd, True))
+    up = lambda t: resize(t, 2 * t.shape[2])  # noqa: E731
+    h = up(bn_relu(conv(h, "dec_t1", True), "dec_b1"))
+    h = up(bn_relu(conv(h, "dec_t2", True), "dec_b2"))
+    h = up(conv(h, "dec_t3", True))
     if h.shape[2] != L:
-        h = _resize(h, L)
+        h = resize(h, L)
     return h, mu, logv, norm.new_stats

@@ -32,10 +32,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one source beyond NVCC_FLAGS.  geometry: no contraction of a
-# product and a sum into one FMA, so that every operation rounds once, as
-# the plain PyTorch version's separate kernels round
-EXTRA_FLAGS = {"geometry": ["--fmad=false"]}
+#: every source of csrc/, as ``build`` takes them: what a run on the card
+#: builds up front (chip_smoke.py)
+SOURCES = ("radius", "resident_adam", "sr_adam", "geometry", "masked_bn")
+# flags of one source beyond NVCC_FLAGS.  geometry, masked_bn: no
+# contraction of a product and a sum into one FMA, so that every operation
+# rounds once, as the plain PyTorch version's separate kernels round
+EXTRA_FLAGS = {"geometry": ["--fmad=false"], "masked_bn": ["--fmad=false"]}
 
 
 def flags(name: str) -> List[str]:

@@ -54,7 +54,7 @@ import torch
 from torch.profiler import record_function
 
 from ..models.elbo import elbo_fleet
-from ..models.fleet import FleetState, fleet_forward, layout
+from ..models.fleet import FleetState, fleet_forward, layer_range, layout
 from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
@@ -129,17 +129,20 @@ def fleet_step(state: FleetState, opt: LowmemOptimizer, xb_m: torch.Tensor,
         state.layout, leaves, state.stats, xb_m, xb_l, mask, eps, True,
         compute_dtype)
     wide = xb_m.dtype
-    xh = torch.nan_to_num(xh.to(wide), nan=0.0)
-    mu = torch.nan_to_num(mu.to(wide), nan=0.0)
-    logv = torch.nan_to_num(logv.to(wide), nan=0.0)
-    loss, recon, kld = elbo_fleet(xh, xb_m, mu, logv, beta, mask)
+    with layer_range("loss"):
+        xh = torch.nan_to_num(xh.to(wide), nan=0.0)
+        mu = torch.nan_to_num(mu.to(wide), nan=0.0)
+        logv = torch.nan_to_num(logv.to(wide), nan=0.0)
+        loss, recon, kld = elbo_fleet(xh, xb_m, mu, logv, beta, mask)
     names = list(leaves)
-    grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in names])
-    finite = torch.isfinite(loss)
-    with torch.no_grad():
-        for k, v in new_stats.items():
-            state.stats[k].copy_(v)
-    opt.step(dict(zip(names, grads)), finite)
+    with layer_range("backward"):
+        grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in names])
+    with layer_range("optimizer"):
+        finite = torch.isfinite(loss)
+        with torch.no_grad():
+            for k, v in new_stats.items():
+                state.stats[k].copy_(v)
+        opt.step(dict(zip(names, grads)), finite)
     n_valid = mask.to(wide).sum(dim=1)
     loss, recon, kld = loss.detach(), recon.detach(), kld.detach()
     return finite.to(wide)[:, None] * torch.stack(

@@ -126,6 +126,36 @@ def fleet_step_cost(T: int, seq_len: int = 100, micro_ch: int = 13,
             "peak_tflops": peak_tflops(compute_dtype)}
 
 
+def bn_layers(seq_len: int = 100) -> dict:
+    """The fleet step's seven masked BatchNorm layers, each followed by a
+    ReLU (models/fleet.py::fleet_forward): {name: (length, channels)}."""
+    L = seq_len
+    return {"micro_b1": (L, 64), "micro_b2": (L // 2, 128), "micro_b3": (L // 4, 128),
+            "lesion_b1": (L, 32), "lesion_b2": (L // 2, 64),
+            "dec_b1": (L // 8, 64), "dec_b2": (2 * (L // 8), 64)}
+
+
+def masked_bn_bytes(T: int, batch_size: int = 64, seq_len: int = 100,
+                    compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """The least device-memory bytes of the step's masked BatchNorm + ReLU
+    layers (``ops/csrc/masked_bn.cu``) for T members: forward x read and y
+    written once, backward x and dy read and dx written once, in the
+    activations' dtype (bfloat16 with ``compute_dtype`` bf16, else float32);
+    the (T, C) statistics and parameters are left out.  By layer and summed,
+    with the time those bytes take at the card's bandwidth."""
+    item = 2 if compute_dtype == torch.bfloat16 else 4
+    layers = {}
+    for name, (L, C) in bn_layers(seq_len).items():
+        n = T * batch_size * L * C
+        layers[name] = {"length": L, "channels": C, "elements": n,
+                        "forward_bytes": 2 * item * n, "backward_bytes": 3 * item * n}
+    out = {key: sum(v[key] for v in layers.values())
+           for key in ("elements", "forward_bytes", "backward_bytes")}
+    rate = H100_HBM_GBPS * 1e9
+    return {"layers": layers, **out, "forward_ms": 1e3 * out["forward_bytes"] / rate,
+            "backward_ms": 1e3 * out["backward_bytes"] / rate}
+
+
 def traffic_summary(cost: dict, n_steps: int, device_s: float) -> dict:
     """Achieved bandwidth and MFU against the H100's peaks."""
     gb = cost["bytes_total"] * n_steps / 1e9

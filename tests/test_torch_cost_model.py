@@ -37,6 +37,38 @@ def test_fleet_step_cost_matches_jax(store, compute, T, dims):
     assert got["peak_tflops"] == (989.0 if compute == "bf16" else 67.0)
 
 
+# the seven BatchNorm + ReLU layers of the step at full width (seq 100), L x C
+BN_SHAPES = {"micro_b1": (100, 64), "micro_b2": (50, 128), "micro_b3": (25, 128),
+             "lesion_b1": (100, 32), "lesion_b2": (50, 64), "dec_b1": (12, 64),
+             "dec_b2": (24, 64)}
+
+
+@pytest.mark.parametrize("compute,item", [("f32", 4), ("bf16", 2)])
+def test_masked_bn_bytes_of_the_seven_layers(compute, item):
+    """64 members x batch 64: 101.2 M elements, 404.8 MB a pass in float32;
+    the forward moves two passes (x in, y out), the backward three (x and
+    dy in, dx out): 0.242 and 0.362 ms at 3.35 TB/s in float32."""
+    from lesionvae_tpu_torch.models.fleet import layout
+
+    got = tcm.masked_bn_bytes(64, compute_dtype=DTYPES[compute][0])
+    assert {k: (v["length"], v["channels"]) for k, v in got["layers"].items()} == BN_SHAPES
+    for name, (L, C) in BN_SHAPES.items():
+        n = 64 * 64 * L * C
+        assert got["layers"][name]["elements"] == n
+        assert got["layers"][name]["forward_bytes"] == 2 * item * n
+        assert got["layers"][name]["backward_bytes"] == 3 * item * n
+    # the widths are the model's own
+    stats = layout(100, 13, 3, 10).stats
+    assert all(stats[f"{k}.running_mean"] == (C,) for k, (_L, C) in BN_SHAPES.items())
+    assert got["elements"] == 101_187_584
+    assert got["forward_bytes"] == 2 * item * 101_187_584
+    assert got["backward_bytes"] == 3 * item * 101_187_584
+    assert got["forward_ms"] == pytest.approx(2 * item * 101_187_584 / 3.35e9)
+    if compute == "f32":
+        assert got["forward_ms"] == pytest.approx(0.2416, abs=1e-4)
+        assert got["backward_ms"] == pytest.approx(0.3624, abs=1e-4)
+
+
 def test_traffic_summary_uses_the_h100_peaks():
     cost = tcm.fleet_step_cost(T=64)
     s = tcm.traffic_summary(cost, n_steps=600, device_s=7.0)

@@ -18,6 +18,7 @@ from lesionvae_tpu_torch.models import layers as tlayers
 from lesionvae_tpu_torch.models.convert import from_jax_params
 from lesionvae_tpu_torch.models.fleet import FleetState, layout
 from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
+from lesionvae_tpu_torch.ops import masked_bn
 from lesionvae_tpu_torch.train import batched as tb
 from lesionvae_tpu_torch.train import data as tdata
 from lesionvae_tpu_torch.train import trainer as ttrainer
@@ -360,9 +361,10 @@ def test_folded_batch_norm_bf16_matches_jax(masked):
         bn.bias.copy_(torch.from_numpy(beta))
     bn.train()
     got = bn(xt.transpose(1, 2), mt).transpose(1, 2)
-    stacked, rm, rv = tlayers.masked_batch_norm_fleet(
-        xt[None], None if mt is None else mt[None], bn.weight.detach()[None],
-        bn.bias.detach()[None], torch.zeros(1, C), torch.ones(1, C), True)
+    mean, var, rm, rv = masked_bn.stats_plain(
+        xt[None], None if mt is None else mt[None], torch.zeros(1, C), torch.ones(1, C))
+    stacked = masked_bn.batch_norm_plain(xt[None], mean, var, bn.weight.detach()[None],
+                                         bn.bias.detach()[None])
     for y in (got, stacked[0]):
         assert y.dtype == torch.bfloat16
         y = y.float().detach().numpy()
