@@ -42,12 +42,17 @@ Phases; any failure exits non-zero before the result line is printed:
      plain version (NaN for NaN; the differing elements of every case are
      printed), the verdict columns (valid, eigen_ok, the two inf gates)
      equal in every row, and the same bits on repeated calls;
-   - the fleet's masked BatchNorm + ReLU (four kernels: statistics, apply,
-     gradient sums, gradient), at the seven layers' shapes of the cohort
-     path's step (64 members x batch 64 x L x C), float32 and bf16,
-     training with pad rows, an all-pad member and a NaN member, and eval:
-     y, mean, var, the running statistics, dx, dweight and dbias bit-equal
-     to the plain version (NaN for NaN; the sums have one fixed order), and
+   - the fleet's masked BatchNorm + ReLU (the cluster route: one forward
+     and one backward kernel a layer; the general route: statistics, apply,
+     gradient sums, gradient; eval: apply), at the seven layers' shapes of
+     the cohort path's step (64 members x batch 64 x L x C: the cluster
+     route), at the cluster route's edges (a cluster of 16 blocks, batch
+     128 x 64 x 64, and of one, batch 8 x 37 x 8) and at shapes that take
+     the general route (batch 512, and a row
+     of 5 channels, no whole 16-byte vector), float32 and bf16, training
+     with pad rows, an all-pad member and a NaN member, and eval: y, mean,
+     var, the running statistics, dx, dweight and dbias bit-equal to the
+     plain version (NaN for NaN; the sums have one fixed order), and
      a second call the same bits;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
@@ -77,8 +82,9 @@ Phases; any failure exits non-zero before the result line is printed:
       tracts (37 subjects x 4 timepoints, 925 rows a member), the
       ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
       trained as one program, 40 epochs = 600 fleet steps, each one launch
-      of the stochastic-rounding Adam kernel and 35 of the masked BatchNorm
-      kernels, five for each of the seven layers) and ``score-cohort`` over
+      of the stochastic-rounding Adam kernel and 14 of the masked BatchNorm
+      kernels, the cluster route's forward and backward for each of the
+      seven layers) and ``score-cohort`` over
       the saved members (the apply kernel alone: eval); then, at full width and small depth, the float32 fleet
       held against the CPU (normalization, a 1-epoch history, the normative
       summary, serving), one member of the fleet against the same member
@@ -143,8 +149,9 @@ Phases; any failure exits non-zero before the result line is printed:
    path's largest chunk, 32,768 x 64, in both modes, and summed over the
    stage's launches; the masked BatchNorm kernels each over the seven
    layers of one 64-member step and the seven layers' forward and
-   backward, float32 and bf16, beside the plain version and, as a
-   yardstick the port never calls, ``F.batch_norm`` + ReLU unmasked).
+   backward by route, float32 and bf16, beside the plain version and, as a
+   yardstick the port never calls, ``F.batch_norm`` + ReLU unmasked,
+   replayed from a CUDA graph).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -874,24 +881,45 @@ def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(((na != nb) | (~na & (ai != bi))).sum())
 
 
+# shapes (members, batch, L, C) that only the general route takes: a member
+# too long for one cluster, and a row that is no whole 16-byte vector
+GENERAL_BN_SHAPES = ((4, 512, 100, 64), (3, 8, 37, 5))
+# the cluster route's edges: a member of 8,192 rows (the largest cluster,
+# MAX_CLUSTER blocks) and one of 296 rows (a cluster of one block)
+EDGE_BN_SHAPES = ((4, 128, 64, 64), (3, 8, 37, 8))
+
+
 def masked_bn_errors() -> float:
-    """The four kernels against their plain versions at the seven layers'
-    shapes, float32 and bf16, training (pad rows, an all-pad member, a NaN
-    member) and eval: every output (y, the statistics, dx, dweight, dbias)
-    bit-equal, NaN for NaN, and a second call the same bits.  Returns the
-    largest |kernel - plain| (0 when bit-equal)."""
+    """The kernels against their plain versions, float32 and bf16,
+    training (pad rows, an all-pad member, a NaN member) and eval, by
+    ``route``: at the seven layers' shapes and EDGE_BN_SHAPES (the cluster
+    route) and at GENERAL_BN_SHAPES (the general route): every output (y,
+    the statistics, dx, dweight, dbias) bit-equal, NaN for NaN, and a second
+    call the same bits.  Returns the largest |kernel - plain| (0 when bit-equal)."""
     from lesionvae_tpu_torch.benchmarks.masked_bn_timing import OUTPUTS, bn_case, bn_run
+    from lesionvae_tpu_torch.ops import masked_bn
     from lesionvae_tpu_torch.utils.cost_model import bn_layers
 
-    cases, worst = 0, 0.0
-    for i, (name, (L, C)) in enumerate(bn_layers().items()):
+    shapes = [(name, (64, 64, L, C)) for name, (L, C) in bn_layers().items()]
+    shapes += [("edge", shape) for shape in EDGE_BN_SHAPES]
+    shapes += [("general", shape) for shape in GENERAL_BN_SHAPES]
+    edges = sorted(masked_bn.cluster_size(N, L) for _T, N, L, _C in EDGE_BN_SHAPES)
+    if edges != [1, masked_bn.MAX_CLUSTER]:
+        fail(f"masked BatchNorm edge shapes take clusters of {edges} blocks")
+    cases, worst, routes = 0, 0.0, {}
+    for i, (name, (T, N, L, C)) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
+            path = masked_bn.route(N, L, C, dtype, True)
+            if (name == "general") != (path == "general"):
+                fail(f"masked BatchNorm route of {name} {(T, N, L, C)} {dtype}: {path}")
+            routes[path] = routes.get(path, 0) + 2
             for training in (True, False):
-                case = bn_case(L, C, dtype, 100 + i, training)
+                case = bn_case(L, C, dtype, 100 + i, training, members=T, batch=N)
                 got, want = bn_run(case, training, True), bn_run(case, training, False)
                 again = bn_run(case, training, True)
                 torch.cuda.synchronize()
-                where = f"{name} (64 x 64 x {L} x {C}) {dtype} training={training}"
+                where = (f"{name} ({T} x {N} x {L} x {C}) {dtype} training={training} "
+                         f"{path} route")
                 for out, g, w, a in zip(OUTPUTS, got, want, again):
                     differ = bits_differ(g, w)
                     if differ:
@@ -903,7 +931,8 @@ def masked_bn_errors() -> float:
                     ok = ~torch.isnan(w)
                     worst = max(worst, float((g.float() - w.float())[ok].abs().max()))
                 y, dx = got[0], got[5]
-                nan_channel = y[2, ..., C // 3] if training else y[2, 5, L // 2, C // 3]
+                nan_channel = (y[2, ..., C // 3] if training
+                               else y[2, min(5, N - 1), L // 2, C // 3])
                 if not torch.isnan(nan_channel).all() or (
                         training and not torch.isnan(dx[2, ..., C // 3]).all()):
                     fail(f"masked BatchNorm at {where}: the NaN did not stay NaN")
@@ -912,33 +941,54 @@ def masked_bn_errors() -> float:
                          "are not 0 (its count clamps to 1)")
                 cases += 1
     print(f"[kernels] masked BatchNorm + ReLU vs plain at the seven layers' shapes "
-          f"(64 members x batch 64), float32 and bf16, training with pad rows, an "
-          f"all-pad member and a NaN member, and eval ({cases} cases): y, mean, var, "
-          f"running statistics, dx, dweight, dbias bit-equal (NaN for NaN), a second "
-          f"call the same bits; max abs err {worst:.3e}")
+          f"(64 members x batch 64), at the cluster route's edges "
+          f"{[list(s) for s in EDGE_BN_SHAPES]} (clusters of {edges} blocks) and at "
+          f"{[list(s) for s in GENERAL_BN_SHAPES]}, "
+          f"float32 and bf16, training with pad rows, an all-pad member and a NaN member, "
+          f"and eval ({cases} cases; training layers by route {json.dumps(routes)}, their "
+          f"eval forward the apply kernel, their backward the same route): y, mean, var, "
+          f"running statistics, dx, dweight, dbias bit-equal (NaN for NaN), a second call "
+          f"the same bits; max abs err {worst:.3e}")
     return worst
 
 
 def masked_bn_sass_lines() -> None:
     """One ``[sass]`` line per function of csrc/masked_bn.cu: its
     instructions by class per element, the whole function counted (a
-    thread's rows are unrolled, so no loop holds the element's work; both
-    branches of a training/eval switch and the chunk-combining loop count
-    whether taken or not) over the elements a thread takes."""
+    thread's rows are unrolled, so no loop holds the element's work; the
+    full-chunk and ragged-chunk instances, both branches of a training/eval
+    switch and the chunk-combining loop count whether taken or not) over
+    the elements a thread takes (its 8 rows of one vector: 4 float32 or 8
+    bf16 channels, or one channel where the template's width is 1)."""
     from lesionvae_tpu_torch.ops import cuda_build
-    from lesionvae_tpu_torch.ops.masked_bn import ELEMENTS_A_THREAD as per_thread
+    from lesionvae_tpu_torch.ops.masked_bn import ELEMENTS_A_THREAD, ROWS_A_LANE
 
     for fn, code in cuda_build.sass_functions(cuda_build.sass("masked_bn")).items():
         counts = {c: 0 for c in cuda_build.SASS_CLASSES}
         for _addr, op, _full, _operands in code:
             counts[cuda_build.sass_class(op)] += 1
-        m = re.search(r"\d+([a-z_]+_kernel)", fn)
+        m = re.search(r"\d+([a-z_]+_kernel)I(?:f|13__nv_bfloat16)(?:Li(\d+)E)?", fn)
         kind = "bf16" if "bfloat16" in fn else "f32"
+        width = m.group(2) if m else None
+        per_thread = (ROWS_A_LANE * int(width) if width
+                      else ELEMENTS_A_THREAD[torch.bfloat16 if kind == "bf16" else torch.float32])
         per = {k: round(v / per_thread, 3) for k, v in counts.items()}
         per["total"] = round(len(code) / per_thread, 3)
-        print(f"[sass] masked_bn:{m.group(1) if m else fn}<{kind}> per element (whole "
+        label = f"{kind},{width}" if width else kind
+        print(f"[sass] masked_bn:{m.group(1) if m else fn}<{label}> per element (whole "
               f"function of {len(code)} instructions, {per_thread} elements a thread): "
               + json.dumps(per))
+    # the cluster kernels' residency at the seven layers' cluster sizes and
+    # at the route's edges, one block and MAX_CLUSTER
+    from lesionvae_tpu_torch.ops.masked_bn import MAX_CLUSTER, active_clusters, cluster_size
+    from lesionvae_tpu_torch.utils.cost_model import bn_layers
+
+    sizes = sorted({cluster_size(64, L) for L, _C in bn_layers().values()} | {1, MAX_CLUSTER})
+    held = {f"{name}_{dt}": {q: active_clusters(dtype, backward, q) for q in sizes}
+            for name, backward in (("forward", False), ("backward", True))
+            for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    print("[occupancy] masked_bn cluster kernels: clusters the card holds at once by "
+          f"blocks a cluster (cudaOccupancyMaxActiveClusters): {json.dumps(held)}")
 
 
 # ---------------------------------------------------------------- the path
@@ -1432,15 +1482,21 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     if launches != COHORT_STEPS + warm_up or captures > 1 or replays != VAE_EPOCHS:
         fail(f"vae-cohort with bf16 storage launched the SR Adam kernel {launches} "
              f"times in {COHORT_STEPS} fleet steps, {graph_counts()}")
-    # seven BatchNorm layers a step, two statistics launches and one of each
-    # other kernel a layer; the apply kernel again in every eval forward of
-    # the normative summary
+    # seven BatchNorm layers a step, each on the cluster route: one forward
+    # and one backward launch a layer; the apply kernel only in the eval
+    # forwards of the normative summary
     steps = COHORT_STEPS + warm_up
-    want = {"bn_stats": 14 * steps, "bn_grad_sums": 7 * steps, "bn_grad_apply": 7 * steps}
+    want = {"bn_cluster_forward": 7 * steps, "bn_cluster_backward": 7 * steps,
+            "bn_stats": 0, "bn_grad_sums": 0, "bn_grad_apply": 0}
     got = bn["vae-cohort"]
-    if any(got[k] != v for k, v in want.items()) or got["bn_apply"] <= 7 * steps:
+    if any(got[k] != v for k, v in want.items()) or got["bn_apply"] <= 0:
         fail(f"vae-cohort launched the masked BatchNorm kernels {got} times in {steps} "
-             f"fleet steps (want {want} and more than {7 * steps} applies)")
+             f"fleet steps (want {want} and the summary's applies)")
+    # a training step's launches as counted: every launch but the applies,
+    # and of those the general route's training applies, one a pair of
+    # statistics launches (the others are the summary's eval forwards)
+    bn_a_step = (sum(v for k, v in got.items() if k != "bn_apply")
+                 + got["bn_stats"] // 2) / steps
     out = root / "results" / "vae_cohort"
     members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
     for tract, tp in members:
@@ -1465,7 +1521,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
           f"normalization and summary included); stage {wall:.2f}s; kernel "
           f"launches sr_adam {launches} ({COHORT_STEPS} in {replays} epoch replays, "
           f"{warm_up} in the epoch run before the capture), masked BatchNorm "
-          f"{json.dumps(bn['vae-cohort'])}, radius "
+          f"{json.dumps(bn['vae-cohort'])} ({bn_a_step} a training step), radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()}; max_memory_allocated {peak_gb:.2f} GB")
     print("[path] vae-cohort spans on cuda (s): " + json.dumps(spans))
@@ -1491,7 +1547,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     print(f"[path] score-cohort stage on cuda: {len(served)} rows = {len(members)} "
           f"members x 37 subjects in {time.perf_counter() - t0:.2f}s; masked BatchNorm "
           f"{json.dumps(bn['score-cohort'])}")
-    return launches, bn
+    return launches, bn, bn_a_step
 
 
 def check_cohort_against_cpu(root: Path, cfg) -> None:
@@ -2561,13 +2617,13 @@ def main(argv=None) -> int:
             shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
         probe, probe_launches = check_probe()
         geo = check_geometry(cohort_root, cfg)
-        sr_launches, bn_launches = 0, {}
+        sr_launches, bn_launches, bn_a_step = 0, {}, None
         all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
             print("[path] vae, score, vae-cohort, score-cohort and all paths skipped "
                   "(--skip-vae)")
         else:
-            sr_launches, bn_launches = run_vae_paths(cohort_root, cfg)
+            sr_launches, bn_launches, bn_a_step = run_vae_paths(cohort_root, cfg)
             all_phase = check_all(
                 cohort_root, cohort_root / "results" / "vae_cohort",
                 cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
@@ -2660,10 +2716,12 @@ def main(argv=None) -> int:
         "bound_by": bn_f32["bound_by"], "issue_bound_ms": bn_f32["issue_bound_ms"],
         "library_ms": bn_f32["library_ms"],
         "per_kernel_ms": {k: bn_f32[f"{k}_ms"] for k in (
-            "stats", "apply", "apply_eval", "grad_sums", "grad_apply", "forward",
-            "backward")},
+            "cluster_forward", "cluster_backward", "stats", "apply", "apply_eval",
+            "grad_sums", "grad_apply", "forward", "backward")},
+        "per_route": bn_f32["per_route"], "launches_a_step": bn_a_step,
         "bf16": {k: bn_t["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "issue_bound_ms", "library_ms")}}]}))
+                                               "issue_bound_ms", "library_ms",
+                                               "per_route")}}]}))
     print(f"[time] chip_smoke.py wall {time.perf_counter() - t_script:.1f}s; {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

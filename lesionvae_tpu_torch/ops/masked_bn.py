@@ -14,7 +14,8 @@ or on bfloat16 x the folded ``x * a + b`` with a and b computed in float32
 and applied in bfloat16 (lesionvae_tpu/models/layers.py:41-111; eval mode
 normalises with the running statistics).  The backward is the closed form
 from x and dy alone: with g = dy where the output was kept (``y <= 0 ? 0 :
-dy``, PyTorch's rule for ReLU) and xh = (x - mean) / sd,
+dy``, PyTorch's rule for ReLU) and xh = (x - mean) / sd (bfloat16 x:
+(x - mean) * (1 / sd)),
 
     dbias = sum g,  dweight = sum g*xh     over every row, pad rows too
     dx = (w / sd) * (g - (m / cnt) * (sum g + xh * sum g*xh))    (eval: (w / sd) * g)
@@ -31,9 +32,15 @@ bits.
 
 ``masked_bn_relu`` is the entry point.  On CPU tensors its forward and
 backward compute the plain versions; on CUDA tensors they launch the
-kernels (``bn_stats``, ``bn_apply``, ``bn_grad_sums``, ``bn_grad_apply``,
-each counting its launches) and raise on inputs the kernels do not take.
-There is no other route.
+kernels and raise on inputs the kernels do not take.  ``route`` picks the
+kernels by shape before any launch: a training layer whose rows fit one
+thread-block cluster a (member, channel tile) takes the cluster route, one
+launch forward (``bn_cluster_forward``) and one backward
+(``bn_cluster_backward``); any other training layer the general route,
+two statistics launches and an apply forward (``bn_stats``, ``bn_apply``),
+gradient sums and gradient backward (``bn_grad_sums``, ``bn_grad_apply``);
+eval one apply launch.  Each wrapper counts its launches.  A launch that
+fails raises; no route gives way to another or to the plain version.
 """
 
 from __future__ import annotations
@@ -50,8 +57,13 @@ from .cuda_build import count_launch, load
 
 LANES, ROWS_A_LANE = 32, 8     # csrc/masked_bn.cu: LANES, J (the order of the sums)
 CHUNK = LANES * ROWS_A_LANE    # rows a chunk
-CHANNELS_A_BLOCK = 32          # csrc/masked_bn.cu: CT
-ELEMENTS_A_THREAD = 32         # csrc/masked_bn.cu: J * SLOTS (four lanes of 8 rows)
+VECTOR_BYTES = 16              # csrc/masked_bn.cu: VECTOR_BYTES (a thread's load)
+VECTORS_A_ROW = 4              # csrc/masked_bn.cu: VECTORS (a channel tile's row)
+CHUNKS_A_BLOCK = 2             # csrc/masked_bn.cu: SLOTS
+THREADS = CHUNKS_A_BLOCK * LANES * VECTORS_A_ROW   # csrc/masked_bn.cu: THREADS
+MAX_CLUSTER = 16               # csrc/masked_bn.cu: MAX_CLUSTER (blocks a cluster)
+# elements a thread takes: its ROWS_A_LANE rows of one 16-byte vector
+ELEMENTS_A_THREAD = {torch.float32: ROWS_A_LANE * 4, torch.bfloat16: ROWS_A_LANE * 8}
 MOMENTUM, EPS = 0.1, 1e-5
 # The least instructions an element of each kernel can be written in, one
 # issue slot each (a correctly rounded quotient at 6, as ops/sr_adam.py
@@ -138,11 +150,14 @@ def _normalize(x, mean, var, weight, bias, eps: float):
     ``mean``, ``var``."""
     b4 = lambda t: t[:, None, None, :]  # noqa: E731
     sd = torch.sqrt(var + eps)
-    xh = (x.to(stat_dtype(x)) - b4(mean)) / b4(sd)
     if x.dtype == torch.bfloat16:
+        # bn(x) is the folded affine; xh, for the backward alone, is the
+        # deviation times 1/sd (one product, where float32 divides)
+        xh = (x.float() - b4(mean)) * b4(1.0 / sd)
         a = weight / sd
         b = bias - mean * a
         return xh, x * b4(a.to(x.dtype)) + b4(b.to(x.dtype))
+    xh = (x.to(stat_dtype(x)) - b4(mean)) / b4(sd)
     return xh, (xh * b4(weight) + b4(bias)).to(x.dtype)
 
 
@@ -206,23 +221,74 @@ def masked_bn_relu_backward_plain(x, dy, mask, weight, bias, mean, var, training
     return dx, s2, s1
 
 
+# ------------------------------------------------------------ the route
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def vectored(C: int, dtype: torch.dtype) -> bool:
+    """A row's C channels are a whole number of 16-byte vectors: the
+    kernels load VECTOR_BYTES a thread, else one channel."""
+    return C * _itemsize(dtype) % VECTOR_BYTES == 0
+
+
+def cluster_size(N: int, L: int) -> int:
+    """Blocks of the cluster that holds one (member, channel tile): every
+    chunk of its N*L rows, CHUNKS_A_BLOCK chunks a block."""
+    chunks = -(-N * L // CHUNK)
+    return -(-chunks // CHUNKS_A_BLOCK)
+
+
+def route(N: int, L: int, C: int, dtype: torch.dtype, training: bool) -> str:
+    """The kernels a layer of (T, N, L, C) activations takes, decided from
+    its shape before any launch: ``"apply"`` (eval: one apply launch),
+    ``"cluster"`` (training whose N*L rows fit one cluster of at most
+    MAX_CLUSTER blocks and whose rows are whole 16-byte vectors: one launch
+    forward, one backward) or ``"general"`` (any other training layer: three
+    launches forward, two backward).  The backward of a layer takes its
+    training route whatever the forward's mode."""
+    if not training:
+        return "apply"
+    if vectored(C, dtype) and cluster_size(N, L) <= MAX_CLUSTER:
+        return "cluster"
+    return "general"
+
+
 # ------------------------------------------------------------ the kernels
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The C entry points of csrc/masked_bn.cu, built on first use."""
+    """The C entry points of csrc/masked_bn.cu, built on first use; the
+    cluster kernels' attributes are set once here, before any launch."""
     lib = load("masked_bn")
     P, I, LL, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    sig = {"lesionvae_masked_bn_stats": [P, I, P, P, P, P, I, I, I, I, I, P],
-           "lesionvae_masked_bn_apply": [P, I, P, P, P, P, P, P, LL, P, LL, P, P, P, P,
+    sig = {"lesionvae_masked_bn_init": [],
+           "lesionvae_masked_bn_active_clusters": [I, I, I],
+           "lesionvae_masked_bn_cluster_forward": [P, I, P, P, P, P, P, LL, P, LL, P, P, P, P,
+                                                   I, I, I, I, I, Fl, Fl, Fl, P],
+           "lesionvae_masked_bn_cluster_backward": [P, I, P, P, P, P, P, P, LL, P, LL, P, P,
+                                                    I, I, I, I, I, I, Fl, P],
+           "lesionvae_masked_bn_stats": [P, I, I, P, P, P, P, I, I, I, I, I, P],
+           "lesionvae_masked_bn_apply": [P, I, I, P, P, P, P, P, P, LL, P, LL, P, P, P, P,
                                          I, I, I, I, I, Fl, Fl, Fl, P],
-           "lesionvae_masked_bn_grad_sums": [P, I, P, P, P, P, LL, P, LL, P, P,
+           "lesionvae_masked_bn_grad_sums": [P, I, I, P, P, P, P, LL, P, LL, P, P,
                                              I, I, I, I, Fl, P],
-           "lesionvae_masked_bn_grad_apply": [P, I, P, P, P, P, P, P, LL, P, LL, P, P,
+           "lesionvae_masked_bn_grad_apply": [P, I, I, P, P, P, P, P, P, LL, P, LL, P, P,
                                               P, P, I, I, I, I, I, Fl, P]}
     for name, argtypes in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _raise(lib.lesionvae_masked_bn_init(), "attribute")
     return lib
+
+
+def active_clusters(dtype: torch.dtype, backward: bool, blocks: int) -> int:
+    """Clusters of ``blocks`` blocks of a cluster kernel the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _lib().lesionvae_masked_bn_active_clusters(int(dtype == torch.bfloat16),
+                                                   int(backward), blocks)
+    if n < 0:
+        _raise(-n, "occupancy query")
+    return n
 
 
 def _f32(v: float) -> float:
@@ -243,8 +309,9 @@ def _check(x, mask, weight, bias, running_mean=None, running_var=None) -> None:
         raise ValueError(f"the masked BatchNorm kernels take x as a non-empty contiguous "
                          f"(T, N, L, C), got {tuple(x.shape)} strides {x.stride()}")
     T, N, L, C = x.shape
-    if N * L >= 2 ** 31:
-        raise ValueError(f"{N * L} rows a member: the kernels index rows in 32 bits")
+    if N * L * C >= 2 ** 31:
+        raise ValueError(f"{N * L * C} elements a member: the kernels index a member in "
+                         "32 bits")
     if mask is not None and (mask.dtype != torch.float32 or mask.shape != (T, N)
                              or not mask.is_contiguous() or mask.device != x.device):
         raise ValueError(f"mask: a contiguous ({T}, {N}) float32 tensor on x's device, "
@@ -270,21 +337,83 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on a 16-byte
+    boundary (the kernels' vector loads and cp.async need one)."""
+    return t if t.data_ptr() % VECTOR_BYTES == 0 else t.clone()
+
+
+def _vector(x: torch.Tensor) -> int:
+    return int(vectored(x.shape[3], x.dtype))
+
+
+def _bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def _stats(x: torch.Tensor, n: int = 1):
+    T, C = x.shape[0], x.shape[3]
+    return [torch.empty((T, C), dtype=torch.float32, device=x.device) for _ in range(n)]
+
+
 def _partials(x: torch.Tensor) -> torch.Tensor:
     T, N, L, C = x.shape
     return torch.empty((T, -(-N * L // CHUNK), C), dtype=torch.float32, device=x.device)
 
 
+def _cluster(x: torch.Tensor) -> int:
+    T, N, L, C = x.shape
+    if route(N, L, C, x.dtype, True) != "cluster":
+        raise ValueError(f"(T, N, L, C) = {tuple(x.shape)} {x.dtype} does not take the "
+                         f"cluster route: {cluster_size(N, L)} blocks a cluster (at most "
+                         f"{MAX_CLUSTER}), {C} channels of {_itemsize(x.dtype)} bytes")
+    return cluster_size(N, L)
+
+
+def bn_cluster_forward(x, mask, weight, bias, running_mean, running_var,
+                       momentum: float = MOMENTUM, eps: float = EPS):
+    """One launch of the cluster route's training forward: (y, mean, var,
+    new running mean, new running var)."""
+    T, N, L, C = x.shape
+    blocks = _cluster(x)
+    y = torch.empty_like(x)
+    mean, var, new_rm, new_rv = _stats(x, 4)
+    _raise(_lib().lesionvae_masked_bn_cluster_forward(
+        x.data_ptr(), _bf16(x), y.data_ptr(), _ptr(mask), mean.data_ptr(), var.data_ptr(),
+        weight.data_ptr(), weight.stride(0), bias.data_ptr(), bias.stride(0),
+        running_mean.data_ptr(), running_var.data_ptr(), new_rm.data_ptr(), new_rv.data_ptr(),
+        T, N, L, C, blocks, _f32(eps), _f32(momentum), _f32(1 - momentum), _stream(x)),
+        "cluster forward")
+    count_launch(bn_cluster_forward)
+    return y, mean, var, new_rm, new_rv
+
+
+def bn_cluster_backward(x, dy, mask, mean, var, weight, bias, training: bool,
+                        eps: float = EPS):
+    """One launch of the cluster route's backward: (dx, dweight, dbias)."""
+    T, N, L, C = x.shape
+    blocks = _cluster(x)
+    dx = torch.empty_like(x)
+    dw, db = _stats(x, 2)
+    _raise(_lib().lesionvae_masked_bn_cluster_backward(
+        x.data_ptr(), _bf16(x), dy.data_ptr(), dx.data_ptr(), _ptr(mask), mean.data_ptr(),
+        var.data_ptr(), weight.data_ptr(), weight.stride(0), bias.data_ptr(), bias.stride(0),
+        dw.data_ptr(), db.data_ptr(), T, N, L, C, blocks, int(training), _f32(eps),
+        _stream(x)), "cluster backward")
+    count_launch(bn_cluster_backward)
+    return dx, dw, db
+
+
 def bn_stats(x, mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two launches of the statistics kernel: (mean (T, C), the chunk
-    partials of the squared deviations (T, K, C)) for ``bn_apply``."""
+    """Two launches of the general route's statistics kernel: (mean (T, C),
+    the chunk partials of the squared deviations (T, K, C)) for
+    ``bn_apply``."""
     T, N, L, C = x.shape
     part1, part2 = _partials(x), _partials(x)
-    mean = torch.empty((T, C), dtype=torch.float32, device=x.device)
+    (mean,) = _stats(x)
     fn = _lib().lesionvae_masked_bn_stats
-    bf16 = int(x.dtype == torch.bfloat16)
     for phase, (src, dst) in enumerate(((None, part1), (part1, part2))):
-        _raise(fn(x.data_ptr(), bf16, _ptr(mask), _ptr(src), dst.data_ptr(),
+        _raise(fn(x.data_ptr(), _bf16(x), _vector(x), _ptr(mask), _ptr(src), dst.data_ptr(),
                   mean.data_ptr(), T, N, L, C, phase, _stream(x)), "stats")
         count_launch(bn_stats)
     return mean, part2
@@ -297,13 +426,12 @@ def bn_apply(x, mask, weight, bias, running_mean, running_var, training: bool,
     T, N, L, C = x.shape
     y = torch.empty_like(x)
     if training:
-        var, new_rm, new_rv = (torch.empty((T, C), dtype=torch.float32, device=x.device)
-                               for _ in range(3))
+        var, new_rm, new_rv = _stats(x, 3)
     else:
         mean, var, new_rm, new_rv = running_mean, running_var, running_mean, running_var
     _raise(_lib().lesionvae_masked_bn_apply(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(), _ptr(mask),
-        _ptr(part2), mean.data_ptr(), var.data_ptr(), weight.data_ptr(), weight.stride(0),
+        x.data_ptr(), _bf16(x), _vector(x), y.data_ptr(), _ptr(mask), _ptr(part2),
+        mean.data_ptr(), var.data_ptr(), weight.data_ptr(), weight.stride(0),
         bias.data_ptr(), bias.stride(0), running_mean.data_ptr(), running_var.data_ptr(),
         new_rm.data_ptr(), new_rv.data_ptr(), T, N, L, C, int(training), _f32(eps),
         _f32(momentum), _f32(1 - momentum), _stream(x)), "apply")
@@ -312,28 +440,29 @@ def bn_apply(x, mask, weight, bias, running_mean, running_var, training: bool,
 
 
 def bn_grad_sums(x, dy, mean, var, weight, bias, eps: float = EPS):
-    """One launch of the gradient-sums kernel: the chunk partials of sum g
-    and sum g*xh, each (T, K, C)."""
+    """One launch of the general route's gradient-sums kernel: the chunk
+    partials of sum g and sum g*xh, each (T, K, C)."""
     T, N, L, C = x.shape
     part3, part4 = _partials(x), _partials(x)
     _raise(_lib().lesionvae_masked_bn_grad_sums(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), weight.data_ptr(), weight.stride(0), bias.data_ptr(),
-        bias.stride(0), part3.data_ptr(), part4.data_ptr(), T, N, L, C, _f32(eps),
-        _stream(x)), "gradient sums")
+        x.data_ptr(), _bf16(x), _vector(x), dy.data_ptr(), mean.data_ptr(), var.data_ptr(),
+        weight.data_ptr(), weight.stride(0), bias.data_ptr(), bias.stride(0),
+        part3.data_ptr(), part4.data_ptr(), T, N, L, C, _f32(eps), _stream(x)),
+        "gradient sums")
     count_launch(bn_grad_sums)
     return part3, part4
 
 
 def bn_grad_apply(x, dy, mask, mean, var, weight, bias, part3, part4, training: bool,
                   eps: float = EPS):
-    """One launch of the gradient kernel: (dx, dweight, dbias)."""
+    """One launch of the general route's gradient kernel: (dx, dweight,
+    dbias)."""
     T, N, L, C = x.shape
     dx = torch.empty_like(x)
-    dw, db = (torch.empty((T, C), dtype=torch.float32, device=x.device) for _ in range(2))
+    dw, db = _stats(x, 2)
     _raise(_lib().lesionvae_masked_bn_grad_apply(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), dy.data_ptr(), dx.data_ptr(),
-        _ptr(mask), mean.data_ptr(), var.data_ptr(), weight.data_ptr(), weight.stride(0),
+        x.data_ptr(), _bf16(x), _vector(x), dy.data_ptr(), dx.data_ptr(), _ptr(mask),
+        mean.data_ptr(), var.data_ptr(), weight.data_ptr(), weight.stride(0),
         bias.data_ptr(), bias.stride(0), part3.data_ptr(), part4.data_ptr(),
         dw.data_ptr(), db.data_ptr(), T, N, L, C, int(training), _f32(eps), _stream(x)),
         "gradient")
@@ -343,12 +472,18 @@ def bn_grad_apply(x, dy, mask, mean, var, weight, bias, part3, part4, training: 
 
 def masked_bn_relu_kernel(x, mask, weight, bias, running_mean, running_var,
                           training: bool, momentum: float = MOMENTUM, eps: float = EPS):
-    """``masked_bn_relu_plain`` on the card: three launches in training, one
-    in eval."""
+    """``masked_bn_relu_plain`` on the card by ``route``: one launch on the
+    cluster route, three on the general route, one in eval."""
     _check(x, mask, weight, bias, running_mean, running_var)
+    T, N, L, C = x.shape
+    path = route(N, L, C, x.dtype, training)
+    x = _aligned(x)
     with torch.cuda.device(x.device):
+        if path == "cluster":
+            return bn_cluster_forward(x, mask, weight, bias, running_mean, running_var,
+                                      momentum, eps)
         mean = part2 = None
-        if training:
+        if path == "general":
             mean, part2 = bn_stats(x, mask)
         y, var, new_rm, new_rv = bn_apply(x, mask, weight, bias, running_mean,
                                           running_var, training, mean, part2, momentum,
@@ -358,13 +493,18 @@ def masked_bn_relu_kernel(x, mask, weight, bias, running_mean, running_var,
 
 def masked_bn_relu_backward_kernel(x, dy, mask, weight, bias, mean, var,
                                    training: bool, eps: float = EPS):
-    """``masked_bn_relu_backward_plain`` on the card: two launches."""
+    """``masked_bn_relu_backward_plain`` on the card by the layer's training
+    ``route``: one launch on the cluster route, two on the general route."""
     _check(x, mask, weight, bias, mean, var)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy: {tuple(dy.shape)} {dy.dtype} on {dy.device}, x "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    dy = dy.contiguous()
+    T, N, L, C = x.shape
+    path = route(N, L, C, x.dtype, True)
+    x, dy = _aligned(x), _aligned(dy.contiguous())
     with torch.cuda.device(x.device):
+        if path == "cluster":
+            return bn_cluster_backward(x, dy, mask, mean, var, weight, bias, training, eps)
         part3, part4 = bn_grad_sums(x, dy, mean, var, weight, bias, eps)
         return bn_grad_apply(x, dy, mask, mean, var, weight, bias, part3, part4,
                              training, eps)
@@ -374,7 +514,8 @@ def masked_bn_relu_backward_kernel(x, dy, mask, weight, bias, mean, var,
 # them back to show its path went through the kernels.  A launch recorded
 # into a CUDA graph counts in ``captured`` and joins ``launches`` at every
 # replay (train/program.py)
-WRAPPERS = (bn_stats, bn_apply, bn_grad_sums, bn_grad_apply)
+WRAPPERS = (bn_cluster_forward, bn_cluster_backward, bn_stats, bn_apply, bn_grad_sums,
+            bn_grad_apply)
 for _w in WRAPPERS:
     _w.launches = 0
     _w.captured = 0

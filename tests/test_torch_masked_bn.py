@@ -7,6 +7,9 @@ all-pad member, with a NaN member and in eval mode.  The plain version's
 sums are held to the kernel's order written out element by element, and
 the ``Function`` to ``torch.autograd.gradcheck``."""
 
+import re
+from pathlib import Path
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -216,15 +219,103 @@ def test_the_kernel_route_takes_only_cuda_tensors():
 
 
 def test_the_plain_order_is_the_kernels():
-    """The constants that fix the order of the sums are the source's own."""
-    import re
-    from pathlib import Path
-
+    """The constants that fix the order of the sums, the tile and the
+    vector width are the source's own."""
     src = (Path(masked_bn.__file__).parent / "csrc" / "masked_bn.cu").read_text()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert const["LANES"] == masked_bn.LANES and const["J"] == masked_bn.ROWS_A_LANE
-    assert const["CT"] == masked_bn.CHANNELS_A_BLOCK
-    assert const["J"] * const["LANES"] // const["GROUPS"] == masked_bn.ELEMENTS_A_THREAD
+    assert const["LANES"] * const["J"] == masked_bn.CHUNK
+    assert const["VECTORS"] == masked_bn.VECTORS_A_ROW
+    assert const["SLOTS"] == masked_bn.CHUNKS_A_BLOCK
+    assert const["VECTOR_BYTES"] == masked_bn.VECTOR_BYTES
+    assert const["MAX_CLUSTER"] == masked_bn.MAX_CLUSTER
+    assert const["SLOTS"] * const["LANES"] * const["VECTORS"] == masked_bn.THREADS
+    for dtype, n in masked_bn.ELEMENTS_A_THREAD.items():
+        item = torch.empty((), dtype=dtype).element_size()
+        assert n == const["J"] * const["VECTOR_BYTES"] // item
+
+
+def _thread_map_sum(v: np.ndarray, V: int) -> np.ndarray:
+    """The sum over rows of (R, CT) float32 terms as the kernel's threads
+    take it, thread by thread: a block's 256 threads hold (vector, lane,
+    chunk slot) by the bits of csrc/masked_bn.cu's ``Pos``; each adds its
+    J rows of V channels in turn, skipping rows past R; three shuffle
+    levels (xor 16, 8, 4 of the thread index), the four nodes of lane bits
+    2-4 = 0 as (n0 + n2) + (n1 + n3), then the chunks in order."""
+    R, CT = v.shape
+    K = -(-R // masked_bn.CHUNK)
+    partials = {}
+    for block in range(-(-K // masked_bn.CHUNKS_A_BLOCK)):
+        acc = np.zeros((masked_bn.THREADS, V), np.float32)
+        lane = np.zeros(masked_bn.THREADS, int)
+        for tid in range(masked_bn.THREADS):
+            vec, lo, slot = tid & 3, (tid >> 5) & 3, tid >> 7
+            lane[tid] = ((tid >> 2) & 7) * 4 + lo
+            chunk = block * masked_bn.CHUNKS_A_BLOCK + slot
+            for j in range(masked_bn.ROWS_A_LANE):
+                r = chunk * masked_bn.CHUNK + j * masked_bn.LANES + lane[tid]
+                if r < R:
+                    acc[tid] = acc[tid] + v[r, vec * V:(vec + 1) * V]
+        for o in (16, 8, 4):
+            acc = acc + acc[np.arange(masked_bn.THREADS) ^ o]
+        for slot in range(masked_bn.CHUNKS_A_BLOCK):
+            nodes = {}
+            for tid in range(slot * 128, slot * 128 + 128):
+                if (tid >> 2) & 7 == 0:
+                    nodes.setdefault(lane[tid], np.zeros(CT, np.float32))[
+                        (tid & 3) * V:((tid & 3) + 1) * V] = acc[tid]
+            assert sorted(nodes) == [0, 1, 2, 3]
+            partials[block * masked_bn.CHUNKS_A_BLOCK + slot] = (
+                (nodes[0] + nodes[2]) + (nodes[1] + nodes[3]))
+    total = partials[0]
+    for k in range(1, K):
+        total = total + partials[k]
+    return total
+
+
+@pytest.mark.parametrize("V", [4, 8, 1])
+@pytest.mark.parametrize("R", [1, 255, 256, 257, 296, 600, 1536, 8192])
+def test_the_kernels_thread_map_sums_in_the_plain_order(R, V):
+    """The threads of one (member, channel tile) and their shuffles, at the
+    kernel's vector widths (float32, bf16, one channel), give the plain
+    version's sums bit for bit, on and beside the chunk's edge, over a
+    ragged block pair, and at the rows of the cluster route's edges (one
+    block: 8 x 37 rows; MAX_CLUSTER blocks: 128 x 64)."""
+    rng = np.random.default_rng(R + V)
+    CT = masked_bn.VECTORS_A_ROW * V
+    v = rng.normal(size=(R, CT)) * 10.0 ** rng.integers(-4, 5, size=(R, CT))
+    v = v.astype(np.float32)
+    want = masked_bn.chunk_total(masked_bn.chunk_partials(torch.from_numpy(v[None]))).numpy()
+    assert _thread_map_sum(v, V).tobytes() == want[0].tobytes()
+
+
+def test_the_route_is_chosen_by_shape():
+    """The seven layers of a 64-member step at batch 64 take the cluster
+    route in both dtypes; a batch-512 (100, 64) float32 layer is too long
+    for one cluster, a row of 5 float32 or 12 bf16 channels no whole number
+    of 16-byte vectors, both the general route; eval is one apply.  The
+    cluster sizes the card check holds at the route's edges: 16 blocks at
+    batch 128 x (64, 64), one block at batch 8 x (37, 8)."""
+    from lesionvae_tpu_torch.utils.cost_model import bn_layers
+
+    for L, C in bn_layers().values():
+        for dtype in (torch.float32, torch.bfloat16):
+            assert masked_bn.route(64, L, C, dtype, True) == "cluster"
+            assert masked_bn.route(64, L, C, dtype, False) == "apply"
+            assert masked_bn.cluster_size(64, L) <= masked_bn.MAX_CLUSTER
+    assert masked_bn.route(512, 100, 64, torch.float32, True) == "general"
+    assert masked_bn.route(512, 100, 64, torch.float32, False) == "apply"
+    assert masked_bn.route(8, 37, 5, torch.float32, True) == "general"
+    assert masked_bn.route(8, 37, 12, torch.bfloat16, True) == "general"
+    for dtype in (torch.float32, torch.bfloat16):
+        assert masked_bn.route(128, 64, 64, dtype, True) == "cluster"
+        assert masked_bn.route(8, 37, 8, dtype, True) == "cluster"
+    assert masked_bn.cluster_size(128, 64) == masked_bn.MAX_CLUSTER == 16
+    assert masked_bn.cluster_size(8, 37) == 1
+    # the longest member a cluster holds, and one row more
+    rows = masked_bn.MAX_CLUSTER * masked_bn.CHUNKS_A_BLOCK * masked_bn.CHUNK
+    assert masked_bn.route(1, rows, 16, torch.float32, True) == "cluster"
+    assert masked_bn.route(1, rows + 1, 16, torch.float32, True) == "general"
 
 
 def test_masked_bn_timing_needs_the_card():
