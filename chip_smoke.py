@@ -54,6 +54,16 @@ Phases; any failure exits non-zero before the result line is printed:
      var, the running statistics, dx, dweight and dbias bit-equal to the
      plain version (NaN for NaN; the sums have one fixed order), and
      a second call the same bits;
+   - the optimizer's gradient gather with each member's norm and its
+     float32-storage update (``ops/csrc/adam.cu``), at the paths' shapes:
+     the 36 leaf gradients of a real 64-member full-width step as autograd
+     returns them (float32, and bf16 weight gradients), the single VAE's
+     (one member) and its flat gradient as a one-leaf table; float32 rows of
+     64 x 2,741,153, 64 x 1,088 and 1 x 2,742,241; members over, under and
+     near the clip, a skipping member, NaN and inf gradients: packed rows,
+     sums of squares, norms and p, m, v bit-equal (NaN for NaN), a second
+     call the same bits, with one ``[sass]`` line and the registers of each
+     of its kernel functions;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -77,12 +87,14 @@ Phases; any failure exits non-zero before the result line is printed:
       in float32, and the same three again with TF32 on as a control that
       must exceed every one of those bounds; then the
       ``score`` CLI stage on ``cuda`` serving a saved model, held against a
-      CPU float32 ``score_subjects``;
+      CPU float32 ``score_subjects``; the training must launch the gather and
+      norm and the update once a step;
    e. the cohort fleet at full width: a profiles cohort for the 16 geometry
       tracts (37 subjects x 4 timepoints, 925 rows a member), the
       ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
       trained as one program, 40 epochs = 600 fleet steps, each one launch
-      of the stochastic-rounding Adam kernel and 14 of the masked BatchNorm
+      of the stochastic-rounding Adam kernel, one of the gather and norm,
+      one of the float32 update (the BatchNorm leaves) and 14 of the masked BatchNorm
       kernels, the cluster route's forward and backward for each of the
       seven layers) and ``score-cohort`` over
       the saved members (the apply kernel alone: eval); then, at full width and small depth, the float32 fleet
@@ -92,7 +104,9 @@ Phases; any failure exits non-zero before the result line is printed:
    f. the whole pipeline (``all --with-vae --no-plots --device cuda`` through
       ``cli.main``): geometry (100 streamlines a bundle) -> lesion (2000
       directions over the cohort's 48^3 volumes) -> the float32 fleet (64
-      members x 40 epochs x batch 64) -> classify -> correlate, on the
+      members x 40 epochs x batch 64, a step one launch of the gather and
+      norm and two of the float32 update, no SR Adam) -> classify ->
+      correlate, on the
       cohort of 3c-3e; where scikit-learn is missing (an import check
       decides), ``all`` must refuse before its first stage and the phase
       runs ``geometry``, ``lesion``, ``vae-cohort`` and ``correlate`` in
@@ -136,7 +150,8 @@ Phases; any failure exits non-zero before the result line is printed:
       device ms, kernels and host launch calls a step of both forms
       (``benchmarks/vae_step_profile.py --route bmm|graph``): the single
       VAE, 4 float32 members, 64 bf16-storage members (and their graph with
-      bf16 compute), the fleet's with device ms by layer; (c) the fleet's SR
+      bf16 compute), the 64-member float32-storage graph, the fleet's with
+      device ms by layer; (c) the fleet's SR
       Adam launches counted at each replay; (d) ``warm_compile``: a fleet
       launch (one capture) and then the real launch with no new capture,
       and the geometry kernel launched at every chunk shape of 3c's plan
@@ -151,7 +166,10 @@ Phases; any failure exits non-zero before the result line is printed:
    layers of one 64-member step and the seven layers' forward and
    backward by route, float32 and bf16, beside the plain version and, as a
    yardstick the port never calls, ``F.batch_norm`` + ReLU unmasked,
-   replayed from a CUDA graph).
+   replayed from a CUDA graph; the optimizer's gather and norm and float32
+   update at the paths' shapes with their plain versions and bounds, and
+   the fleet's whole optimizer step against the chain it replaced, in
+   turns: ``benchmarks/adam_timing.py``).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -250,7 +268,8 @@ def fail(msg: str) -> None:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
-    from lesionvae_tpu_torch.ops import geometry, masked_bn, radius, resident_adam, sr_adam
+    from lesionvae_tpu_torch.ops import (adam, geometry, masked_bn, radius, resident_adam,
+                                         sr_adam)
 
     from lesionvae_tpu_torch.train import program
 
@@ -258,9 +277,23 @@ def reset_launches() -> None:
     resident_adam.resident_adam.launches = 0
     sr_adam.sr_adam_step.launches = 0
     geometry.streamline_metrics_stacked.launches = 0
-    for wrapper in masked_bn.WRAPPERS:
+    for wrapper in masked_bn.WRAPPERS + adam.WRAPPERS:
         wrapper.launches = 0
     program.reset_counts()
+
+
+def hold_adam_launches(path: str, steps: int, per_step: dict) -> dict:
+    """The gather-and-norm and update kernels' launches since the last
+    reset, held to ``per_step`` times the path's ``steps`` training steps
+    (its graph replays' and its warm-up epochs'), or the script fails."""
+    from lesionvae_tpu_torch.ops import adam
+
+    got = {w.__name__: w.launches for w in adam.WRAPPERS}
+    want = {k: v * steps for k, v in per_step.items()}
+    if got != want:
+        fail(f"{path}: the optimizer kernels launched {got} times in {steps} training "
+             f"steps, {want} expected")
+    return got
 
 
 def masked_bn_launches() -> dict:
@@ -677,6 +710,193 @@ def sr_adam_at_path_shape(members: int, lay) -> dict:
             "issue_bound_ms": issue, "members": members, "row": n,
             "max_abs_err": worst}
 
+
+
+# ---------------------------------------------------------------- the optimizer's kernels
+# the gradient gather with each member's norm and the float32-storage update
+# (ops/csrc/adam.cu) at the paths' shapes: the 36 leaf gradients of one real
+# 64-member full-width fleet step (as autograd returns them, float32 and
+# bf16 weight gradients; the single VAE's as one member of them, and its
+# flat gradient as a one-leaf table), and float32 rows of 64 x 2,741,153
+# (the fleet's weights), 64 x 1,088 (its BatchNorm leaves) and 1 x 2,742,241
+# (the single VAE's flat buffer).  Member t's gradients are scaled to a norm
+# of 2 * 3^(t % 5 - 2), so members lie on both sides of the clip and near it;
+# one member holds a NaN and one an infinite gradient
+ADAM_ROWS = ((COHORT_MEMBERS, 2_741_153), (COHORT_MEMBERS, 1_088), (1, 2_742_241))
+
+
+def same_bits_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit, a NaN for a NaN."""
+    return bits_differ(got, want) == 0
+
+
+def norm_outputs(opt) -> list:
+    """What ``grad_sq_norm`` wrote for ``opt`` (a fleet or single optimizer):
+    its packed rows (or none), sums of squares and norms, cloned."""
+    rows = [opt.g_w, opt.g_a] if hasattr(opt, "g_w") else [opt.g]
+    return [t.clone() for t in rows + [opt.sq, opt.g_norm]]
+
+
+def adam_norm_errors() -> dict:
+    """``grad_sq_norm`` against its plain version at the paths' shapes: the
+    fleet's 36 leaves of 64 members in both storages, the single VAE's 36
+    leaves (one member) and its flat gradient (a one-leaf table, no
+    destination): packed rows, sums of squares and norms bit-equal (NaN for
+    NaN), a second call the same bits, the members on both sides of the
+    clip, the NaN and the infinite member's norm NaN and inf."""
+    from lesionvae_tpu_torch.benchmarks.adam_timing import norm_args, path_grads
+    from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
+    from lesionvae_tpu_torch.ops import adam
+    from lesionvae_tpu_torch.train.lowmem import LowmemOptimizer
+    from lesionvae_tpu_torch.train.trainer import ClipDecayAdam
+
+    cases, seen = 0, {}
+    for label, store in (("f32", None), ("bf16", torch.bfloat16)):
+        state, grads = path_grads(COHORT_MEMBERS, store)
+        T = state.members
+        raw = torch.sqrt(sum((x.double() ** 2).flatten(1).sum(1) for x in grads.values()))
+        scale = 2.0 * 3.0 ** (torch.arange(T, device="cuda") % 5 - 2) / raw
+        for x in grads.values():
+            x.mul_(scale.view(-1, *[1] * (x.dim() - 1)).to(x.dtype))
+        grads["fc_dec.weight"][3, 7, 11] = float("nan")
+        grads["micro_b1.bias"][5, 2] = float("inf")
+        seen[label] = {n: list(x.stride()) for n, x in grads.items() if not x.is_contiguous()}
+        opts = [LowmemOptimizer(state, 2e-4, 1e-3, 2.0) for _ in range(2)]
+        adam.grad_sq_norm(*norm_args(opts[0], grads))
+        got = norm_outputs(opts[0])
+        adam.grad_sq_norm(*norm_args(opts[0], grads))
+        again = norm_outputs(opts[0])
+        adam.grad_sq_norm_plain(*norm_args(opts[1], grads))
+        torch.cuda.synchronize()
+        want = norm_outputs(opts[1])
+        for what, g, w, a in zip(("g_w", "g_a", "sq", "g_norm"), got, want, again):
+            if not same_bits_nan(g, w) or not same_bits_nan(g, a):
+                fail(f"gradient norm kernel vs plain at 64 x 36 leaves, {label}: {what} "
+                     f"differs in {bits_differ(g, w)} elements (second call "
+                     f"{bits_differ(g, a)})")
+        norm = got[3]
+        if not (torch.isnan(norm[3]) and torch.isinf(norm[5])
+                and bool((norm < 2.0).any()) and bool((norm[6:] > 2.0).any())):
+            fail(f"gradient norm at 64 x 36 leaves, {label}: norms {norm[:8].tolist()}")
+        cases += 1
+        if label == "f32":
+            # the single VAE: member 0's gradients into its flat buffer's
+            # views, then that buffer as a one-leaf table
+            with torch.device("meta"):
+                module = LesionConditionedVAE(100, 13, 3, 10)
+            single = [ClipDecayAdam(module.to_empty(device="cuda"), 2e-4, 1e-3, 2.0)
+                      for _ in range(2)]
+            leaves = [grads[n][:1] for n in opts[0]._names]
+            outs = []
+            for fn, opt in zip((adam.grad_sq_norm, adam.grad_sq_norm_plain), single):
+                fn(leaves, opt._dsts, opt._work, opt.sq, opt.g_norm)
+                outs.append(norm_outputs(opt))
+            flat = single[0].g.clone()
+            for fn, opt in zip((adam.grad_sq_norm, adam.grad_sq_norm_plain), single):
+                fn([flat[None]], [None], opt._work_flat, opt.sq, opt.g_norm)
+                outs.append(norm_outputs(opt)[1:])
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(outs[0] + outs[2], outs[1] + outs[3])):
+                if not same_bits_nan(g, w):
+                    fail(f"gradient norm kernel vs plain, the single VAE (output {i}): "
+                         f"{bits_differ(g, w)} elements differ")
+            cases += 2
+        del state, grads, opts
+        torch.cuda.empty_cache()
+    print(f"[kernels] gradient norm (grad_sq_norm) vs plain at 64 members x the 36 leaves "
+          f"of a full-width step, float32 and bf16 weight gradients, non-contiguous leaves "
+          f"as autograd returned them {json.dumps(seen['f32'])}; the single VAE's 36 "
+          f"leaves and its flat gradient as a one-leaf table ({cases} cases): packed rows, "
+          f"sums of squares and norms bit-equal (NaN for NaN), a second call the same "
+          f"bits, members over and under the clip, a NaN member's norm NaN, an inf "
+          f"member's inf; max abs err 0")
+    return {"cases": cases, "max_abs_err": 0.0}
+
+
+def adam_step_errors() -> dict:
+    """``adam_step`` against its plain version at ADAM_ROWS: every bit of p,
+    m and v (NaN for NaN), members below and above the clip, counts 1 and
+    123,457, a member with ``finite`` false kept bit for bit, a member with
+    a NaN and an inf gradient; the single VAE's row below and above the clip
+    and skipped."""
+    from lesionvae_tpu_torch.benchmarks.adam_timing import update_rows
+    from lesionvae_tpu_torch.ops import adam
+
+    hyper = adam.Hyper(2e-4, 1e-3, 2.0)
+    cases = 0
+    for i, (T, n) in enumerate(ADAM_ROWS):
+        variants = ([{}] if T > 1 else
+                    [{"norm": 0.5}, {"norm": 7.0}, {"norm": 7.0, "skip": True}])
+        for var in variants:
+            p, m, v, g, g_norm, bc1, bc2, finite = update_rows(T, n, 10 + i)
+            count = torch.tensor([1.0 if t % 2 == 0 else 123_457.0 for t in range(T)],
+                                 device="cuda")
+            bc1.copy_(1 - torch.pow(torch.tensor(0.9, device="cuda"), count))
+            bc2.copy_(1 - torch.pow(torch.tensor(0.999, device="cuda"), count))
+            g_norm.copy_(torch.tensor([var.get("norm", 0.5 if t % 3 else 7.0)
+                                       for t in range(T)], device="cuda"))
+            if T > 2:
+                finite[1] = False
+                g[2, 3], g[2, 5] = float("nan"), float("inf")
+            if var.get("skip"):
+                finite[0] = False
+            before = [t.clone() for t in (p, m, v)]
+            plain = [t.clone() for t in (p, m, v)]
+            adam.adam_step(p, m, v, g, g_norm, bc1, bc2, finite, hyper)
+            adam.adam_step_plain(*plain, g, g_norm, bc1, bc2, finite, hyper)
+            torch.cuda.synchronize()
+            where = f"T={T} n={n} {json.dumps(var)}"
+            for name, got, want, old in zip("pmv", (p, m, v), plain, before):
+                if not same_bits_nan(got, want):
+                    fail(f"Adam kernel vs plain at {where}: {name} differs in "
+                         f"{bits_differ(got, want)} elements")
+                for t in range(T):
+                    if not bool(finite[t]) and not same_bits_nan(got[t], old[t]):
+                        fail(f"Adam kernel wrote {name} of skipping member {t} at {where}")
+            if T > 2 and not (torch.isnan(p[2, 3]) and torch.isnan(p[2, 5])):
+                fail(f"Adam kernel at {where}: a NaN or inf gradient did not give NaN")
+            cases += 1
+            del p, m, v, g, before, plain
+        torch.cuda.empty_cache()
+    print(f"[kernels] Adam update (adam_step) vs plain at {[list(r) for r in ADAM_ROWS]} "
+          f"float32 rows, norms over and under the clip, counts 1 and 123457, a skipping "
+          f"member kept bit for bit, a NaN and an inf gradient; the single VAE's row "
+          f"under and over the clip and skipped ({cases} cases): p, m, v bit-equal (NaN "
+          f"for NaN); max abs err 0")
+    return {"cases": cases, "max_abs_err": 0.0}
+
+
+def adam_sass_lines() -> dict:
+    """One ``[sass]`` line per function of csrc/adam.cu with its registers
+    (``ops.adam.kernel_attributes``): the update's hot loop per element (its
+    16-byte body holds four elements, one root each), the gather's whole
+    function over the 8 elements a thread takes of a tile (both dtypes'
+    paths and both load orders count), the finishing kernel whole."""
+    from lesionvae_tpu_torch.ops import adam, cuda_build
+
+    text = cuda_build.sass("adam")
+    loops = cuda_build.inner_loops(text, r"^MUFU\.RSQ")
+    attrs = adam.kernel_attributes()
+    out = {}
+    for fn, code in cuda_build.sass_functions(text).items():
+        name = next((k for k in adam.KERNELS if k in fn), fn)
+        if name == "adam_kernel":
+            f = loops[fn]
+            per, what = f["per_unit"], f"element (loop of {f['instructions']} instructions)"
+        else:
+            counts = {c: 0 for c in cuda_build.SASS_CLASSES}
+            for _addr, op, _full, _operands in code:
+                counts[cuda_build.sass_class(op)] += 1
+            unit = adam.PER_THREAD if name == "norm_tiles_kernel" else 1
+            per = {k: v / unit for k, v in counts.items()}
+            per["total"] = len(code) / unit
+            what = (f"element (whole function of {len(code)} instructions, {unit} elements "
+                    "a thread)" if unit > 1 else f"block (whole function)")
+        out[name] = {"per": {k: round(v, 3) for k, v in per.items()}, **attrs.get(name, {})}
+        print(f"[sass] adam:{name} per {what}: {json.dumps(out[name]['per'])}; "
+              f"registers {attrs[name]['registers']}, local bytes "
+              f"{attrs[name]['local_bytes']}, shared bytes {attrs[name]['shared_bytes']}")
+    return out
 
 
 # ---------------------------------------------------------------- geometry kernel
@@ -1327,15 +1547,16 @@ def tf32_control(model, Xz, Xl, sham, eps, cpu) -> None:
           f"the same cpu float32 results, exceeds every bound: {line}")
 
 
-def check_vae(root: Path, cfg, tract: str) -> None:
+def check_vae(root: Path, cfg, tract: str) -> dict:
     """``vae`` then ``score`` through the CLI on cuda, each held against the
-    CPU in float32."""
+    CPU in float32; returns the optimizer kernels' launches in ``vae``."""
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
     from lesionvae_tpu_torch.ops import radius, resident_adam as ra
     from lesionvae_tpu_torch.pipeline.infer import load_normative, score_subjects
     from lesionvae_tpu_torch.train import data as vdata
+    from lesionvae_tpu_torch.train import program
     from lesionvae_tpu_torch.train.checkpoint import load_vae, save_vae
     from lesionvae_tpu_torch.train.normative import normative_zscores_fused
     from lesionvae_tpu_torch.train.trainer import train_lesion_vae
@@ -1370,10 +1591,14 @@ def check_vae(root: Path, cfg, tract: str) -> None:
                 or not np.isfinite(z["Z"]).all()):
             fail(f"zscores_{tp}.npz: keys {z.files}, Z {z['Z'].shape}")
     steps = len(cfg.timepoints) * SINGLE_EPOCHS * -(-VAE_ROWS // VAE_BATCH)
+    # one launch of each a training step, at the replays and in the epoch
+    # run before each capture
+    opt = hold_adam_launches("vae", steps + -(-VAE_ROWS // VAE_BATCH) * program.COUNTS[
+        "captures"], {"grad_sq_norm": 1, "adam_step": 1})
     print(f"[path] vae stage on cuda: {len(cfg.timepoints)} timepoints x "
           f"{VAE_ROWS} rows, {SINGLE_EPOCHS} epochs, {steps} train steps in "
           f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
-          f"stage {wall:.2f}s; kernel launches radius "
+          f"stage {wall:.2f}s; kernel launches {json.dumps(opt)}, radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()} (an epoch a replay)")
     print("[path] vae spans on cuda (s): " + json.dumps(spans))
@@ -1440,6 +1665,7 @@ def check_vae(root: Path, cfg, tract: str) -> None:
         fail(f"score on cuda: {len(served)} rows, max rel err vs cpu {score_err:.3e}")
     print(f"[path] score stage on cuda: {len(served)} subjects; cuda vs cpu "
           f"float32 max rel err {score_err:.3e}")
+    return opt
 
 
 # ---------------------------------------------------------------- the cohort fleet
@@ -1450,7 +1676,8 @@ COHORT_NPZ_KEYS = ["magnitude", "subj_ids", "group_labels", "norm_mean",
 def check_cohort_cli(root: Path, cfg, common) -> tuple:
     """``vae-cohort`` (bf16 storage, 64 members, 40 epochs) then
     ``score-cohort`` through the CLI on cuda; returns the SR Adam kernel's
-    launches on that path and the masked BatchNorm kernels' by stage."""
+    launches on that path, the masked BatchNorm kernels' by stage, their
+    launches a training step and the optimizer kernels' launches."""
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
@@ -1482,6 +1709,9 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     if launches != COHORT_STEPS + warm_up or captures > 1 or replays != VAE_EPOCHS:
         fail(f"vae-cohort with bf16 storage launched the SR Adam kernel {launches} "
              f"times in {COHORT_STEPS} fleet steps, {graph_counts()}")
+    # bf16 storage: the gather and norm, and the update of the BatchNorm leaves
+    opt = hold_adam_launches("vae-cohort", COHORT_STEPS + warm_up,
+                             {"grad_sq_norm": 1, "adam_step": 1})
     # seven BatchNorm layers a step, each on the cluster route: one forward
     # and one backward launch a layer; the apply kernel only in the eval
     # forwards of the normative summary
@@ -1520,7 +1750,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
           f"({COHORT_STEPS / spans['vae_cohort.train']:.2f} fleet steps/s, upload, "
           f"normalization and summary included); stage {wall:.2f}s; kernel "
           f"launches sr_adam {launches} ({COHORT_STEPS} in {replays} epoch replays, "
-          f"{warm_up} in the epoch run before the capture), masked BatchNorm "
+          f"{warm_up} in the epoch run before the capture), {json.dumps(opt)}, masked BatchNorm "
           f"{json.dumps(bn['vae-cohort'])} ({bn_a_step} a training step), radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()}; max_memory_allocated {peak_gb:.2f} GB")
@@ -1547,7 +1777,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     print(f"[path] score-cohort stage on cuda: {len(served)} rows = {len(members)} "
           f"members x 37 subjects in {time.perf_counter() - t0:.2f}s; masked BatchNorm "
           f"{json.dumps(bn['score-cohort'])}")
-    return launches, bn, bn_a_step
+    return launches, bn, bn_a_step, opt
 
 
 def check_cohort_against_cpu(root: Path, cfg) -> None:
@@ -1815,8 +2045,9 @@ def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
-    from lesionvae_tpu_torch.ops import radius
+    from lesionvae_tpu_torch.ops import radius, sr_adam
     from lesionvae_tpu_torch.pipeline import correlation
+    from lesionvae_tpu_torch.train import program
     from lesionvae_tpu_torch.utils import profiling
 
     have_sklearn = importlib.util.find_spec("sklearn") is not None
@@ -1856,6 +2087,13 @@ def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
     spans = profiling.report()
     if launches != {"radius": 1, "geometry": 9}:
         fail(f"the all phase launched {launches}; radius 1 and geometry 9 expected")
+    # the float32 fleet: the gather and norm once a step, the update twice
+    # (weights and BatchNorm leaves), no SR Adam
+    steps = COHORT_STEPS + COHORT_STEPS // VAE_EPOCHS * program.COUNTS["captures"]
+    launches.update(hold_adam_launches("all", steps, {"grad_sq_norm": 1, "adam_step": 2}))
+    launches["sr_adam"] = sr_adam.sr_adam_step.launches
+    if launches["sr_adam"]:
+        fail(f"the all phase's float32 fleet launched SR Adam {launches['sr_adam']} times")
 
     # its geometry and lesion CSVs: the bits of the phase's own geometry and
     # lesion runs on the same cohort (and of path 3a's lesion CSV, written
@@ -2437,6 +2675,8 @@ def check_programs(cohort_root: Path, cfg) -> dict:
                                                          PROFILE_STEPS["fleet"], "graph")),
             ("fleet64_bf16_eager", lambda: prof.main_fleet(64, "bf16", "f32",
                                                            PROFILE_STEPS["fleet"], "bmm")),
+            ("fleet64_f32_graph", lambda: prof.main_fleet(64, "f32", "f32",
+                                                          PROFILE_STEPS["fleet"], "graph")),
             ("fleet64_bf16_graph", lambda: prof.main_fleet(64, "bf16", "f32",
                                                            PROFILE_STEPS["fleet"], "graph")),
             ("fleet64_bf16_compute_graph", lambda: prof.main_fleet(
@@ -2517,15 +2757,16 @@ def start_cohort(root: Path, cfg, pool, profiles: bool):
 
 def run_vae_paths(root: Path, cfg) -> tuple:
     """Paths 3d and 3e over the profiles cohort under ``root``; returns the
-    SR Adam kernel's launches on the cohort path and the masked BatchNorm
-    kernels' by stage."""
-    check_vae(root, cfg, cfg.tracts[0])
+    SR Adam kernel's launches on the cohort path, the masked BatchNorm
+    kernels' by stage, their launches a training step, and the optimizer
+    kernels' launches by path."""
+    single = check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
-    launches = check_cohort_cli(root, cfg, common)
+    sr, bn, bn_a_step, cohort = check_cohort_cli(root, cfg, common)
     check_cohort_against_cpu(root, cfg)
     torch.cuda.empty_cache()
-    return launches
+    return sr, bn, bn_a_step, {"vae": single, "vae-cohort": cohort}
 
 
 def main(argv=None) -> int:
@@ -2564,6 +2805,7 @@ def main(argv=None) -> int:
         print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
         sass_lines()
         masked_bn_sass_lines()
+        adam_sass = adam_sass_lines()
 
         # 2. kernels against their plain versions
         shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
@@ -2584,6 +2826,7 @@ def main(argv=None) -> int:
         sr_worst = sr_adam_errors()
         geo_worst = geometry_errors()
         bn_worst = masked_bn_errors()
+        adam_checks = {"grad_sq_norm": adam_norm_errors(), "adam_step": adam_step_errors()}
         for w in writers:
             w.result()
         pool.shutdown()
@@ -2617,17 +2860,20 @@ def main(argv=None) -> int:
             shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
         probe, probe_launches = check_probe()
         geo = check_geometry(cohort_root, cfg)
-        sr_launches, bn_launches, bn_a_step = 0, {}, None
+        sr_launches, bn_launches, bn_a_step, opt_launches = 0, {}, None, {}
         all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
             print("[path] vae, score, vae-cohort, score-cohort and all paths skipped "
                   "(--skip-vae)")
         else:
-            sr_launches, bn_launches, bn_a_step = run_vae_paths(cohort_root, cfg)
+            sr_launches, bn_launches, bn_a_step, opt_launches = run_vae_paths(cohort_root,
+                                                                              cfg)
             all_phase = check_all(
                 cohort_root, cohort_root / "results" / "vae_cohort",
                 cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
                 own["lesion_cpu"], own)
+            opt_launches["all"] = {k: all_phase["launches"][k]
+                                   for k in ("grad_sq_norm", "adam_step")}
             check_chunks()
             torch.cuda.empty_cache()
         check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
@@ -2666,6 +2912,14 @@ def main(argv=None) -> int:
     print("[kernels] masked BatchNorm + ReLU over the seven layers of a 64-member fleet "
           f"step (ms; bounds by ops.masked_bn.bound_ms): {json.dumps(bn_t)}; {card}")
     bn_f32 = bn_t["f32"]
+    # the optimizer's gather and norm and its float32 update at the paths'
+    # shapes, and the fleet's optimizer step against the parent's chain
+    from lesionvae_tpu_torch.benchmarks import adam_timing
+
+    opt_t = adam_timing.timings()
+    print("[kernels] optimizer kernels (ms; bounds by ops.adam): " + json.dumps(opt_t))
+    norm_t, upd_t = opt_t["grad_sq_norm_f32"], opt_t["adam_step_weights"]
+    no_library = ("no single PyTorch call computes it: ")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "radius", "route": "cuda",
@@ -2721,7 +2975,41 @@ def main(argv=None) -> int:
         "per_route": bn_f32["per_route"], "launches_a_step": bn_a_step,
         "bf16": {k: bn_t["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                "issue_bound_ms", "library_ms",
-                                               "per_route")}}]}))
+                                               "per_route")}}, {
+        "name": "grad_sq_norm", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "lesionvae_tpu/train/lowmem.py:132 (the global norm over the leaves; "
+                    "XLA fusion, no Pallas kernel)",
+        "launches": sum(v["grad_sq_norm"] for v in opt_launches.values()),
+        "launches_by_path": {k: v["grad_sq_norm"] for k, v in opt_launches.items()},
+        "max_abs_err": adam_checks["grad_sq_norm"]["max_abs_err"],
+        "ms": norm_t["ms"], "plain_ms": norm_t["plain_ms"], "bound_ms": norm_t["bound_ms"],
+        "bound_by": norm_t["bound_by"], "issue_bound_ms": norm_t["issue_bound_ms"],
+        "library_ms": None,
+        "library_note": no_library + "the gather of 36 strided leaves into packed rows "
+                        "with a norm a member",
+        "bf16": opt_t["grad_sq_norm_bf16"], "step_f32": opt_t["step_f32"],
+        "step_bf16": opt_t["step_bf16"],
+        "registers": {k: adam_sass[k]["registers"] for k in ("norm_tiles_kernel",
+                                                             "norm_finish_kernel")},
+        "sass_per_element": adam_sass["norm_tiles_kernel"]["per"]}, {
+        "name": "adam_step", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "lesionvae_tpu/train/lowmem.py:97 (_fused_update's float32 branch; "
+                    "XLA fusion, no Pallas kernel)",
+        "launches": sum(v["adam_step"] for v in opt_launches.values()),
+        "launches_by_path": {k: v["adam_step"] for k, v in opt_launches.items()},
+        "max_abs_err": adam_checks["adam_step"]["max_abs_err"],
+        "ms": upd_t["ms"], "plain_ms": upd_t["plain_ms"], "bound_ms": upd_t["bound_ms"],
+        "bound_by": upd_t["bound_by"], "issue_bound_ms": upd_t["issue_bound_ms"],
+        "library_ms": None,
+        "library_note": no_library + "torch.optim.Adam(fused=True) neither clips by a "
+                        "member's norm nor keeps a step count a member (timed as "
+                        "fused_adam_informative_ms)",
+        "fused_adam_informative_ms": opt_t["fused_adam_informative_ms"],
+        "affine": opt_t["adam_step_affine"], "single": opt_t["adam_step_single"],
+        "registers": adam_sass["adam_kernel"]["registers"],
+        "sass_per_element": adam_sass["adam_kernel"]["per"]}]}))
     print(f"[time] chip_smoke.py wall {time.perf_counter() - t_script:.1f}s; {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

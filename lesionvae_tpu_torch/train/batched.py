@@ -225,10 +225,11 @@ class FleetProgram:
 
     def buffers(self) -> List[torch.Tensor]:
         """Every tensor the body reads or writes."""
-        extra = [self.opt.salt] if self.opt.lowmem else []
+        o = self.opt
+        extra = [o.salt] if o.lowmem else []
         return self.state_tensors() + extra + [
-            self.opt.g_w, self.Xm, self.Xl, self.n_real, self.perms, self.noise,
-            self.rows, self.beta_t]
+            o.g_w, o.g_a, o._work, o.sq, o.g_norm, self.Xm, self.Xl, self.n_real,
+            self.perms, self.noise, self.rows, self.beta_t]
 
     def epoch(self) -> None:
         B, T = self.batch_size, self.Xm.shape[0]

@@ -13,8 +13,11 @@ convolution and dense leaves and their moments are stored in bfloat16: the
 arithmetic stays float32 and the write-back rounds stochastically, with
 noise hashed from (element index, step count, member salt).  That pass is
 ``ops.sr_adam.sr_adam_step``: the hand-written kernel on the card, its plain
-version on the CPU.  The BatchNorm scales and shifts stay float32 and take
-the same formulas in a few tensor operations.
+version on the CPU.  The BatchNorm scales and shifts stay float32; they, and
+float32-stored weights, take ``ops.adam.adam_step``, and every step's
+gradients reach the update through ``ops.adam.grad_sq_norm``, the gather
+into the packed rows with each member's norm (kernels on the card, plain
+versions on the CPU, as for ``sr_adam``).
 
 The noise is the JAX package's bit for bit.  There an element's index is its
 flat position inside its leaf in the flax layout, and the leaf's number is
@@ -38,6 +41,7 @@ order of ``fw`` and ``fo`` in the port's buffers.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -45,7 +49,7 @@ import torch
 
 from ..models.convert import _BNS, _CONV_TS, _CONVS, from_jax_params
 from ..models.fleet import FleetState, Layout, is_weight_leaf  # noqa: F401
-from ..ops import sr_adam
+from ..ops import adam, sr_adam
 from ..ops.sr_adam import MASK32
 
 _DENSES = ("fc_dec", "fc_logv", "fc_mu")
@@ -161,9 +165,12 @@ def draw_salts(members: int, generator: torch.Generator) -> torch.Tensor:
 class LowmemOptimizer:
     """Clip -> decay -> Adam on a ``FleetState``'s buffers, in place.
 
-    float32 (or float64) storage: ``ClipDecayAdam``'s arithmetic per member.
-    bfloat16 storage of the weight buffer: ``sr_adam_step`` for the weights
-    and the float32 arithmetic for the BatchNorm leaves."""
+    Every step first gathers the leaves' gradients into the packed rows
+    ``g_w`` / ``g_a`` with each member's norm (``ops.adam.grad_sq_norm``).
+    float32 (or float64) storage: ``ClipDecayAdam``'s arithmetic per member,
+    ``ops.adam.adam_step`` on both buffers.  bfloat16 storage of the weight
+    buffer: ``sr_adam_step`` for the weights and ``adam_step`` for the
+    BatchNorm leaves."""
 
     flat = False
 
@@ -171,15 +178,15 @@ class LowmemOptimizer:
                  grad_clip: float, salts: Optional[torch.Tensor] = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.state = state
-        self.lr, self.wd, self.clip = lr, weight_decay, grad_clip
-        self.b1, self.b2, self.eps = b1, b2, eps
         T, dev, lay = state.members, state.device, state.layout
         self.lowmem = state.weights.dtype == torch.bfloat16
+        self.hyper = adam.Hyper(lr, weight_decay, grad_clip, b1, b2, eps)
         new = lambda t: sr_adam.alloc_rows(T, t.shape[1], t.dtype, dev)  # noqa: E731
         self.mu_w, self.nu_w, self.g_w = (new(state.weights) for _ in range(3))
-        self.mu_a, self.nu_a = (torch.zeros_like(state.affine) for _ in range(2))
+        self.mu_a, self.nu_a, self.g_a = (torch.zeros_like(state.affine)
+                                          for _ in range(3))
         self.count = torch.zeros(T, dtype=torch.int32, device=dev)
-        # the bias corrections are powers in the arithmetic's dtype
+        # the bias corrections and the norm are in the arithmetic's dtype
         math_dtype = torch.float32 if self.lowmem else state.dtype
         self._b1 = torch.tensor(b1, dtype=math_dtype, device=dev)
         self._b2 = torch.tensor(b2, dtype=math_dtype, device=dev)
@@ -188,44 +195,38 @@ class LowmemOptimizer:
             self.salt = salts.to(device=dev, dtype=torch.int64)
             self.base = sr_index_table(lay, self.flat).to(dev)
             self.consts = sr_adam.consts(lr, weight_decay, grad_clip, b1, b2, eps)
-        self._slots = [(name, *lay.leaves[name]) for name in lay.leaves]
-
-    def _adam(self, p, m, v, g, g_norm, bc1, bc2, finite) -> None:
-        g = torch.where(g_norm < self.clip, g, (g / g_norm) * self.clip)
-        g = g + self.wd * p
-        m2 = (1 - self.b1) * g + self.b1 * m
-        v2 = (1 - self.b2) * (g * g) + self.b2 * v
-        u = -self.lr * ((m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps))
-        p.copy_(torch.where(finite, p + u, p))
-        m.copy_(torch.where(finite, m2, m))
-        v.copy_(torch.where(finite, v2, v))
+        # the gather's leaves in the member's parameter order, each with its
+        # packed destination rows, and the norm's workspace and outputs
+        self._names = list(lay.leaves)
+        self._dsts = []
+        for name in self._names:
+            which, off, shape = lay.leaves[name]
+            buf = self.g_w if which == "weights" else self.g_a
+            self._dsts.append(buf[:, off:off + math.prod(shape)].view(T, *shape))
+        self._work = adam.norm_work([lay.leaves[n][2] for n in self._names], T, dev)
+        self.sq, self.g_norm = (torch.zeros(T, dtype=math_dtype, device=dev)
+                                for _ in range(2))
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor], finite: torch.Tensor) -> None:
         """``grads``: name -> (T, *shape) gradient of each leaf, in the
         leaf's dtype; ``finite``: (T,) bool, false where the member skips."""
-        st, T = self.state, self.state.members
-        g_a = torch.empty_like(st.affine)
-        for name, which, off, shape in self._slots:
-            dst = self.g_w if which == "weights" else g_a
-            dst[:, off:off + grads[name][0].numel()].copy_(grads[name].reshape(T, -1))
-        g_wide = self.g_w.float() if self.lowmem else self.g_w
-        g_norm = torch.sqrt(torch.sum(g_wide * g_wide, dim=1)
-                            + torch.sum(g_a * g_a, dim=1))
+        st = self.state
+        adam.grad_sq_norm([grads[n] for n in self._names], self._dsts, self._work,
+                          self.sq, self.g_norm)
         count_inc = self.count + 1
         bc1 = 1 - torch.pow(self._b1, count_inc)
         bc2 = 1 - torch.pow(self._b2, count_inc)
-        col = lambda x: x[:, None]  # noqa: E731
         if self.lowmem:
             salt = (self.salt + count_inc.to(torch.int64) * 0x01000193) & MASK32
             sr_adam.sr_adam_step(st.weights, self.mu_w, self.nu_w, self.g_w,
-                                 self.base, g_norm, bc1, bc2, salt, finite,
+                                 self.base, self.g_norm, bc1, bc2, salt, finite,
                                  self.consts)
         else:
-            self._adam(st.weights, self.mu_w, self.nu_w, self.g_w, col(g_norm),
-                       col(bc1), col(bc2), col(finite))
-        self._adam(st.affine, self.mu_a, self.nu_a, g_a, col(g_norm), col(bc1),
-                   col(bc2), col(finite))
+            adam.adam_step(st.weights, self.mu_w, self.nu_w, self.g_w, self.g_norm,
+                           bc1, bc2, finite, self.hyper)
+        adam.adam_step(st.affine, self.mu_a, self.nu_a, self.g_a, self.g_norm, bc1,
+                       bc2, finite, self.hyper)
         self.count.copy_(torch.where(finite, count_inc, self.count))
 
 

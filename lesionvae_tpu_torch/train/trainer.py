@@ -39,6 +39,7 @@ import torch
 
 from ..models.elbo import elbo
 from ..models.lesion_vae import LesionConditionedVAE
+from ..ops import adam
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
 from .program import EpochGraph, ProgramCache
@@ -84,56 +85,68 @@ class TrainedVAE:
 
 
 class ClipDecayAdam:
-    """The JAX package's ``make_optimizer`` (trainer.py:98-122) as one pass
+    """The JAX package's ``make_optimizer`` (trainer.py:98-122) as two passes
     over a flat buffer that holds every parameter of the module.
 
-    The module's parameters become views of that buffer, so the update is a
-    few elementwise kernels over 2.7 M elements rather than a few per
-    parameter tensor.  ``step`` applies it only where ``finite`` holds, on
-    the device, without a host round trip."""
+    The module's parameters become views of that buffer.  ``step`` gathers
+    the parameters' gradients into the flat gradient buffer ``g`` with their
+    global norm (``ops.adam.grad_sq_norm``) and updates every parameter in
+    one pass (``ops.adam.adam_step``, one member): the hand-written kernels
+    on the card, their plain versions on the CPU.  The update applies only
+    where ``finite`` holds, on the device, without a host round trip."""
 
     def __init__(self, module: torch.nn.Module, lr: float, weight_decay: float,
                  grad_clip: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
-        self.lr, self.weight_decay, self.grad_clip = lr, weight_decay, grad_clip
-        self.b1, self.b2, self.eps = b1, b2, eps
+        self.hyper = adam.Hyper(lr, weight_decay, grad_clip, b1, b2, eps)
         self.params = list(module.parameters())
         self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        self.g = torch.zeros_like(self.flat)
+        self._dsts = []
         offset = 0
         for p in self.params:
             p.data = self.flat[offset:offset + p.numel()].view_as(p)
+            self._dsts.append(self.g[offset:offset + p.numel()].view(1, *p.shape))
             offset += p.numel()
+        dev = self.flat.device
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
-        self.count = torch.zeros((), dtype=torch.int32, device=self.flat.device)
-        # the bias corrections are powers in the parameters' dtype
-        self._b1 = torch.tensor(b1, dtype=self.flat.dtype, device=self.flat.device)
-        self._b2 = torch.tensor(b2, dtype=self.flat.dtype, device=self.flat.device)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        # the bias corrections and the norm are in the parameters' dtype
+        self._b1 = torch.tensor(b1, dtype=self.flat.dtype, device=dev)
+        self._b2 = torch.tensor(b2, dtype=self.flat.dtype, device=dev)
+        self.sq, self.g_norm = (torch.zeros(1, dtype=self.flat.dtype, device=dev)
+                                for _ in range(2))
+        # the norm's workspaces: the parameters' gradients, and one flat
+        # gradient as a one-leaf table (``step_flat``)
+        self._work = adam.norm_work([p.shape for p in self.params], 1, dev)
+        self._work_flat = adam.norm_work([self.flat.shape], 1, dev)
 
     @torch.no_grad()
     def step(self, grads, finite: torch.Tensor) -> None:
-        self.step_flat(torch.cat([x.reshape(-1) for x in grads]), finite)
+        adam.grad_sq_norm([x[None] for x in grads], self._dsts, self._work, self.sq,
+                          self.g_norm)
+        self._update(self.g, self.g_norm, finite)
 
     def grad_norm(self, g: torch.Tensor) -> torch.Tensor:
-        """The global norm the update clips by."""
-        return torch.sqrt(torch.sum(g * g))
+        """The global norm the update clips by, of a flat gradient."""
+        adam.grad_sq_norm([g[None]], [None], self._work_flat, self.sq, self.g_norm)
+        return self.g_norm
 
     @torch.no_grad()
     def step_flat(self, g: torch.Tensor, finite: torch.Tensor) -> None:
         """``step`` with the gradients as one flat buffer laid out as
         ``self.flat``."""
-        g_norm = self.grad_norm(g)
-        g = torch.where(g_norm < self.grad_clip, g, (g / g_norm) * self.grad_clip)
-        g = g + self.weight_decay * self.flat
-        m2 = (1 - self.b1) * g + self.b1 * self.mu
-        v2 = (1 - self.b2) * (g * g) + self.b2 * self.nu
+        self._update(g, self.grad_norm(g), finite)
+
+    def _update(self, g: torch.Tensor, g_norm: torch.Tensor,
+                finite: torch.Tensor) -> None:
         count_inc = self.count + 1
         bc1 = 1 - torch.pow(self._b1, count_inc)
         bc2 = 1 - torch.pow(self._b2, count_inc)
-        u = -self.lr * ((m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps))
-        self.flat.copy_(torch.where(finite, self.flat + u, self.flat))
-        self.mu.copy_(torch.where(finite, m2, self.mu))
-        self.nu.copy_(torch.where(finite, v2, self.nu))
+        one = lambda x: x.reshape(1)  # noqa: E731
+        adam.adam_step(self.flat[None], self.mu[None], self.nu[None], g[None],
+                       one(g_norm), one(bc1), one(bc2), one(finite), self.hyper)
         self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
@@ -270,7 +283,9 @@ class TrainProgram:
 
     def buffers(self) -> List[torch.Tensor]:
         """Every tensor the body reads or writes."""
-        return self.state() + [self.Xm, self.Xl, self.perms, self.noise, self.beta_t]
+        o = self.opt
+        return self.state() + [o.g, o._work, o.sq, o.g_norm, self.Xm, self.Xl,
+                               self.perms, self.noise, self.beta_t]
 
     def epoch(self) -> None:
         B = self.batch_size

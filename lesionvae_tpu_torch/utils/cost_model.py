@@ -126,6 +126,22 @@ def fleet_step_cost(T: int, seq_len: int = 100, micro_ch: int = 13,
             "peak_tflops": peak_tflops(compute_dtype)}
 
 
+def optimizer_bytes(T: int, seq_len: int = 100, micro_ch: int = 13,
+                    lesion_ch: int = 3, latent: int = 10,
+                    store_dtype: Optional[torch.dtype] = torch.bfloat16) -> dict:
+    """The least device-memory bytes of the fleet step's optimizer kernels
+    for T members.  ``grad_sq_norm`` (``ops/csrc/adam.cu``): every leaf's
+    gradient read once and written once into the packed rows, the weight
+    leaves in the storage dtype, the BatchNorm leaves in float32.  The
+    update: g, p, m, v read and p, m, v written once (``fleet_step_cost``'s
+    ``optimizer``), split into the weight buffer (``adam_step`` with float32
+    storage, ``sr_adam`` with bfloat16) and the affine buffer
+    (``adam_step``)."""
+    w_b, o_b, _ = _param_bytes(seq_len, micro_ch, lesion_ch, latent, store_dtype)
+    return {"grad_sq_norm": T * 2 * (w_b + o_b), "update_weights": T * 7 * w_b,
+            "update_affine": T * 7 * o_b, "optimizer": T * 7 * (w_b + o_b)}
+
+
 def bn_layers(seq_len: int = 100) -> dict:
     """The fleet step's seven masked BatchNorm layers, each followed by a
     ReLU (models/fleet.py::fleet_forward): {name: (length, channels)}."""

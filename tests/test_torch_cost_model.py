@@ -69,6 +69,41 @@ def test_masked_bn_bytes_of_the_seven_layers(compute, item):
         assert got["backward_ms"] == pytest.approx(0.3624, abs=1e-4)
 
 
+@pytest.mark.parametrize("store,item", [("f32", 4), ("bf16", 2)])
+def test_optimizer_bytes_of_the_two_kernels(store, item):
+    """64 members at full width (2,741,153 weight and 1,088 BatchNorm
+    elements a member): the gather reads and writes each gradient once, in
+    the storage dtype for the weights and in float32 for the BatchNorm
+    leaves; the update is the step's ``optimizer`` category, the JAX
+    package's count; both equal the wrappers' own counts on tensors of the
+    path's shapes."""
+    from lesionvae_tpu_torch.models.fleet import layout
+    from lesionvae_tpu_torch.ops import adam
+
+    dtype = DTYPES[store][0]
+    got = tcm.optimizer_bytes(64, store_dtype=dtype)
+    w, a = 2_741_153, 1_088
+    assert got["grad_sq_norm"] == 64 * 2 * (item * w + 4 * a)
+    assert got["update_weights"] == 64 * 7 * item * w
+    assert got["update_affine"] == 64 * 7 * 4 * a
+    assert got["optimizer"] == got["update_weights"] + got["update_affine"]
+    want = jcm.fleet_step_cost(64, store_dtype=DTYPES[store][1])["bytes_by_category"]
+    assert got["optimizer"] == want["optimizer"]
+    lay = layout(100, 13, 3, 10)
+    grads = [torch.empty((64, *shape), device="meta",
+                         dtype=dtype if which == "weights" else torch.float32)
+             for which, _off, shape in lay.leaves.values()]
+    assert adam.norm_bytes(grads, grads) == got["grad_sq_norm"]
+    assert adam.norm_bytes(grads, [None] * len(grads)) == got["grad_sq_norm"] // 2
+    if store == "f32":
+        bound = adam.adam_bound_ms(64 * w)
+        assert bound["bound_by"] == "bytes"
+        assert bound["bound_ms"] == pytest.approx(1e3 * got["update_weights"] / 3.35e12)
+        assert bound["bound_ms"] == pytest.approx(1.4663, abs=1e-4)
+        assert adam.norm_bound_ms(grads, grads)["bound_ms"] == pytest.approx(
+            1e3 * got["grad_sq_norm"] / 3.35e12)
+
+
 def test_traffic_summary_uses_the_h100_peaks():
     cost = tcm.fleet_step_cost(T=64)
     s = tcm.traffic_summary(cost, n_steps=600, device_s=7.0)

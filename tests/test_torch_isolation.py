@@ -54,7 +54,7 @@ def test_the_cohort_fleet_modules_are_on_the_list():
     checked = {str(p.relative_to(REPO / "lesionvae_tpu_torch"))
                for p in (REPO / "lesionvae_tpu_torch").rglob("*.py")}
     assert {"train/batched.py", "train/lowmem.py", "train/quantize.py",
-            "ops/sr_adam.py", "models/fleet.py"} <= checked
+            "ops/sr_adam.py", "ops/adam.py", "models/fleet.py"} <= checked
 
 
 def test_the_geometry_modules_are_on_the_list():
