@@ -60,10 +60,13 @@ Phases; any failure exits non-zero before the result line is printed:
      returns them (float32, and bf16 weight gradients), the single VAE's
      (one member) and its flat gradient as a one-leaf table; float32 rows of
      64 x 2,741,153, 64 x 1,088 and 1 x 2,742,241; members over, under and
-     near the clip, a skipping member, NaN and inf gradients: packed rows,
-     sums of squares, norms and p, m, v bit-equal (NaN for NaN), a second
-     call the same bits, with one ``[sass]`` line and the registers of each
-     of its kernel functions;
+     near the clip, a skipping member, NaN and inf gradients; the gather
+     also at its alignment edges (every load and store route, destinations
+     at even and odd elements, odd member strides, columns off 8,
+     transposed rows off 32, one-row bf16 leaves): packed rows, sums of
+     squares, norms and p, m, v bit-equal (NaN for NaN), a second call the
+     same bits, with one ``[sass]`` line and the registers of each of its
+     kernel functions and the gather's blocks an SM (``[occupancy]``);
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -169,7 +172,9 @@ Phases; any failure exits non-zero before the result line is printed:
    replayed from a CUDA graph; the optimizer's gather and norm and float32
    update at the paths' shapes with their plain versions and bounds, and
    the fleet's whole optimizer step against the chain it replaced, in
-   turns: ``benchmarks/adam_timing.py``).
+   turns, the gather replayed from a CUDA graph as the training program
+   runs it, beside the leaves' copies alone as an informative floor:
+   ``benchmarks/adam_timing.py``).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``.
 """
@@ -803,14 +808,90 @@ def adam_norm_errors() -> dict:
             cases += 2
         del state, grads, opts
         torch.cuda.empty_cache()
+    edges = norm_edge_cases()
     print(f"[kernels] gradient norm (grad_sq_norm) vs plain at 64 members x the 36 leaves "
           f"of a full-width step, float32 and bf16 weight gradients, non-contiguous leaves "
           f"as autograd returned them {json.dumps(seen['f32'])}; the single VAE's 36 "
           f"leaves and its flat gradient as a one-leaf table ({cases} cases): packed rows, "
           f"sums of squares and norms bit-equal (NaN for NaN), a second call the same "
           f"bits, members over and under the clip, a NaN member's norm NaN, an inf "
-          f"member's inf; max abs err 0")
-    return {"cases": cases, "max_abs_err": 0.0}
+          f"member's inf; alignment edges ({edges} cases: every route, destinations at "
+          f"even and odd elements, odd member strides, columns off 8, transposed rows "
+          f"off 32, one-row bf16 leaves) bit-equal; max abs err 0")
+    return {"cases": cases + edges, "max_abs_err": 0.0}
+
+
+def norm_edge_leaves(gen, T: int, dtype: torch.dtype) -> list:
+    """Gradients (T, *shape) of ``dtype`` on the card that take every route
+    of the gather (``ops.adam.leaf_route``) at its edges: transposed
+    matrices read down their rows element by element (70 and 37 rows) and
+    in 16-byte copies (40 and 72 rows, past a row-tile edge; 19 and 100
+    columns), vectors of 104 (16-byte copies, the last row zero-filled), 100
+    and 1,001 (unaligned), a convolution weight whose columns take two
+    strides, row-major matrices of 13, 33 and 64 columns, one-row leaves of
+    50 and 64, a view one element into its storage (no 16-byte copy), and a
+    transposed 300 x 200 matrix of several tiles a warp."""
+    def normal(*shape):
+        return torch.randn((T, *shape), generator=gen, device="cuda").to(dtype)
+
+    def rows_fast(x):
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    conv = normal(6, 5, 3).permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)
+    shifted = torch.randn((T * 130 + 1,), generator=gen, device="cuda").to(dtype)
+    return [rows_fast(normal(70, 40)), rows_fast(normal(37, 24)),
+            rows_fast(normal(40, 70)), rows_fast(normal(72, 19)),
+            rows_fast(normal(48, 100)), normal(104), normal(100), normal(1001), conv,
+            normal(5, 13), normal(9, 33), normal(3, 64), normal(1, 50), normal(1, 64),
+            shifted[1:].view(T, 130), rows_fast(normal(300, 200))]
+
+
+def norm_edge_cases() -> int:
+    """``grad_sq_norm`` against its plain version on ``norm_edge_leaves`` in
+    float32 and bf16, 3 and 1 members, destinations packed at an even and at
+    an odd element with an odd member stride, and without destinations; a
+    NaN and an inf element in member 0: packed rows, sums of squares and
+    norms bit-equal (NaN for NaN), a second call the same bits.  Returns
+    the cases held."""
+    from lesionvae_tpu_torch.ops import adam
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, offset, stride_pad in ((3, 0, 2), (3, 1, 1), (1, 3, 0), (3, None, 0)):
+            grads = norm_edge_leaves(gen, T, dtype)
+            grads[2][0, 5, 7] = float("nan")
+            grads[5][0, 77] = float("inf")
+            outs = []
+            for fn in (adam.grad_sq_norm, adam.grad_sq_norm, adam.grad_sq_norm_plain):
+                dsts = []
+                for x in grads:
+                    if offset is None:
+                        dsts.append(None)
+                        continue
+                    n = x[0].numel()
+                    buf = torch.zeros((T, offset + n + stride_pad), dtype=dtype, device="cuda")
+                    dsts.append(buf[:, offset:offset + n].view(x.shape))
+                work = adam.norm_work([x.shape[1:] for x in grads], T, "cuda")
+                sq = torch.zeros(T, device="cuda")
+                norm = torch.zeros(T, device="cuda")
+                fn(grads, dsts, work, sq, norm)
+                outs.append([d for d in dsts if d is not None] + [sq, norm])
+            torch.cuda.synchronize()
+            routes = sorted({(e.rows_fast, e.src_vec, e.dst_vec)
+                             for e in adam.norm_table(grads, dsts, work, sq, norm)})
+            where = (f"{str(dtype)[6:]} T={T} destination offset {offset} member "
+                     f"stride +{stride_pad}, routes {routes}")
+            for i, (got, again, want) in enumerate(zip(*outs)):
+                if not same_bits_nan(got, want) or not same_bits_nan(got, again):
+                    fail(f"gradient norm kernel vs plain at the alignment edges, {where}: "
+                         f"output {i} differs in {bits_differ(got, want)} elements "
+                         f"(second call {bits_differ(got, again)})")
+            if not torch.isnan(outs[0][-1][0]):
+                fail(f"gradient norm at the alignment edges, {where}: member 0's norm "
+                     f"{float(outs[0][-1][0])} is not NaN")
+            cases += 1
+    return cases
 
 
 def adam_step_errors() -> dict:
@@ -870,13 +951,15 @@ def adam_sass_lines() -> dict:
     """One ``[sass]`` line per function of csrc/adam.cu with its registers
     (``ops.adam.kernel_attributes``): the update's hot loop per element (its
     16-byte body holds four elements, one root each), the gather's whole
-    function over the 8 elements a thread takes of a tile (both dtypes'
-    paths and both load orders count), the finishing kernel whole."""
+    function per element of its unit of work, the 64 elements a lane takes
+    of a tile (both dtypes' and every route's code count), the finishing
+    kernel whole; and one ``[occupancy]`` line: the gather's blocks an SM."""
     from lesionvae_tpu_torch.ops import adam, cuda_build
 
     text = cuda_build.sass("adam")
     loops = cuda_build.inner_loops(text, r"^MUFU\.RSQ")
     attrs = adam.kernel_attributes()
+    lane_tile = adam.TILE_ROWS * adam.TILE_COLS // 32
     out = {}
     for fn, code in cuda_build.sass_functions(text).items():
         name = next((k for k in adam.KERNELS if k in fn), fn)
@@ -887,15 +970,21 @@ def adam_sass_lines() -> dict:
             counts = {c: 0 for c in cuda_build.SASS_CLASSES}
             for _addr, op, _full, _operands in code:
                 counts[cuda_build.sass_class(op)] += 1
-            unit = adam.PER_THREAD if name == "norm_tiles_kernel" else 1
+            unit = lane_tile if name == "norm_tiles_kernel" else 1
             per = {k: v / unit for k, v in counts.items()}
             per["total"] = len(code) / unit
-            what = (f"element (whole function of {len(code)} instructions, {unit} elements "
-                    "a thread)" if unit > 1 else f"block (whole function)")
+            what = (f"element (whole function of {len(code)} instructions over the {unit} "
+                    "elements a lane takes of a tile)" if unit > 1
+                    else "block (whole function)")
         out[name] = {"per": {k: round(v, 3) for k, v in per.items()}, **attrs.get(name, {})}
         print(f"[sass] adam:{name} per {what}: {json.dumps(out[name]['per'])}; "
               f"registers {attrs[name]['registers']}, local bytes "
               f"{attrs[name]['local_bytes']}, shared bytes {attrs[name]['shared_bytes']}")
+    blocks = adam.norm_blocks_per_sm()
+    out["norm_tiles_kernel"]["occupancy"] = {"blocks_per_sm": blocks,
+                                             "warps_per_sm": blocks * adam.WARPS}
+    print(f"[occupancy] adam:norm_tiles_kernel ({adam.WARPS} warps a block, a tile a "
+          f"warp): {blocks} blocks, {blocks * adam.WARPS} tiles an SM at once")
     return out
 
 
@@ -2987,11 +3076,15 @@ def main(argv=None) -> int:
         "bound_by": norm_t["bound_by"], "issue_bound_ms": norm_t["issue_bound_ms"],
         "library_ms": None,
         "library_note": no_library + "the gather of 36 strided leaves into packed rows "
-                        "with a norm a member",
+                        "with a norm a member (the leaves' copies alone, graph-replayed: "
+                        "copy_floor_informative_ms)",
+        "copy_floor_informative_ms": norm_t["copy_floor_informative_ms"],
+        "eager_ms": norm_t["eager_ms"], "by_kernel_us": norm_t["by_kernel_us"],
         "bf16": opt_t["grad_sq_norm_bf16"], "step_f32": opt_t["step_f32"],
         "step_bf16": opt_t["step_bf16"],
         "registers": {k: adam_sass[k]["registers"] for k in ("norm_tiles_kernel",
                                                              "norm_finish_kernel")},
+        "occupancy": adam_sass["norm_tiles_kernel"]["occupancy"],
         "sass_per_element": adam_sass["norm_tiles_kernel"]["per"]}, {
         "name": "adam_step", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/adam.cu",

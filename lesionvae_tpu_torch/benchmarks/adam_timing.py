@@ -11,7 +11,15 @@ elements a member):
 - ``grad_sq_norm`` over the 36 leaf gradients of one real 64-member fleet
   step (as autograd returns them, the dense and convolution weights
   transposed inside a member) into the optimizer's packed rows: float32
-  gradients (float32 storage) and bf16 weight gradients (bf16 storage);
+  gradients (float32 storage) and bf16 weight gradients (bf16 storage).
+  ``ms`` is the launch replayed from a CUDA graph, as the training program
+  runs it (an eager call builds its leaf table on the host, which in bf16
+  takes longer than the kernels: ``eager_ms``); ``by_kernel_us`` splits it
+  between the tiles and the finishing launch (``torch.profiler``);
+- as an informative line, the gather's library floor: the leaves' copies
+  into the packed rows alone (``torch._foreach_copy_``, or one ``copy_`` a
+  leaf where PyTorch has no ``_foreach_copy_``), replayed from a CUDA graph;
+  it computes no norm, so it is not a yardstick of the same function;
 - ``adam_step`` on the 64-member weight rows, the 64 x 1,088 affine rows,
   and the single VAE's flat buffer (one member of 2,742,241);
 - the whole optimizer step as the fleet runs it (``LowmemOptimizer.step``)
@@ -114,6 +122,46 @@ def in_turns(a, b, reps: int = CHAIN_REPS, inner: int = CHAIN_INNER) -> Dict[str
     return {"parent": first, "kernels": second}
 
 
+def graph_ms(fn, reps: int = 25, inner: int = 20) -> float:
+    """Device ms of ``fn`` captured once in a CUDA graph and replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return device_ms(graph.replay, reps, inner)
+
+
+def by_kernel_us(fn, calls: int = 20) -> Dict[str, float]:
+    """Device microseconds a call of ``fn`` by kernel name (``torch.profiler``
+    over ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("::")[-1]: e.device_time_total / calls
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def copy_floor_ms(srcs, dsts) -> float:
+    """The leaves' copies into their packed destinations alone, replayed
+    from a CUDA graph: ``torch._foreach_copy_`` where PyTorch has it, else
+    one ``copy_`` a leaf."""
+    pairs = [(d, x) for x, d in zip(srcs, dsts) if d is not None]
+    if hasattr(torch, "_foreach_copy_"):
+        def fn():
+            torch._foreach_copy_([d for d, _ in pairs], [x for _, x in pairs])
+    else:
+        def fn():
+            for d, x in pairs:
+                d.copy_(x)
+    return graph_ms(fn)
+
+
 def norm_args(opt: LowmemOptimizer, grads: Dict[str, torch.Tensor]) -> tuple:
     """``grad_sq_norm``'s arguments as ``LowmemOptimizer.step`` passes them."""
     return [grads[n] for n in opt._names], opt._dsts, opt._work, opt.sq, opt.g_norm
@@ -146,13 +194,17 @@ def timings() -> dict:
         args = norm_args(opt, grads)
         finite = torch.ones(MEMBERS, dtype=torch.bool, device="cuda")
         before = adam.grad_sq_norm.launches
-        out[f"grad_sq_norm_{label}"] = {
-            "ms": device_ms(lambda: adam.grad_sq_norm(*args)),
-            "plain_ms": device_ms(lambda: adam.grad_sq_norm_plain(*args), 3, 2),
-            **adam.norm_bound_ms(args[0], args[1]),
-            "bytes": adam.norm_bytes(args[0], args[1]), "tiles": args[2].shape[1],
-            "transposed_leaves": [n for n, x in grads.items()
-                                  if adam.inner_strides(x)[0] == 1 and x.dim() > 2]}
+        norm = {"ms": graph_ms(lambda: adam.grad_sq_norm(*args)),
+                "eager_ms": device_ms(lambda: adam.grad_sq_norm(*args)),
+                "plain_ms": device_ms(lambda: adam.grad_sq_norm_plain(*args), 3, 2),
+                **adam.norm_bound_ms(args[0], args[1]),
+                "bytes": adam.norm_bytes(args[0], args[1]), "tiles": args[2].shape[1],
+                "transposed_leaves": [n for n, x in grads.items()
+                                      if adam.inner_strides(x)[0] == 1 and x.dim() > 2],
+                "by_kernel_us": by_kernel_us(lambda: adam.grad_sq_norm(*args)),
+                "copy_floor_informative_ms": copy_floor_ms(args[0], args[1])}
+        norm["share_of_bound"] = norm["bound_ms"] / norm["ms"]
+        out[f"grad_sq_norm_{label}"] = norm
         # the optimizer step as the path runs it, against the parent's chain
         turns = in_turns(lambda: parent_step(opt, grads, finite),
                          lambda: opt.step(grads, finite))
@@ -179,6 +231,8 @@ def timings() -> dict:
         del a
         torch.cuda.empty_cache()
     out["registers"] = adam.kernel_attributes()
+    if hasattr(adam, "norm_blocks_per_sm"):
+        out["norm_blocks_per_sm"] = adam.norm_blocks_per_sm()
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

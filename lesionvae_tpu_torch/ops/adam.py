@@ -12,10 +12,12 @@ dtype; None copies nothing), and each member's sum of squares over every
 leaf goes to ``sq`` and its root to ``g_norm`` ((T,) float32).  The sum has
 one order, the kernel's (``csrc/adam.cu``, header): each leaf as a matrix
 (``leaf_grid``) cut into tiles of 32 x 64 (``leaf_tiles``), 8 squares a
-thread added in turn, 256 threads in a tree, then each member's tile
+logical lane added in turn, 256 lanes in a tree, then each member's tile
 partials the same way (``lane_tree``).  ``work`` is the (T, n_tiles) float32
 workspace of the partials (``norm_work``), made once beside the buffers it
-serves so that a captured launch keeps its address.
+serves so that a captured launch keeps its address.  How the kernel moves
+the tiles (a warp a tile, ``warp_tile``; each leaf's loads and stores,
+``leaf_route``) changes none of that order.
 
 ``adam_step(p, m, v, g, g_norm, bc1, bc2, finite, hyper)``: in place on
 (T, n) rows p, m, v with the gradient g, each member with its own norm,
@@ -45,10 +47,12 @@ from .cuda_build import count_launch, load
 from .sr_adam import (CLOCK_HZ, ISSUE_LANES, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS,
                       SM_COUNT, consts)
 
-THREADS = 256                  # csrc/adam.cu: THREADS (a tile's lanes)
+THREADS = 256                  # csrc/adam.cu: THREADS (a tile's logical lanes)
 TILE_ROWS, TILE_COLS = 32, 64  # csrc/adam.cu: TILE_R, TILE_C
 PER_THREAD = TILE_ROWS * TILE_COLS // THREADS
 MAX_LEAVES = 48                # csrc/adam.cu: MAX_LEAVES
+WARPS = 8                      # csrc/adam.cu: WARPS (tiles a block of the gather)
+LOAD_BYTES = 16                # the widest load down a column, and its alignment
 VEC = 4                        # float32 per 16-byte load of the update
 INT32_MAX = 2 ** 31 - 1
 # device-memory traffic of the update: p, m, v read and written, g read
@@ -173,7 +177,8 @@ class Leaf(ctypes.Structure):
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
                 *[(f, ctypes.c_int32) for f in (
                     "src_member", "dst_member", "s0", "s1", "s2", "rows", "cols",
-                    "d2", "n", "bf16", "first_tile", "col_tiles")]]
+                    "d2", "n", "bf16", "first_tile", "col_tiles", "rows_fast",
+                    "src_vec", "dst_vec")]]
 
 
 def inner_strides(x: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -208,6 +213,39 @@ def _int32(value: int, what: str) -> int:
     if abs(value) > INT32_MAX:
         raise ValueError(f"{what} {value} does not fit the kernel's 32-bit fields")
     return value
+
+
+def leaf_route(x: torch.Tensor, d: Optional[torch.Tensor]) -> dict:
+    """How the kernel moves a gradient ``x`` (T, *shape) and its destination
+    ``d``, lane i of a warp taking columns 2i and 2i + 1 of a tile:
+    ``rows_fast`` 1 where the rows are the source's fastest dim (a lane
+    loads down its two columns), else 0 (along the rows); ``src_vec`` the
+    elements of one load: down a column 16 bytes' worth where every column
+    of every member starts 16-byte aligned, along a row 2 (a bf16x2 or
+    float2) where every row starts at an even element and its columns are
+    contiguous, else 1; ``dst_vec`` 2 where every packed row of every member
+    starts at an even element (a lane stores its two columns as one), else
+    1."""
+    size = x.element_size()
+    s0, d2, s1, s2 = inner_strides(x)
+    rows, cols = leaf_grid(tuple(x.shape[1:]))
+    rows_fast = int(s0 == 1 and s2 != 1)
+    vec = LOAD_BYTES // size if rows_fast else 2
+
+    def aligned(ptr: int, member: int, *strides: int) -> bool:
+        return (ptr % (vec * size) == 0 and (x.shape[0] == 1 or member % vec == 0)
+                and all(s % vec == 0 for s in strides))
+
+    if rows_fast:   # every column's first row aligned
+        src = aligned(x.data_ptr(), x.stride(0), s2, *([] if d2 == cols else [s1]))
+    else:           # every row contiguous over its columns, its first aligned
+        src = (s2 == 1 and d2 == cols
+               and aligned(x.data_ptr(), x.stride(0), *([] if rows == 1 else [s0])))
+    pairs = d is not None and (d.data_ptr() % (2 * size) == 0
+                               and (d.shape[0] == 1 or d.stride(0) % 2 == 0)
+                               and (rows == 1 or cols % 2 == 0))
+    return {"rows_fast": rows_fast, "src_vec": vec if src else 1,
+            "dst_vec": 2 if pairs else 1}
 
 
 def norm_table(grads: Sequence[torch.Tensor], dsts: Sequence[Optional[torch.Tensor]],
@@ -247,6 +285,8 @@ def norm_table(grads: Sequence[torch.Tensor], dsts: Sequence[Optional[torch.Tens
         e.n = _int32(x[0].numel(), "a leaf's elements")
         e.bf16 = int(x.dtype == torch.bfloat16)
         e.first_tile, e.col_tiles = first, col_tiles
+        for key, value in leaf_route(x, d).items():
+            setattr(e, key, value)
         first += tiles
     if (work.dtype != torch.float32 or work.shape != (T, first)
             or not work.is_contiguous() or work.device != device):
@@ -260,6 +300,23 @@ def norm_table(grads: Sequence[torch.Tensor], dsts: Sequence[Optional[torch.Tens
             raise ValueError(f"{name}: a contiguous ({T},) float32 tensor on {device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     return table
+
+
+def warp_tile(g: int, n_tiles: int, table) -> Tuple[int, int, int]:
+    """(member, leaf, tile of the leaf) of warp ``g`` of the gather (csrc/
+    adam.cu: warp g = blockIdx.x * WARPS + warp takes the g-th (member,
+    tile) pair, g = member * n_tiles + tile, and writes its partial to
+    ``work``'s element g); the leaf is the last whose first tile is at most
+    the tile."""
+    member, i = divmod(g, n_tiles)
+    lo, hi = 0, len(table) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if table[mid].first_tile <= i:
+            lo = mid
+        else:
+            hi = mid - 1
+    return member, lo, i - table[lo].first_tile
 
 
 def adam_check(p, m, v, g, g_norm, bc1, bc2, finite) -> Tuple[int, int, int, bool]:
@@ -303,8 +360,9 @@ def _lib():
                                            ctypes.c_longlong, ctypes.c_int]
                                         + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     lib.lesionvae_adam_attributes.argtypes = [ctypes.c_void_p]
+    lib.lesionvae_norm_blocks_per_sm.argtypes = []
     for fn in (lib.lesionvae_grad_sq_norm, lib.lesionvae_adam_step,
-               lib.lesionvae_adam_attributes):
+               lib.lesionvae_adam_attributes, lib.lesionvae_norm_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -323,6 +381,16 @@ def kernel_attributes() -> dict:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
     return {k: {"registers": out[3 * i], "local_bytes": out[3 * i + 1],
                 "shared_bytes": out[3 * i + 2]} for i, k in enumerate(KERNELS)}
+
+
+def norm_blocks_per_sm() -> int:
+    """Blocks of the gather (``WARPS`` tiles each) an SM holds at once, as
+    the build made it (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = _lib().lesionvae_norm_blocks_per_sm()
+    if n <= 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
+                           f"cudaError {-n}")
+    return n
 
 
 def _stream(t: torch.Tensor) -> int:

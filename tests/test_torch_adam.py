@@ -382,25 +382,12 @@ def test_norm_table_of_the_paths_leaves():
     """A real step's gradients (the fleet's, from autograd on the CPU) go
     into the table: the transposed leaves read down their rows, every leaf
     starts where the one before ended, and the table holds what the kernel
-    reads (csrc/adam.cu: Leaf, 64 bytes)."""
-    from lesionvae_tpu_torch.models.fleet import fleet_forward
-    from lesionvae_tpu_torch.train.batched import elbo_fleet, init_state_dicts
-
-    assert ctypes.sizeof(adam.Leaf) == 64
+    reads (csrc/adam.cu: Leaf, 80 bytes)."""
+    assert ctypes.sizeof(adam.Leaf) == 80
     lay = layout(SEQ, MC, LC, LAT)
     for store in (None, torch.bfloat16):
-        state = FleetState.from_state_dicts(init_state_dicts(2, lay.hyper, 0), lay,
-                                            torch.float32, store, "cpu")
-        leaves = state.grad_leaves()
-        g = torch.Generator().manual_seed(0)
-        xm, xl = torch.randn((2, 8, SEQ, MC), generator=g), torch.rand((2, 8, SEQ, LC))
-        xh, mu, logv, _ = fleet_forward(lay, leaves, state.stats, xm, xl,
-                                        torch.ones(2, 8), torch.randn((2, 8, LAT)), True,
-                                        None)
-        loss = elbo_fleet(xh, xm, mu, logv, 1.0, torch.ones(2, 8))[0]
+        opt, grads = _fleet_step_grads(lay, 2, store)
         names = list(lay.leaves)
-        grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in names])
-        opt = tlow.LowmemOptimizer(state, LR, WD, CLIP)
         table = adam.norm_table(list(grads), opt._dsts, opt._work, opt.sq, opt.g_norm)
         first = 0
         for e, name, x, d in zip(table, names, grads, opt._dsts):
@@ -410,8 +397,112 @@ def test_norm_table_of_the_paths_leaves():
             assert e.bf16 == (x.dtype == torch.bfloat16) and e.first_tile == first
             first += adam.leaf_tiles(tuple(x.shape[1:]))[0]
             if name in ("fc_dec.weight", "fc_mu.weight", "micro_c1.weight"):
-                assert e.s0 == 1 and e.s2 != 1, name       # read down the rows
+                assert e.s0 == 1 and e.s2 != 1 and e.rows_fast == 1, name  # down the rows
         assert first == opt._work.shape[1]
+
+
+def _fleet_step_grads(lay, members, store, batch=4):
+    """An optimizer of a fleet of ``members`` at ``lay``'s widths (weights
+    stored in ``store``) and the leaf gradients of one training step, as
+    autograd returns them on the CPU."""
+    from lesionvae_tpu_torch.models.fleet import fleet_forward
+    from lesionvae_tpu_torch.train.batched import elbo_fleet, init_state_dicts
+
+    seq, mc, lc, lat = (lay.hyper[k] for k in ("seq_len", "micro_ch", "lesion_ch",
+                                               "latent"))
+    state = FleetState.from_state_dicts(init_state_dicts(members, lay.hyper, 0), lay,
+                                        torch.float32, store, "cpu")
+    leaves = state.grad_leaves()
+    g = torch.Generator().manual_seed(0)
+    xm = torch.randn((members, batch, seq, mc), generator=g)
+    xl = torch.rand((members, batch, seq, lc), generator=g)
+    xh, mu, logv, _ = fleet_forward(lay, leaves, state.stats, xm, xl,
+                                    torch.ones(members, batch),
+                                    torch.randn((members, batch, lat), generator=g), True,
+                                    None)
+    loss = elbo_fleet(xh, xm, mu, logv, 1.0, torch.ones(members, batch))[0]
+    grads = torch.autograd.grad(loss.sum(), [leaves[n] for n in lay.leaves])
+    return tlow.LowmemOptimizer(state, LR, WD, CLIP), grads
+
+
+def _route(e):
+    return (e.rows_fast, e.src_vec, e.dst_vec)
+
+
+# the routes of the full-width path's leaves (seq 100, 13 + 3 channels,
+# latent 10), as (rows_fast, src_vec, dst_vec): fc_dec.weight (90% of the
+# bytes) loaded down its 1,536 rows 16 bytes at a time and stored in pairs;
+# fc_mu/fc_logv.weight columns of 10 rows (not 16-byte aligned) element by
+# element; micro_c1.weight's packed rows of 65 stored one element at a
+# time; dec_t1.weight's two column strides element by element; the biases
+# and the BatchNorm leaves (float32 in both storages) loaded along their
+# rows in pairs where a member's row is even (dec_t3.bias's 13 is not)
+PATH_ROUTES = {
+    "f32": {"fc_dec.weight": (1, 4, 2), "fc_logv.weight": (1, 1, 2),
+            "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (1, 4, 1),
+            "micro_c3.weight": (1, 4, 2), "dec_t1.weight": (0, 1, 2),
+            "fc_mu.bias": (0, 2, 2), "fc_dec.bias": (0, 2, 2), "dec_t3.bias": (0, 1, 2),
+            "micro_b1.weight": (0, 2, 2)},
+    "bf16": {"fc_dec.weight": (1, 8, 2), "fc_logv.weight": (1, 1, 2),
+             "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (1, 8, 1),
+             "lesion_c1.weight": (1, 8, 1), "dec_t1.weight": (0, 1, 2),
+             "micro_c1.bias": (0, 2, 2), "fc_mu.bias": (0, 2, 2), "fc_dec.bias": (0, 2, 2),
+             "dec_t3.bias": (0, 1, 2), "micro_b1.weight": (0, 2, 2)},
+}
+
+
+def _flat_case(dtype, shape, offset, row, T=2):
+    """A contiguous (T, *shape) gradient and its destination, a view at
+    element ``offset`` of packed rows of ``row`` elements a member."""
+    x = torch.zeros((T, *shape), dtype=dtype)
+    buf = torch.zeros((T, row), dtype=dtype)
+    n = math.prod(shape)
+    return [x], [buf[:, offset:offset + n].view(T, *shape)]
+
+
+@pytest.mark.parametrize("case", ["path f32", "path bf16", "odd destination",
+                                  "fc_logv offset bf16", "fc_logv offset f32",
+                                  "single flat", "one bf16 row", "one bf16 row odd",
+                                  "odd member stride"])
+def test_norm_table_routes(case):
+    """``norm_table``'s routes (``ops.adam.leaf_route``): which way a lane
+    loads its two columns of a tile (down them, or along the rows), the
+    elements of one load (16 bytes' worth down a column where every column
+    starts aligned, a pair along a row where every row starts at an even
+    element, else 1) and of one destination store (2 where every packed row
+    starts at an even element, else 1)."""
+    if case.startswith("path"):
+        lay = layout(100, 13, 3, 10)        # full width
+        store = torch.bfloat16 if case.endswith("bf16") else None
+        opt, grads = _fleet_step_grads(lay, 2, store, batch=2)
+        table = adam.norm_table(list(grads), opt._dsts, opt._work, opt.sq, opt.g_norm)
+        routes = dict(zip(lay.leaves, map(_route, table)))
+        want = PATH_ROUTES[case.split()[1]]
+        assert {n: routes[n] for n in want} == want
+        return
+    T = 1 if case == "single flat" else 2
+    if case == "odd destination":       # pairs would straddle: one element a store
+        grads, dsts = _flat_case(torch.float32, (6, 64), 3, 400)
+        want = (0, 2, 1)
+    elif case.startswith("fc_logv"):    # 169,546 = 2 mod 8: pairs still aligned
+        dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+        grads, dsts = _flat_case(dtype, (10, 3136), 169_546, 2_741_160)
+        want = (0, 2, 2)
+    elif case == "single flat":         # the single VAE's flat gradient, one leaf
+        grads, dsts = [torch.zeros((1, 2_742_241))], [None]
+        want = (0, 2, 1)
+    elif case == "one bf16 row":
+        grads, dsts = _flat_case(torch.bfloat16, (1, 64), 0, 64)
+        want = (0, 2, 2)
+    elif case == "one bf16 row odd":    # members 51 elements apart: no pair loads
+        grads, dsts = _flat_case(torch.bfloat16, (1, 51), 0, 52)
+        want = (0, 1, 2)
+    else:                               # an odd member stride of the destination
+        grads, dsts = _flat_case(torch.float32, (4, 64), 0, 257)
+        want = (0, 2, 1)
+    work = adam.norm_work([x.shape[1:] for x in grads], T, "cpu")
+    table = adam.norm_table(grads, dsts, work, torch.zeros(T), torch.zeros(T))
+    assert _route(table[0]) == want
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -438,98 +529,239 @@ def test_norm_checks_refuse(bad, err, match):
 
 
 # ------------------------------------------------------------ the kernel's order
+def _rows_fast(x):
+    """The same values with the rows (dim 1) the fastest dim of a member."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize("shapes,members,dtype", [
+    ([(70, 40)], 3, torch.float32), ([(1536, 1610), (13,)], 2, torch.float32),
+    ([(1536, 1610), (13,)], 2, torch.bfloat16), ([(5,), (64, 5, 2), (100,)], 4, torch.float32),
+    ([(100, 70), (96, 8), (33, 9), (32, 16)], 2, torch.bfloat16)])
+def test_warp_tile_takes_every_tile_once(shapes, members, dtype):
+    """The gather's schedule (``ops.adam.warp_tile``): warp g takes member g
+    // n_tiles and, of its leaves, the one whose tiles hold tile g %
+    n_tiles, so every (member, leaf, tile) is taken by one warp and its
+    partial lands in its slot of the workspace."""
+    grads = [torch.zeros((members, *s), dtype=dtype) for s in shapes]
+    grads = [_rows_fast(x) if x.dim() == 3 else x for x in grads]
+    work = adam.norm_work(shapes, members, "cpu")
+    table = adam.norm_table(grads, [None] * len(grads), work, torch.zeros(members),
+                            torch.zeros(members))
+    n_tiles = work.shape[1]
+    taken = [adam.warp_tile(g, n_tiles, table) for g in range(members * n_tiles)]
+    want = [(m, k, j) for m in range(members) for k, s in enumerate(shapes)
+            for j in range(adam.leaf_tiles(s)[0])]
+    assert taken == want
+    for g, (m, k, j) in enumerate(taken):
+        assert m * n_tiles + table[k].first_tile + j == g
+
+
+def _storage_bytes(x: torch.Tensor) -> np.ndarray:
+    """The bytes of ``x``'s storage, sharing its memory."""
+    return torch.empty(0, dtype=torch.uint8).set_(x.untyped_storage()).numpy()
+
+
 def _simulate_kernel(grads, dsts, members):
-    """``csrc/adam.cu`` thread by thread in float32 scalars: each block reads
-    its leaf through the table's strides from the tensor's storage, writes
-    its destination, sums squares in its threads and its tree; then the
-    finishing block.  Returns (sq, g_norm, the packed destinations)."""
+    """``csrc/adam.cu``'s gather lane by lane in float32: warp g takes its
+    tile (``warp_tile``); lane i loads the raw bits of the tile's columns 2i
+    and 2i + 1 by its leaf's route (16 bytes down a column, a pair along a
+    row, or one element; a wide load's address must be aligned to its
+    width), +0 outside the leaf; stores its pairs into the packed
+    destination (a pair store's address must be aligned to the pair); adds
+    the squares of each logical lane b + 2i + 64q (row 4k + q) in turn, the
+    tree's levels 128 and 64 in the lane, 32..2 as shuffles, 1 in the lane;
+    then each member's finishing block.  Returns (sq, g_norm, the (T,
+    n_tiles) partials), and writes ``dsts``."""
     f32 = np.float32
+    n_tiles = sum(adam.leaf_tiles(tuple(x.shape[1:]))[0] for x in grads)
     table = adam.norm_table(grads, dsts, adam.norm_work(
         [x.shape[1:] for x in grads], members, "cpu"), torch.zeros(members),
         torch.zeros(members))
-    stores = [torch.tensor([], dtype=x.dtype).set_(x.untyped_storage()).float().numpy()
-              for x in grads]
-    out = [np.zeros(d.numel(), np.float32) if d is not None else None for d in dsts]
+    srcs = [(_storage_bytes(x), x.untyped_storage().data_ptr(), x.storage_offset())
+            for x in grads]
+    outs = [(_storage_bytes(d), d.untyped_storage().data_ptr(), d.storage_offset())
+            if d is not None else None for d in dsts]
+    partials = np.zeros(members * n_tiles, np.float32)
 
-    def tree(a):
-        a = list(a)
+    def col_offset(e, c):
+        return (c // e.d2) * e.s1 + (c % e.d2) * e.s2
+
+    def gather(g):
+        member, k, j = adam.warp_tile(g, n_tiles, table)
+        e = table[k]
+        size = 2 if e.bf16 else 4
+        buf, ptr, off = srcs[k]
+        tr, tc = divmod(j, e.col_tiles)
+        r0 = tr * 32
+        src = member * e.src_member
+        x = np.zeros((32, 32, 2), np.uint32)           # [lane, row, column b]
+
+        def load(i, count):
+            at = (off + i) * size
+            if count > 1:
+                assert (ptr + at) % (count * size) == 0, "an unaligned load"
+            raw = buf[at:at + count * size]
+            return (raw.view(np.uint16) if size == 2 else raw.view(np.uint32)).astype(
+                np.uint32)
+
+        for lane in range(32):
+            c = tc * 64 + 2 * lane
+            if e.rows_fast:
+                nr = e.rows - r0
+                for b in range(2):
+                    if c + b >= e.cols:
+                        continue
+                    a = src + r0 + col_offset(e, c + b)
+                    vw = e.src_vec
+                    for v in range(32 // vw):
+                        if vw > 1 and v * vw + vw <= nr:
+                            x[lane, v * vw:(v + 1) * vw, b] = load(a + v * vw, vw)
+                        else:
+                            for r in range(v * vw, (v + 1) * vw):
+                                if r < nr:
+                                    x[lane, r, b] = load(a + r, 1)[0]
+            else:
+                for r in range(32):
+                    if r0 + r >= e.rows:
+                        continue
+                    lim = min(e.cols, e.n - (r0 + r) * e.cols)
+                    row = src + (r0 + r) * e.s0
+                    if c + 1 < lim and e.src_vec == 2:
+                        x[lane, r] = load(row + col_offset(e, c), 2)
+                    else:
+                        for b in range(2):
+                            if c + b < lim:
+                                x[lane, r, b] = load(row + col_offset(e, c + b), 1)[0]
+        y = (x << 16 if size == 2 else x).view(np.float32)
+        if outs[k] is not None:
+            obuf, optr, ooff = outs[k]
+            for r in range(32):
+                if r0 + r >= e.rows:
+                    continue
+                lim = min(e.cols, e.n - (r0 + r) * e.cols)
+                for lane in range(32):
+                    c = tc * 64 + 2 * lane
+                    ok = [c < lim, c + 1 < lim]
+                    at = (ooff + member * e.dst_member + (r0 + r) * e.cols + c) * size
+                    if e.dst_vec == 2 and all(ok):
+                        assert (optr + at) % (2 * size) == 0, "an unaligned pair store"
+                    for b in range(2):
+                        if ok[b]:
+                            raw = x[lane, r, b:b + 1].astype(
+                                np.uint16 if size == 2 else np.uint32).view(np.uint8)
+                            obuf[at + b * size:at + (b + 1) * size] = raw
+        acc = np.zeros((4, 32, 2), np.float32)
+        for r in range(32):
+            acc[r % 4] = acc[r % 4] + y[:, r] * y[:, r]
+        a0 = (acc[0] + acc[2]) + (acc[1] + acc[3])
+        for w in (16, 8, 4, 2, 1):      # shfl_down: lane l + w past 31 reads itself
+            a0 = a0 + np.concatenate([a0[w:], a0[32 - w:]])
+        partials[g] = f32(a0[0, 0] + a0[0, 1])
+
+    for g in range(members * n_tiles):
+        gather(g)
+
+    def tree(v):
+        v = list(v)
         for w in (128, 64, 32):
             for t in range(w):
-                a[t] = f32(a[t] + a[t + w])
-        v = a[:32]
-        for w in (16, 8, 4, 2, 1):      # shfl_down: lane l + w past 31 reads itself
-            v = [f32(v[lane] + (v[lane + w] if lane + w < 32 else v[lane]))
-                 for lane in range(32)]
-        return v[0]
+                v[t] = f32(v[t] + v[t + w])
+        lanes = v[:32]
+        for w in (16, 8, 4, 2, 1):
+            lanes = [f32(lanes[i] + (lanes[i + w] if i + w < 32 else lanes[i]))
+                     for i in range(32)]
+        return lanes[0]
 
     sq = []
     for member in range(members):
-        partials = []
-        for e, x, store, dst in zip(table, grads, stores, out):
-            for j in range(adam.leaf_tiles(tuple(x.shape[1:]))[0]):
-                tr, tc = divmod(j, e.col_tiles)
-                acc = [f32(0)] * 256
-                for t in range(256):
-                    c = tc * 64 + t % 64
-                    for k in range(8):
-                        r = tr * 32 + t // 64 + 4 * k
-                        if not (r < e.rows and c < e.cols and r * e.cols + c < e.n):
-                            continue
-                        col = (c // e.d2) * e.s1 + (c % e.d2) * e.s2
-                        xv = f32(store[x.storage_offset() + member * e.src_member
-                                       + r * e.s0 + col])
-                        acc[t] = f32(acc[t] + f32(xv * xv))
-                        if e.dst:
-                            dst[member * e.dst_member + r * e.cols + c] = xv
-                partials.append(tree(acc))
         acc = [f32(0)] * 256
-        for i, part in enumerate(partials):
+        for i, part in enumerate(partials[member * n_tiles:(member + 1) * n_tiles]):
             acc[i % 256] = f32(acc[i % 256] + part)
         sq.append(tree(acc))
     sq = np.array(sq, np.float32)
-    return sq, np.sqrt(sq), out
+    return sq, np.sqrt(sq), partials.reshape(members, n_tiles)
 
 
-def test_plain_order_is_the_kernels_thread_by_thread():
-    """Three leaves, two members: a transposed float32 matrix over several
-    tiles with a ragged edge, a bf16 vector of 100 (rows of 64), a float32
-    convolution weight whose columns take two strides; the plain version's
+def _order_leaves(rng, T):
+    """Leaves of every route: a transposed float32 matrix whose columns of
+    70 rows take no 16-byte load (element by element, ragged), transposed
+    float32 (40 rows) and bf16 (72 rows) matrices loaded down their rows 16
+    bytes at a time past a row-tile edge, a bf16 vector of 104 (rows of 64,
+    pairs, the last row partial) and one of 101 (an odd member stride,
+    element by element), a float32 convolution weight whose columns take
+    two strides, a row-major float32 matrix of 33 columns, and a bf16 leaf
+    of one row."""
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=(T, *shape)).astype(np.float32)).to(dtype)
+
+    c = normal(6, 5, 3).permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)
+    grads = [_rows_fast(normal(70, 40)), _rows_fast(normal(40, 70)),
+             _rows_fast(normal(72, 100, dtype=torch.bfloat16)),
+             normal(104, dtype=torch.bfloat16), normal(101, dtype=torch.bfloat16), c,
+             normal(9, 33), normal(1, 50, dtype=torch.bfloat16)]
+    return grads
+
+
+def _packed_dsts(grads, odd):
+    """Each leaf's destination in its own packed rows of its dtype, one
+    element in (``odd``) or at the start, a member's row an even number of
+    elements longer than the leaf."""
+    out = []
+    for x in grads:
+        n = x[0].numel()
+        buf = torch.zeros((x.shape[0], n + 2 + n % 2), dtype=x.dtype)
+        out.append(buf[:, int(odd):int(odd) + n].view(x.shape))
+    return out
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_plain_order_is_the_kernels_thread_by_thread(odd):
+    """Leaves of every route (``_order_leaves``) and two members, the kernel
+    simulated lane by lane, destinations at an even and at an odd element:
+    the plain version's tile partials (``lane_tree`` of ``tile_squares``),
     sum of squares and root equal the simulated kernel's bit for bit, and
-    both write the same packed rows."""
+    both write the same packed rows; the routes the table gives are the
+    ones the leaves are chosen for."""
     rng = np.random.default_rng(4)
     T = 2
-    a = torch.from_numpy(rng.normal(size=(T, 70, 40)).astype(np.float32))
-    a = a.transpose(1, 2).contiguous().transpose(1, 2)      # (T, 70, 40), rows fastest
-    b = torch.from_numpy(rng.normal(size=(T, 100)).astype(np.float32)).bfloat16()
-    c = torch.from_numpy(rng.normal(size=(T, 6, 5, 3)).astype(np.float32))
-    c = c.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2)   # (T, 6, 5, 3), 2 strides
-    grads = [a, b, c]
-    assert adam.inner_strides(a)[0] == 1 and adam.inner_strides(c)[2] != 0
-    dsts = [torch.zeros(x.shape, dtype=x.dtype) for x in grads]
+    grads = _order_leaves(rng, T)
+    dsts = _packed_dsts(grads, odd)
     sq, norm = torch.zeros(T), torch.zeros(T)
-    adam.grad_sq_norm_plain(grads, dsts, adam.norm_work([x.shape[1:] for x in grads], T,
-                                                        "cpu"), sq, norm)
-    want_sq, want_norm, want_out = _simulate_kernel(
-        grads, [torch.zeros(x.shape, dtype=x.dtype) for x in grads], T)
+    work = adam.norm_work([x.shape[1:] for x in grads], T, "cpu")
+    table = adam.norm_table(grads, dsts, work, sq, norm)
+    assert [(e.rows_fast, e.src_vec) for e in table] == [
+        (1, 1), (1, 4), (1, 8), (0, 2), (0, 1), (0, 1), (0, 1), (0, 2)]
+    assert [e.dst_vec for e in table] == ([1] * 8 if odd else [2] * 5 + [1, 1, 2])
+    adam.grad_sq_norm_plain(grads, dsts, work, sq, norm)
+    sim_dsts = _packed_dsts(grads, odd)
+    want_sq, want_norm, want_part = _simulate_kernel(grads, sim_dsts, T)
+    part = adam.lane_tree(torch.cat([adam.tile_squares(x, torch.float32) for x in grads], 1))
+    np.testing.assert_array_equal(part.numpy().view(np.int32), want_part.view(np.int32))
     np.testing.assert_array_equal(sq.numpy().view(np.int32), want_sq.view(np.int32))
     np.testing.assert_array_equal(norm.numpy().view(np.int32),
                                   want_norm.astype(np.float32).view(np.int32))
-    for d, w in zip(dsts, want_out):
-        np.testing.assert_array_equal(d.float().reshape(-1).numpy(), w)
+    for x, d, w in zip(grads, dsts, sim_dsts):
+        raw = torch.int16 if d.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(d.contiguous().view(raw), w.contiguous().view(raw))
+        assert torch.equal(d, x)
 
 
 def test_kernel_source_holds_the_same_constants_and_fields():
-    """csrc/adam.cu's tile, lanes and table size are the plain version's,
-    and its Leaf has ctypes' fields in the same order."""
+    """csrc/adam.cu's tile, lanes, warps a block and table size are the
+    plain version's and the host's, and its Leaf has ctypes' fields in the
+    same order and size."""
     import re
 
     from lesionvae_tpu_torch.ops import cuda_build
 
     src = (cuda_build.CSRC / "adam.cu").read_text()
     for name, value in (("THREADS", adam.THREADS), ("TILE_R", adam.TILE_ROWS),
-                        ("TILE_C", adam.TILE_COLS), ("MAX_LEAVES", adam.MAX_LEAVES)):
+                        ("TILE_C", adam.TILE_COLS), ("MAX_LEAVES", adam.MAX_LEAVES),
+                        ("WARPS", adam.WARPS)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     body = src[src.index("struct Leaf {"):src.index("};", src.index("struct Leaf {"))]
     fields = re.findall(r"(\w+)(?:\s*,\s*(\w+))?(?:\s*,\s*(\w+))?;", body)
     names = [f for group in fields for f in group if f]
     assert names == [f for f, _t in adam.Leaf._fields_]
+    assert f"static_assert(sizeof(Leaf) == {ctypes.sizeof(adam.Leaf)}," in src
