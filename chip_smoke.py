@@ -67,6 +67,15 @@ Phases; any failure exits non-zero before the result line is printed:
      squares, norms and p, m, v bit-equal (NaN for NaN), a second call the
      same bits, with one ``[sass]`` line and the registers of each of its
      kernel functions and the gather's blocks an SM (``[occupancy]``);
+   - the fleet's convolutions (``ops/csrc/conv1d.cu``: the forward, dx and
+     dw with db), at the eight layers' shapes of the cohort path's step (64
+     members x batch 64, inputs laid out as the step lays them) and at four
+     edge shapes, float32 and bf16: each output's error against the float64
+     product at most CONV_PLAIN_RATIO times the plain version's, and in
+     float32 within KERNEL_TOL (see CONV_PLAIN_RATIO), a second call the
+     same bits, NaN through; one ``[sass]`` line a kernel function and an
+     ``[occupancy]`` line; their launches a step are held on the
+     ``vae-cohort``, ``score-cohort`` and ``all`` paths;
 3. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    a. the ``lesion`` CLI stage on ``cuda`` over the full-scale synthetic
@@ -273,8 +282,8 @@ def fail(msg: str) -> None:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
-    from lesionvae_tpu_torch.ops import (adam, geometry, masked_bn, radius, resident_adam,
-                                         sr_adam)
+    from lesionvae_tpu_torch.ops import (adam, conv1d, geometry, masked_bn, radius,
+                                         resident_adam, sr_adam)
 
     from lesionvae_tpu_torch.train import program
 
@@ -282,7 +291,7 @@ def reset_launches() -> None:
     resident_adam.resident_adam.launches = 0
     sr_adam.sr_adam_step.launches = 0
     geometry.streamline_metrics_stacked.launches = 0
-    for wrapper in masked_bn.WRAPPERS + adam.WRAPPERS:
+    for wrapper in masked_bn.WRAPPERS + adam.WRAPPERS + conv1d.WRAPPERS:
         wrapper.launches = 0
     program.reset_counts()
 
@@ -306,6 +315,49 @@ def masked_bn_launches() -> dict:
     from lesionvae_tpu_torch.ops import masked_bn
 
     return {w.__name__: w.launches for w in masked_bn.WRAPPERS}
+
+
+def conv1d_launches() -> dict:
+    """Launches of each convolution kernel since the last reset."""
+    from lesionvae_tpu_torch.ops import conv1d
+
+    return {w.__name__: w.launches for w in conv1d.WRAPPERS}
+
+
+# a training step of the fleet runs its eight convolutions through the
+# kernels: conv_fwd eight times forward and six times backward (dh; micro_c1
+# and lesion_c1 take the input data), conv_wgrad eight times; an eval
+# forward (the normative summary's, serving's) conv_fwd eight times and the
+# masked BatchNorm apply kernel seven times
+CONV_A_STEP = {"conv_fwd": 14, "conv_wgrad": 8}
+
+
+def eval_forwards(path: str, bn: dict) -> int:
+    """The fleet's eval forwards since the last reset, read off the masked
+    BatchNorm launches ``bn``: seven applies each, beside the general
+    route's training applies (one a pair of statistics launches)."""
+    applies = bn["bn_apply"] - bn["bn_stats"] // 2
+    if applies <= 0 or applies % 7:
+        fail(f"{path}: {applies} eval applies of the masked BatchNorm kernel ({bn}), "
+             "seven an eval forward expected")
+    return applies // 7
+
+
+def hold_conv_launches(path: str, steps: int, bn: dict) -> dict:
+    """The convolution kernels' launches since the last reset, held to
+    CONV_A_STEP a training step of the path's ``steps`` and eight conv_fwd
+    launches an eval forward, the eval forwards counted by the masked
+    BatchNorm launches ``bn``, or the script fails.  ``a_step`` is each
+    kernel's count less the eval forwards' over ``steps``, as measured."""
+    got = conv1d_launches()
+    evals = eval_forwards(path, bn)
+    a_step = {"conv_fwd": (got["conv_fwd"] - 8 * evals) / steps,
+              "conv_wgrad": got["conv_wgrad"] / steps}
+    if a_step != CONV_A_STEP:
+        fail(f"{path}: the convolution kernels launched {got} times in {steps} training "
+             f"steps and {evals} eval forwards, {a_step} a step; {CONV_A_STEP} a step and "
+             "8 conv_fwd an eval forward expected")
+    return {**got, "eval_forwards": evals, "a_step": a_step}
 
 
 def graph_counts() -> str:
@@ -1300,6 +1352,161 @@ def masked_bn_sass_lines() -> None:
           f"blocks a cluster (cudaOccupancyMaxActiveClusters): {json.dumps(held)}")
 
 
+# ---------------------------------------------------------------- the fleet's convolutions
+# the step's eight convolutions at the cohort path's shape, 64 members x
+# batch 64 x (L, C_in, C_out) of utils/cost_model.conv_layers, inputs laid
+# out as the step lays them (benchmarks/conv_timing.py::conv_case), and
+# shapes at the kernels' edges, (members, batch, L, C_in, C_out,
+# transposed): one-row samples, input channels past eight staged chunks and
+# output channels past one tile, both ragged, an odd length, a bias of 17
+EDGE_CONV_SHAPES = ((3, 40, 1, 3, 3, False), (2, 7, 12, 130, 70, True),
+                    (3, 5, 37, 13, 13, False), (2, 3, 25, 64, 17, True))
+# The tolerance, against the float64 product of the same inputs: an
+# output's error is max |out - ref| / max(1, |ref|).  The kernel's may be at
+# most CONV_PLAIN_RATIO times the plain version's (cuBLAS's products,
+# PyTorch's sum) in both dtypes, and in float32 at most KERNEL_TOL (1e-5)
+# for y and dh (sums of 5 C_in <= 640 terms).  dw and db sum a member's N L
+# <= 6,400 rows: there the float32 bound is KERNEL_TOL x max(1, |ref|,
+# sqrt(sum of the terms' squares)), the size of the rounding a float32 sum
+# of those terms carries in any order.  Against max(1, |ref|) alone, the
+# measure written for float32 outputs, dw reads up to 4.6e-5 at these
+# unit-scale inputs and the plain version up to 3.6e-4: the kernel's float32
+# dw is held there to CONV_DW_LITERAL_TOL, set from those readings (db is
+# summed in float64 and meets 1e-5 either way)
+CONV_PLAIN_RATIO = 2.0
+CONV_DW_LITERAL_TOL = 1e-4
+# timed groups of 20 graph replays a reading in the script's timings (the
+# benchmark's own default is 25, and it also reads each layer)
+CONV_TIMING_REPS = 5
+
+
+def conv_error(got: torch.Tensor, ref: torch.Tensor, scale=None) -> float:
+    """max |got - ref| / max(1, |ref|[, scale]) over the elements."""
+    den = ref.abs() if scale is None else torch.maximum(ref.abs(), scale)
+    return float(((got.double() - ref).abs() / den.clamp(min=1.0)).max())
+
+
+def conv1d_nan_check(dtype) -> None:
+    """A NaN in h reaches y at the five rows it touches and dw at its input
+    channel; a NaN in dy reaches dh at five rows and dw and db at its output
+    channel; the other members stay finite."""
+    from lesionvae_tpu_torch.benchmarks.conv_timing import conv_case, kernel_run
+
+    c = conv_case("micro_c2", dtype, 77, members=4, batch=8)
+    c["h"][2, 5, 10, 3] = float("nan")
+    c["dy"][1, 3, 7, 2] = float("nan")
+    y, dh, dw, db = kernel_run(c)
+    torch.cuda.synchronize()
+    nan = torch.isnan
+    ok = (nan(y[2, 5, 8:13]).all() and not nan(y[2, 5, :8]).any()
+          and not nan(y[2, 5, 13:]).any() and not nan(y[0]).any()
+          and nan(dh[1, 3, 5:10]).all() and not nan(dh[1, 3, :5]).any()
+          and not nan(dh[0]).any() and nan(dw[2, :, 3]).all() and nan(dw[1, 2]).all()
+          and not nan(dw[0]).any() and bool(nan(db[1, 2])) and not nan(db[0]).any())
+    if not ok:
+        fail(f"conv1d kernels, {dtype}: a NaN did not pass through as the convolution "
+             "carries it")
+
+
+def conv1d_errors() -> dict:
+    """The kernels (forward, dh, dw and db) against their plain versions and
+    the float64 product at the eight layers' shapes and EDGE_CONV_SHAPES,
+    float32 and bf16, to the tolerance above; a second call the same bits;
+    NaN through.  Returns the largest |kernel - float64| and the readings."""
+    from lesionvae_tpu_torch.benchmarks.conv_timing import (OUTPUTS, conv_case, kernel_run,
+                                                             plain_run)
+    from lesionvae_tpu_torch.ops import conv1d
+    from lesionvae_tpu_torch.utils.cost_model import conv_layers
+    from lesionvae_tpu_torch.utils.precision import full_fp32
+
+    full_fp32(torch.device("cuda"))
+    cases = [(name, {}) for name in conv_layers()]
+    cases += [("edge", {"members": T, "batch": N, "shape": (L, ci, co, t)})
+              for T, N, L, ci, co, t in EDGE_CONV_SHAPES]
+    worst, ratio, bounded, literal_dw, plain_dw = 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, (name, kw) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = conv_case(name, dtype, 500 + i, **kw)
+            got, again, plain = kernel_run(c), kernel_run(c), plain_run(c)
+            ref = plain_run(c, torch.float64)
+            scale = {}
+            if dtype == torch.float32:
+                _dh, dw2, db2 = conv1d.conv1d_backward_plain(
+                    c["h"].double() ** 2, c["w"].double(), c["dy"].double() ** 2,
+                    c["transposed"], False)
+                scale = {"dw": dw2.sqrt(), "db": db2.sqrt()}
+            torch.cuda.synchronize()
+            where = (f"{name} {list(c['h'].shape)} -> {c['dy'].shape[3]} channels "
+                     f"{'transposed ' if c['transposed'] else ''}{dtype}")
+            for out, g, a, p, r in zip(OUTPUTS, got, again, plain, ref):
+                if g is None:
+                    continue
+                if bits_differ(g, a):
+                    fail(f"conv1d kernel at {where}: {out}: two calls differ")
+                kernel, base = conv_error(g, r), conv_error(p, r)
+                if kernel > CONV_PLAIN_RATIO * base:
+                    fail(f"conv1d kernel at {where}: {out} error {kernel:.3e}, more than "
+                         f"{CONV_PLAIN_RATIO} x the plain version's {base:.3e}")
+                ratio = max(ratio, kernel / base)
+                if dtype == torch.float32:
+                    held = conv_error(g, r, scale.get(out))
+                    if held > KERNEL_TOL:
+                        fail(f"conv1d kernel at {where}: {out} error {held:.3e} above "
+                             f"{KERNEL_TOL}")
+                    bounded = max(bounded, held)
+                    if out == "dw":
+                        if kernel > CONV_DW_LITERAL_TOL:
+                            fail(f"conv1d kernel at {where}: dw error {kernel:.3e} against "
+                                 f"max(1, |ref|) above {CONV_DW_LITERAL_TOL}")
+                        literal_dw, plain_dw = max(literal_dw, kernel), max(plain_dw, base)
+                worst = max(worst, float((g.double() - r).abs().max()))
+    for dtype in (torch.float32, torch.bfloat16):
+        conv1d_nan_check(dtype)
+    print(f"[kernels] conv1d vs plain and the float64 product at the eight layers' shapes "
+          f"(64 members x batch 64) and at {[list(s) for s in EDGE_CONV_SHAPES]}, float32 "
+          f"and bf16 ({2 * len(cases)} cases): y, dh, dw, db within {CONV_PLAIN_RATIO} x the "
+          f"plain version's error (largest ratio {ratio:.3f}), float32 within {KERNEL_TOL} "
+          f"(largest {bounded:.3e}; dw against max(1, |ref|) alone {literal_dw:.3e} within "
+          f"{CONV_DW_LITERAL_TOL}, the plain version's {plain_dw:.3e}), a second call the "
+          f"same bits, NaN through; max abs err {worst:.3e}")
+    return {"max_abs_err": worst, "largest_ratio_to_plain": ratio,
+            "largest_f32_error": bounded, "f32_dw_error_against_ref_alone": literal_dw,
+            "f32_dw_plain_error_against_ref_alone": plain_dw}
+
+
+def conv1d_sass_lines() -> dict:
+    """One ``[sass]`` line per kernel function of csrc/conv1d.cu with a
+    product in its hot loop: the loop's instructions by class per FMA
+    (float32) or per mma.sync (bf16); and one ``[occupancy]`` line: each
+    function's registers and blocks an SM at each layer length of the step
+    (``ops.conv1d.attributes``)."""
+    from lesionvae_tpu_torch.ops import conv1d, cuda_build
+    from lesionvae_tpu_torch.utils.cost_model import conv_layers
+
+    text = cuda_build.sass("conv1d")
+    out = {}
+    for unit, what in ((r"^FFMA", "FMA"), (r"^HMMA", "mma.sync")):
+        for fn, f in cuda_build.inner_loops(text, unit).items():
+            if not f["units"]:
+                continue
+            m = re.search(r"(conv_(?:fwd|wgrad)_[a-z0-9]+)(?:I((?:Li\d+E)+)E)?", fn)
+            args = re.findall(r"Li(\d+)E", (m.group(2) or "") if m else "")
+            name = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else fn
+            out[name] = {k: round(v, 3) for k, v in f["per_unit"].items()}
+            print(f"[sass] conv1d:{name} per {what} ({'loop' if f['loop'] else 'whole function'}"
+                  f" of {f['instructions']} instructions, {f['units']} {what}s): "
+                  + json.dumps(out[name]))
+    lengths = sorted({L for L, *_ in conv_layers().values()})
+    occ = {L: conv1d.attributes(L) for L in lengths}
+    table = {name: {"registers": occ[lengths[0]][name]["registers"],
+                    "local_bytes": occ[lengths[0]][name]["local_bytes"],
+                    "blocks_an_sm": {L: occ[L][name]["blocks_an_sm"] for L in lengths}}
+             for name in conv1d.KERNEL_FUNCTIONS}
+    print("[occupancy] conv1d kernels: registers and blocks an SM holds at each layer "
+          "length (cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + json.dumps(table))
+    return {"sass": out, "occupancy": table}
+
+
 # ---------------------------------------------------------------- the path
 LENIENT_COLS = (
     ["subject_id", "timepoint", "original_volume_mm3", "brain_volume_mm3",
@@ -1766,7 +1973,8 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     """``vae-cohort`` (bf16 storage, 64 members, 40 epochs) then
     ``score-cohort`` through the CLI on cuda; returns the SR Adam kernel's
     launches on that path, the masked BatchNorm kernels' by stage, their
-    launches a training step and the optimizer kernels' launches."""
+    launches a training step, the optimizer kernels' launches and the
+    convolution kernels' by stage."""
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
@@ -1787,6 +1995,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     wall = time.perf_counter() - t0
     launches = sr_adam.sr_adam_step.launches
     bn = {"vae-cohort": masked_bn_launches()}
+    conv = {}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     spans = profiling.report()
     if rc != 0:
@@ -1816,6 +2025,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     # statistics launches (the others are the summary's eval forwards)
     bn_a_step = (sum(v for k, v in got.items() if k != "bn_apply")
                  + got["bn_stats"] // 2) / steps
+    conv["vae-cohort"] = hold_conv_launches("vae-cohort", steps, got)
     out = root / "results" / "vae_cohort"
     members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
     for tract, tp in members:
@@ -1840,7 +2050,8 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
           f"normalization and summary included); stage {wall:.2f}s; kernel "
           f"launches sr_adam {launches} ({COHORT_STEPS} in {replays} epoch replays, "
           f"{warm_up} in the epoch run before the capture), {json.dumps(opt)}, masked BatchNorm "
-          f"{json.dumps(bn['vae-cohort'])} ({bn_a_step} a training step), radius "
+          f"{json.dumps(bn['vae-cohort'])} ({bn_a_step} a training step), convolutions "
+          f"{json.dumps(conv['vae-cohort'])}, radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()}; max_memory_allocated {peak_gb:.2f} GB")
     print("[path] vae-cohort spans on cuda (s): " + json.dumps(spans))
@@ -1863,10 +2074,16 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
             v for k, v in bn["score-cohort"].items() if k != "bn_apply"):
         fail(f"score-cohort launched the masked BatchNorm kernels {bn['score-cohort']} "
              "times: the eval forward applies only")
+    conv["score-cohort"] = conv1d_launches()
+    evals = eval_forwards("score-cohort", bn["score-cohort"])
+    if conv["score-cohort"] != {"conv_fwd": 8 * evals, "conv_wgrad": 0}:
+        fail(f"score-cohort launched the convolution kernels {conv['score-cohort']} times "
+             f"in {evals} eval forwards: eight forward launches each, no weight gradient")
+    conv["score-cohort"]["eval_forwards"] = evals
     print(f"[path] score-cohort stage on cuda: {len(served)} rows = {len(members)} "
           f"members x 37 subjects in {time.perf_counter() - t0:.2f}s; masked BatchNorm "
-          f"{json.dumps(bn['score-cohort'])}")
-    return launches, bn, bn_a_step, opt
+          f"{json.dumps(bn['score-cohort'])}, convolutions {json.dumps(conv['score-cohort'])}")
+    return launches, bn, bn_a_step, opt, conv
 
 
 def check_cohort_against_cpu(root: Path, cfg) -> None:
@@ -2180,6 +2397,7 @@ def check_all(root: Path, cohort_out: Path, cpu_geo: Path, cpu_lesion: Path,
     # (weights and BatchNorm leaves), no SR Adam
     steps = COHORT_STEPS + COHORT_STEPS // VAE_EPOCHS * program.COUNTS["captures"]
     launches.update(hold_adam_launches("all", steps, {"grad_sq_norm": 1, "adam_step": 2}))
+    launches["conv1d"] = hold_conv_launches("all", steps, masked_bn_launches())
     launches["sr_adam"] = sr_adam.sr_adam_step.launches
     if launches["sr_adam"]:
         fail(f"the all phase's float32 fleet launched SR Adam {launches['sr_adam']} times")
@@ -2847,15 +3065,15 @@ def start_cohort(root: Path, cfg, pool, profiles: bool):
 def run_vae_paths(root: Path, cfg) -> tuple:
     """Paths 3d and 3e over the profiles cohort under ``root``; returns the
     SR Adam kernel's launches on the cohort path, the masked BatchNorm
-    kernels' by stage, their launches a training step, and the optimizer
-    kernels' launches by path."""
+    kernels' by stage, their launches a training step, the optimizer
+    kernels' launches by path and the convolution kernels' by stage."""
     single = check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
-    sr, bn, bn_a_step, cohort = check_cohort_cli(root, cfg, common)
+    sr, bn, bn_a_step, cohort, conv = check_cohort_cli(root, cfg, common)
     check_cohort_against_cpu(root, cfg)
     torch.cuda.empty_cache()
-    return sr, bn, bn_a_step, {"vae": single, "vae-cohort": cohort}
+    return sr, bn, bn_a_step, {"vae": single, "vae-cohort": cohort}, conv
 
 
 def main(argv=None) -> int:
@@ -2895,6 +3113,7 @@ def main(argv=None) -> int:
         sass_lines()
         masked_bn_sass_lines()
         adam_sass = adam_sass_lines()
+        conv_sass = conv1d_sass_lines()
 
         # 2. kernels against their plain versions
         shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
@@ -2916,6 +3135,7 @@ def main(argv=None) -> int:
         geo_worst = geometry_errors()
         bn_worst = masked_bn_errors()
         adam_checks = {"grad_sq_norm": adam_norm_errors(), "adam_step": adam_step_errors()}
+        conv_checks = conv1d_errors()
         for w in writers:
             w.result()
         pool.shutdown()
@@ -2949,20 +3169,21 @@ def main(argv=None) -> int:
             shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
         probe, probe_launches = check_probe()
         geo = check_geometry(cohort_root, cfg)
-        sr_launches, bn_launches, bn_a_step, opt_launches = 0, {}, None, {}
+        sr_launches, bn_launches, bn_a_step, opt_launches, conv_launches = 0, {}, None, {}, {}
         all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
             print("[path] vae, score, vae-cohort, score-cohort and all paths skipped "
                   "(--skip-vae)")
         else:
-            sr_launches, bn_launches, bn_a_step, opt_launches = run_vae_paths(cohort_root,
-                                                                              cfg)
+            (sr_launches, bn_launches, bn_a_step, opt_launches,
+             conv_launches) = run_vae_paths(cohort_root, cfg)
             all_phase = check_all(
                 cohort_root, cohort_root / "results" / "vae_cohort",
                 cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
                 own["lesion_cpu"], own)
             opt_launches["all"] = {k: all_phase["launches"][k]
                                    for k in ("grad_sq_norm", "adam_step")}
+            conv_launches["all"] = all_phase["launches"]["conv1d"]
             check_chunks()
             torch.cuda.empty_cache()
         check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
@@ -3008,6 +3229,19 @@ def main(argv=None) -> int:
     opt_t = adam_timing.timings()
     print("[kernels] optimizer kernels (ms; bounds by ops.adam): " + json.dumps(opt_t))
     norm_t, upd_t = opt_t["grad_sq_norm_f32"], opt_t["adam_step_weights"]
+    # the fleet step's eight convolutions, float32 and bf16: the kernels
+    # graph-replayed, in turns with the chain they replaced and F.conv1d
+    from lesionvae_tpu_torch.benchmarks import conv_timing
+
+    conv_short = {dt: {k: v for k, v in conv_timing.timings(
+                      dtype, reps=CONV_TIMING_REPS, by_layer=False).items()
+                      if k not in ("bound", "bound_by_layer")}
+                  for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    print("[kernels] conv1d over the eight convolutions of a 64-member fleet step (ms, "
+          "replayed from CUDA graphs in turns with the replaced chain and F.conv1d; bounds "
+          "by utils.cost_model.conv_bound_ms; per layer: benchmarks/conv_timing.py): "
+          + json.dumps(conv_short) + f"; {card}")
+    conv_f32 = conv_short["f32"]
     no_library = ("no single PyTorch call computes it: ")
     print(card)
     print(json.dumps({"kernels": [{
@@ -3086,6 +3320,27 @@ def main(argv=None) -> int:
                                                              "norm_finish_kernel")},
         "occupancy": adam_sass["norm_tiles_kernel"]["occupancy"],
         "sass_per_element": adam_sass["norm_tiles_kernel"]["per"]}, {
+        "name": "conv1d", "route": "cuda",
+        "source": "lesionvae_tpu_torch/ops/csrc/conv1d.cu",
+        "replaces": "lesionvae_tpu/models/layers.py:165 (Conv1d; ConvTranspose1d :189: nn.Conv "
+                    "under the fleet step's jax.vmap, lesionvae_tpu/train/batched.py:241; an "
+                    "XLA convolution, no Pallas kernel)",
+        "launches": sum(v["conv_fwd"] + v["conv_wgrad"] for v in conv_launches.values()),
+        "launches_by_path": conv_launches,
+        "launches_a_step": conv_launches.get("vae-cohort", {}).get("a_step"),
+        "max_abs_err": conv_checks["max_abs_err"], "ms": conv_f32["ms"],
+        "plain_ms": conv_f32["plain_ms"], "bound_ms": conv_f32["bound_ms"],
+        "bound_by": conv_f32["bound_by"], "library_ms": conv_f32["library_ms"],
+        "library_note": "F.conv1d(groups=T) over the members' channels side by side and "
+                        "its backward (cuDNN, TF32 off), graph-replayed",
+        "chain_ms": conv_f32["chain_ms"], "forward_ms": conv_f32["forward_ms"],
+        "backward_ms": conv_f32["backward_ms"], "share_of_bound": conv_f32["share_of_bound"],
+        "bf16": {k: conv_short["bf16"][k] for k in ("ms", "forward_ms", "backward_ms",
+                                                    "chain_ms", "library_ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "share_of_bound")},
+        "tolerance": {k: v for k, v in conv_checks.items() if k != "max_abs_err"},
+        "sass_per_product": conv_sass["sass"],
+        "registers": {k: v["registers"] for k, v in conv_sass["occupancy"].items()}}, {
         "name": "adam_step", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/adam.cu",
         "replaces": "lesionvae_tpu/train/lowmem.py:97 (_fused_update's float32 branch; "

@@ -44,8 +44,9 @@ call of eager launches, as ``train_loop`` / ``train_fleet`` run it.
 
 With ``--fleet`` the profiled steps also read the step's device time by
 layer: ``models.fleet.LAYER_RANGES`` names a ``record_function`` range
-after each layer of ``fleet_forward`` (conv, bn_relu, pool, resize, dense)
-and each phase of ``fleet_step`` (loss, backward, optimizer), and every
+after each layer of ``fleet_forward`` (conv, bn_relu, pool, resize, dense),
+each phase of ``fleet_step`` (loss, backward, optimizer) and the
+convolutions' backward inside ``backward`` (conv_backward), and every
 device event (kernel, copy, memset) is given the range that was open when
 the host launched it; ``other`` is the rest (the batch gather, the step's
 bookkeeping).  A graph replay carries no ranges, so ``--route graph`` first
@@ -94,7 +95,7 @@ HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
 
 # the ranges of models.fleet.layer_range, in the order of the [layers] line
 LAYER_KINDS = ("conv", "bn_relu", "pool", "resize", "dense", "loss", "backward",
-               "optimizer")
+               "conv_backward", "optimizer")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -123,17 +124,22 @@ def device_sequence(events) -> List[dict]:
 
 def launch_kinds(events) -> Dict[int, str]:
     """{correlation id: layer kind} of every host launch made inside a
-    ``layer:<kind>`` range.  A range is matched by time, not thread: the
-    backward's launches come from autograd's device thread while the
-    calling thread holds ``layer:backward``.  The layer ranges do not nest."""
+    ``layer:<kind>`` range, the innermost one open at the launch (the
+    convolutions' ``layer:conv_backward`` ranges open inside
+    ``layer:backward``; no other range nests).  A range is matched by time,
+    not thread: the backward's launches come from autograd's device thread
+    while the calling thread holds ``layer:backward``."""
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"][6:])
                    for e in _complete(events, ("user_annotation",))
                    if e["name"].startswith("layer:"))
     starts = [s[0] for s in spans]
     out = {}
     for e in _complete(events, LAUNCH_CATS):
-        i = bisect.bisect_right(starts, float(e["ts"])) - 1
-        if i >= 0 and float(e["ts"]) <= spans[i][1] and _correlation(e) is not None:
+        ts = float(e["ts"])
+        i = bisect.bisect_right(starts, ts) - 1
+        while i >= 0 and ts > spans[i][1]:
+            i -= 1
+        if i >= 0 and _correlation(e) is not None:
             out[_correlation(e)] = spans[i][2]
     return out
 

@@ -32,17 +32,22 @@ def _flat_perm(L: int, C: int) -> np.ndarray:
     return (j % C) * L + j // C
 
 
+def conv_weight(kernel: np.ndarray, transpose: bool) -> np.ndarray:
+    """A flax Conv kernel (k, in, out) -> the port's Conv1d weight (out, in,
+    k), or, ``transpose``, its ConvTranspose1d weight (in, out, k) reversed
+    along k."""
+    kernel = np.asarray(kernel)
+    return kernel.transpose(1, 2, 0)[:, :, ::-1] if transpose else kernel.transpose(2, 1, 0)
+
+
 def from_jax_params(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
     """The flax trees of a LesionConditionedVAE -> the port's state_dict.
     Arrays keep their dtype."""
     a = lambda x: np.asarray(x)  # noqa: E731
     sd: Dict[str, np.ndarray] = {}
-    for name in _CONVS:
-        sd[f"{name}.weight"] = a(params[name]["conv"]["kernel"]).transpose(2, 1, 0)
-        sd[f"{name}.bias"] = a(params[name]["conv"]["bias"])
-    for name in _CONV_TS:
-        sd[f"{name}.weight"] = a(params[name]["conv"]["kernel"]).transpose(1, 2, 0)[:, :, ::-1]
+    for name in _CONVS + _CONV_TS:
+        sd[f"{name}.weight"] = conv_weight(params[name]["conv"]["kernel"], name in _CONV_TS)
         sd[f"{name}.bias"] = a(params[name]["conv"]["bias"])
     for name in _BNS:
         sd[f"{name}.weight"] = a(params[name]["scale"])

@@ -11,14 +11,15 @@ member's ``state_dict``, so an optimizer that writes the buffers in place
 has updated the model.
 
 ``fleet_forward`` runs all members in one pass whose kernel launches do not
-depend on T, on activations (T, N, L, C) with the channels last: a
-convolution is the k shifted copies of its input times the member's kernel
-as a matrix, one batched product for all members (cuDNN runs a grouped
-convolution as one set of kernels a group, so its launches grow with T;
-``benchmarks/vae_step_profile.py --fleet --route`` reads that form and the
-``torch.func.vmap`` one beside this), the dense layers are batched products too, BatchNorm and
-the ReLU after it are ``ops.masked_bn.masked_bn_relu`` (on the card the
-hand-written kernels of ``ops/csrc/masked_bn.cu``).  Every member sees only
+depend on T, on activations (T, N, L, C) with the channels last: every
+member's convolution is ``ops.conv1d.fleet_conv1d`` (on the card the
+hand-written kernels of ``ops/csrc/conv1d.cu``, one launch a layer for all
+members; cuDNN runs a grouped convolution as one set of kernels a group, so
+its launches grow with T; ``benchmarks/vae_step_profile.py --fleet --route``
+reads that form and the ``torch.func.vmap`` one beside this), the dense
+layers are batched products, BatchNorm and the ReLU after it are
+``ops.masked_bn.masked_bn_relu`` (on the card the hand-written kernels of
+``ops/csrc/masked_bn.cu``).  Every member sees only
 its own rows, mask, noise and statistics; the new running statistics are
 returned, not written.  Stored bfloat16 leaves are widened in the forward,
 so autograd's backward of that cast hands the optimizer gradients rounded
@@ -32,12 +33,12 @@ import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..ops.conv1d import fleet_conv1d
 from ..ops.masked_bn import masked_bn_relu
 from ..ops.sr_adam import alloc_rows
-from .layers import KERNEL, PADDING, MaskedBatchNorm, interp_matrix
+from .layers import MaskedBatchNorm, interp_matrix
 from .lesion_vae import LesionConditionedVAE
 
 ENCODERS = {"micro": ("micro_c1", "micro_b1", "micro_c2", "micro_b2",
@@ -47,7 +48,8 @@ ENCODERS = {"micro": ("micro_c1", "micro_b1", "micro_c2", "micro_b2",
 
 #: name a ``record_function`` range ``layer:<kind>`` after each layer of
 #: ``fleet_forward`` and each phase of ``train.batched.fleet_step`` (conv,
-#: bn_relu, pool, resize, dense; loss, backward, optimizer), so a profile
+#: bn_relu, pool, resize, dense; loss, backward, optimizer) and after the
+#: convolutions' backward (conv_backward, inside backward), so a profile
 #: of a step reads its device time by layer
 #: (``benchmarks/vae_step_profile.py --fleet`` sets it); off, no range is opened
 LAYER_RANGES = False
@@ -156,22 +158,12 @@ def _widen(leaf: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Te
 
 
 def _conv(h: torch.Tensor, leaves, name: str, cd, transpose=False) -> torch.Tensor:
-    """Each member's own Conv1d or ConvTranspose1d (k=5, p=2, stride 1) as
-    one batched matrix product: the k shifted copies of h (T, N, L, C_in) laid
-    side by side, (T, N*L, C_in*k), times the member's kernel as a
-    (C_in*k, C_out) matrix.  -> (T, N, L, C_out)."""
+    """Each member's own Conv1d or ConvTranspose1d (k=5, p=2, stride 1) on
+    h (T, N, L, C_in) -> (T, N, L, C_out): ``ops.conv1d.fleet_conv1d``, whose
+    backward opens the ``layer:conv_backward`` range when the layer ranges
+    are on."""
     w, b = _widen(leaves[f"{name}.weight"], cd), _widen(leaves[f"{name}.bias"], cd)
-    T, N, L, C = h.shape
-    if transpose:
-        # (T, in, out, k): the transposed convolution at stride 1 is a
-        # convolution with the kernel reversed along k
-        w = w.flip(3).permute(0, 1, 3, 2)
-    else:
-        w = w.permute(0, 2, 3, 1)            # (T, out, in, k) -> (T, in, k, out)
-    cols = F.pad(h, (0, 0, PADDING, PADDING)).unfold(2, KERNEL, 1)   # (T, N, L, C, k)
-    out = torch.baddbmm(b[:, None, :], cols.reshape(T, N * L, C * KERNEL),
-                        w.reshape(T, C * KERNEL, -1))
-    return out.view(T, N, L, -1)
+    return fleet_conv1d(h, w, b, transpose, "layer:conv_backward" if LAYER_RANGES else None)
 
 
 def _dense(x: torch.Tensor, leaves, name: str, cd) -> torch.Tensor:

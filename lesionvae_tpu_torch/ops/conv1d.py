@@ -1,0 +1,320 @@
+"""The fleet's member-batched convolutions, forward and backward: the CUDA
+kernels of ``csrc/conv1d.cu``, their plain versions, and the
+``torch.autograd.Function`` the stacked model calls.
+
+For T members at once, channel-last: h (T, N, L, C_in), the member's
+weight leaf w in its own layout, (T, out, in, 5) for a Conv1d and (T, in,
+out, 5) for a ConvTranspose1d, its bias b (T, C_out); k = 5, padding 2,
+stride 1 (lesionvae_tpu/models/layers.py:165-213 under the fleet's
+``jax.vmap``).  A ConvTranspose1d at stride 1 is a convolution with the
+kernel reversed along k, so both are
+
+    y[n, l, o] = b[o] + sum_{k, i} h[n, l + k - 2, i] * W_k[i, o]
+
+with W_k[i, o] = w[o, i, k] (Conv1d) or w[i, o, 4 - k] (ConvTranspose1d)
+and h = 0 outside the sample.  The backward, from h, w and dy alone:
+
+    dh = the same convolution of dy with the kernel read the other way
+         (w's (in, out) swapped and the flip negated): ``conv1d_plain(dy, w,
+         None, not transpose)``
+    dw[o, i, k] = sum over rows of h[row shifted by k - 2, i] * dy[row, o],
+         written in the leaf's own layout (contiguous; reversed along k and
+         transposed for a ConvTranspose1d)
+    db = sum over rows of dy
+
+so the autograd graph keeps h and w, not a column buffer.
+
+``fleet_conv1d`` is the entry point.  On CPU tensors its forward and
+backward compute the plain versions (``conv1d_plain``, the pad + unfold +
+batched product the stacked model ran before these kernels, and
+``conv1d_backward_plain``); on CUDA tensors they launch the kernels
+(``conv_fwd`` for the forward and dh, ``conv_wgrad`` for dw and db) and
+raise on inputs the kernels do not take; nothing falls back.  Each wrapper
+counts its launches.  The kernels sum in another order than cuBLAS does
+(float32: FP32 FMA; bf16: tensor cores with float32 accumulation, one
+rounding of each output), so the card holds them to their plain versions
+within a tolerance, not bit for bit; their own order is fixed, so two
+calls give the same bits.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from .cuda_build import count_launch, load
+
+TAPS, PAD = 5, 2                # the convolutions' kernel size and padding
+# csrc/conv1d.cu: the channel tiles of the weight-gradient kernel (float32:
+# output channels 16, 32 or 64 by C_out, input channels 16; bf16: 64 x 32)
+# and its split of a member's rows: about TARGET_BLOCKS blocks, each range
+# at least MIN_SPLIT_ROWS rows
+WGRAD_F32_IN, WGRAD_BF16_OUT, WGRAD_BF16_IN = 16, 64, 32
+TARGET_BLOCKS, MIN_SPLIT_ROWS = 1056, 128
+VECTOR_BYTES = 16               # csrc/conv1d.cu: a staging thread's load
+
+
+# ------------------------------------------------------------ plain version
+def _columns(h: torch.Tensor) -> torch.Tensor:
+    """The k shifted copies of h (T, N, L, C) side by side: (T, N*L, C*k),
+    channel-major (column i*k + k')."""
+    T, N, L, C = h.shape
+    cols = F.pad(h, (0, 0, PAD, PAD)).unfold(2, TAPS, 1)      # (T, N, L, C, k)
+    return cols.reshape(T, N * L, C * TAPS)
+
+
+def conv1d_plain(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                 transpose: bool) -> torch.Tensor:
+    """Each member's own Conv1d or ConvTranspose1d (k=5, p=2, stride 1) as
+    one batched matrix product: the k shifted copies of h (T, N, L, C_in)
+    laid side by side, (T, N*L, C_in*k), times the member's kernel as a
+    (C_in*k, C_out) matrix, plus b (none: no bias).  -> (T, N, L, C_out)."""
+    T, N, L, C = h.shape
+    if transpose:
+        # (T, in, out, k): the transposed convolution at stride 1 is a
+        # convolution with the kernel reversed along k
+        w = w.flip(3).permute(0, 1, 3, 2)
+    else:
+        w = w.permute(0, 2, 3, 1)            # (T, out, in, k) -> (T, in, k, out)
+    w = w.reshape(T, C * TAPS, -1)
+    cols = _columns(h)
+    out = torch.bmm(cols, w) if b is None else torch.baddbmm(b[:, None, :], cols, w)
+    return out.view(T, N, L, -1)
+
+
+def conv_wgrad_plain(h: torch.Tensor, dy: torch.Tensor,
+                     transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dw in the leaf's own layout, contiguous; db (T, C_out)) of
+    ``conv1d_plain``'s y, from h and the gradient dy (T, N, L, C_out)."""
+    T, N, L, C = h.shape
+    g = torch.bmm(dy.reshape(T, N * L, -1).transpose(1, 2), _columns(h))
+    g = g.view(T, -1, C, TAPS)                                # (T, out, in, k)
+    dw = g.flip(3).transpose(1, 2).contiguous() if transpose else g
+    return dw, dy.sum(dim=(1, 2))
+
+
+def conv1d_backward_plain(h: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                          transpose: bool, need_dh: bool = True):
+    """(dh or None, dw, db) of ``conv1d_plain``'s y."""
+    dh = conv1d_plain(dy, w, None, not transpose) if need_dh else None
+    return (dh, *conv_wgrad_plain(h, dy, transpose))
+
+
+# ------------------------------------------------------------ the kernels' geometry
+def weight_dims(w: torch.Tensor, transpose: bool) -> Tuple[int, int]:
+    """(C_in, C_out) of a leaf (T, out, in, 5), or (T, in, out, 5) when
+    ``transpose``."""
+    return (w.shape[1], w.shape[2]) if transpose else (w.shape[2], w.shape[1])
+
+
+def fwd_tile(c_out: int) -> int:
+    """Output channels a block of ``conv_fwd`` (and of the float32
+    ``conv_wgrad``) takes: 16, 32 or 64 (csrc/conv1d.cu: fwd_bn)."""
+    return 16 if c_out <= 16 else (32 if c_out <= 32 else 64)
+
+
+def wgrad_splits(T: int, rows: int, c_in: int, c_out: int, dtype: torch.dtype) -> int:
+    """The contiguous ranges ``conv_wgrad`` cuts each member's ``rows`` rows
+    into, one a block: enough blocks to fill the card (about TARGET_BLOCKS
+    over every member and channel tile), each range at least MIN_SPLIT_ROWS
+    rows.  A function of the shapes alone, so the sum's order is too."""
+    if dtype == torch.bfloat16:
+        tiles = -(-c_out // WGRAD_BF16_OUT) * -(-c_in // WGRAD_BF16_IN)
+    else:
+        tiles = -(-c_out // fwd_tile(c_out)) * -(-c_in // WGRAD_F32_IN)
+    splits = min(-(-TARGET_BLOCKS // (T * tiles)), rows // MIN_SPLIT_ROWS, 65535 // T)
+    return max(1, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The C entry points of csrc/conv1d.cu, built on first use; the
+    kernels' shared-memory limit is set once here, before any launch."""
+    lib = load("conv1d")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sig = {"lesionvae_conv1d_init": [],
+           "lesionvae_conv1d_attributes": [I, P],
+           "lesionvae_conv_fwd": [P, I, LL, I, I, I, I, P, LL, LL, LL, LL, I, P, LL, P,
+                                  I, I, I, I, I, P],
+           "lesionvae_conv_wgrad": [P, I, LL, I, I, I, I, P, I, P, P, P, P, I, I, I, I, I,
+                                    I, I, P]}
+    for name, argtypes in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _raise(lib.lesionvae_conv1d_init(), "attribute")
+    return lib
+
+
+# kernel functions in the order of lesionvae_conv1d_attributes
+KERNEL_FUNCTIONS = ("conv_fwd_f32<16>", "conv_fwd_f32<32>", "conv_fwd_f32<64>",
+                    "conv_fwd_bf16<16>", "conv_fwd_bf16<32>", "conv_fwd_bf16<64>",
+                    "conv_wgrad_f32<16>", "conv_wgrad_f32<32>", "conv_wgrad_f32<64>",
+                    "conv_wgrad_bf16", "conv_wgrad_finish<float>", "conv_wgrad_finish<bf16>")
+
+
+def attributes(L: int) -> dict:
+    """Per kernel function: registers a thread, local memory bytes a thread
+    and blocks an SM holds at the shared memory of a layer of length L
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where its shared
+    memory does not fit; the finishing kernels use none)."""
+    out = (ctypes.c_int * (3 * len(KERNEL_FUNCTIONS)))()
+    _raise(_lib().lesionvae_conv1d_attributes(L, out), "attribute query")
+    return {name: {"registers": out[3 * i], "local_bytes": out[3 * i + 1],
+                   "blocks_an_sm": out[3 * i + 2]}
+            for i, name in enumerate(KERNEL_FUNCTIONS)}
+
+
+def _raise(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"conv1d {what} kernel launch failed: cudaError {err}")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _vectored(x: torch.Tensor, strides) -> int:
+    """1 where every row of x's channels is whole 16-byte vectors from an
+    aligned start (the kernels' staging loads 16 bytes a thread)."""
+    v = VECTOR_BYTES // x.element_size()
+    return int(x.data_ptr() % VECTOR_BYTES == 0 and strides[-1] == 1
+               and all(s % v == 0 for s in strides[:-1]) and x.shape[-1] % v == 0)
+
+
+def _act(h: torch.Tensor):
+    """(member, n, l, c strides, vec) of an activation the kernels read."""
+    T, N, L, C = h.shape
+    s = h.stride()
+    if min(s) < 0 or (N - 1) * s[1] + (L - 1) * s[2] + (C - 1) * s[3] >= 2 ** 31:
+        raise ValueError(f"the conv1d kernels index a member of h in 32 bits with "
+                         f"non-negative strides, got strides {s}")
+    return (s[0], s[1], s[2], s[3], _vectored(h, s))
+
+
+def _check(h: torch.Tensor, c_out: int) -> None:
+    if h.device.type != "cuda":
+        raise ValueError(f"the conv1d kernels run on cuda, not {h.device}")
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the conv1d kernels take float32 or bfloat16, got {h.dtype}")
+    if h.dim() != 4 or h.numel() == 0:
+        raise ValueError(f"the conv1d kernels take h as a non-empty (T, N, L, C), got "
+                         f"{tuple(h.shape)}")
+    T, N, L, C = h.shape
+    if N * L * max(C, c_out) >= 2 ** 31:
+        raise ValueError(f"{N * L} rows of {max(C, c_out)} channels a member: the "
+                         "kernels index a member in 32 bits")
+
+
+def _same(name: str, x: torch.Tensor, h: torch.Tensor, shape) -> None:
+    if tuple(x.shape) != tuple(shape) or x.dtype != h.dtype or x.device != h.device:
+        raise ValueError(f"{name}: {tuple(shape)} {h.dtype} on {h.device}, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def conv_fwd(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             transpose: bool) -> torch.Tensor:
+    """One launch of the convolution kernel: ``conv1d_plain(h, w, b,
+    transpose)`` (b None: no bias, the backward's dh)."""
+    T, N, L, C = h.shape
+    c_in, c_out = weight_dims(w, transpose)
+    _check(h, c_out)
+    _same("w", w, h, (T, c_out, c_in, TAPS) if not transpose else (T, c_in, c_out, TAPS))
+    if c_in != C:
+        raise ValueError(f"w takes {c_in} input channels, h has {C}")
+    if b is not None:
+        _same("b", b, h, (T, c_out))
+        if b.stride(1) != 1:
+            raise ValueError(f"b: rows of contiguous channels, got strides {b.stride()}")
+    s_in, s_out = (w.stride(1), w.stride(2)) if transpose else (w.stride(2), w.stride(1))
+    y = torch.empty((T, N, L, c_out), dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        _raise(_lib().lesionvae_conv_fwd(
+            h.data_ptr(), int(h.dtype == torch.bfloat16), *_act(h), w.data_ptr(),
+            w.stride(0), s_in, s_out, w.stride(3), int(transpose),
+            None if b is None else b.data_ptr(), 0 if b is None else b.stride(0),
+            y.data_ptr(), T, N, L, c_in, c_out, _stream(h)), "forward")
+    count_launch(conv_fwd)
+    return y
+
+
+def conv_wgrad(h: torch.Tensor, dy: torch.Tensor,
+               transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the weight-gradient kernel and its finishing launch:
+    ``conv_wgrad_plain(h, dy, transpose)``, (dw in the leaf's layout, db)."""
+    T, N, L, C = h.shape
+    c_out = dy.shape[3]
+    shape = (T, C, c_out, TAPS) if transpose else (T, c_out, C, TAPS)
+    _check(h, c_out)
+    _same("dy", dy, h, (T, N, L, c_out))
+    dy = dy.contiguous()
+    splits = wgrad_splits(T, N * L, C, c_out, h.dtype)
+    part = torch.empty((T, splits, c_out, C * TAPS), dtype=torch.float32, device=h.device)
+    dbpart = torch.empty((T, splits, c_out), dtype=torch.float64, device=h.device)
+    dw = torch.empty(shape, dtype=h.dtype, device=h.device)
+    db = torch.empty((T, c_out), dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        _raise(_lib().lesionvae_conv_wgrad(
+            h.data_ptr(), int(h.dtype == torch.bfloat16), *_act(h), dy.data_ptr(),
+            _vectored(dy, dy.stride()), part.data_ptr(), dbpart.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), T, N, L, C, c_out, splits, int(transpose), _stream(h)),
+            "weight gradient")
+    count_launch(conv_wgrad)
+    return dw, db
+
+
+# launches of each kernel in this process (conv_wgrad: its partials launch
+# and its finishing launch, counted once); a run sets them to 0 and reads
+# them back to show its path went through the kernels.  A launch recorded
+# into a CUDA graph counts in ``captured`` and joins ``launches`` at every
+# replay (train/program.py)
+WRAPPERS = (conv_fwd, conv_wgrad)
+for _w in WRAPPERS:
+    _w.launches = 0
+    _w.captured = 0
+
+
+# ------------------------------------------------------------ autograd
+class FleetConv1d(torch.autograd.Function):
+    """Every member's Conv1d or ConvTranspose1d with its backward; CPU
+    tensors: the plain versions, CUDA tensors: the kernels.  The backward
+    opens the ``record_function`` range ``backward_range`` when one is
+    named."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, transpose, backward_range):
+        fwd = conv1d_plain if h.device.type == "cpu" else conv_fwd
+        y = fwd(h, w, b, transpose)
+        ctx.save_for_backward(h, w)
+        ctx.transpose, ctx.backward_range = transpose, backward_range
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        need_dh = ctx.needs_input_grad[0]
+        span = (record_function(ctx.backward_range) if ctx.backward_range
+                else contextlib.nullcontext())
+        with span:
+            if h.device.type == "cpu":
+                dh, dw, db = conv1d_backward_plain(h, w, dy, ctx.transpose, need_dh)
+            else:
+                dy = dy.contiguous()
+                dh = conv_fwd(dy, w, None, not ctx.transpose) if need_dh else None
+                dw, db = conv_wgrad(h, dy, ctx.transpose)
+        return dh, dw, db, None, None
+
+
+def fleet_conv1d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, transpose: bool,
+                 backward_range: Optional[str] = None) -> torch.Tensor:
+    """Every member's Conv1d (``transpose`` False, w (T, out, in, 5)) or
+    ConvTranspose1d (w (T, in, out, 5)), k = 5, padding 2, stride 1, on h
+    (T, N, L, C_in) with bias b (T, C_out): -> (T, N, L, C_out)."""
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the fleet's convolutions run on cuda or cpu, not {h.device}")
+    return FleetConv1d.apply(h, w, b, transpose, backward_range)

@@ -34,10 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: every source of csrc/, as ``build`` takes them: what a run on the card
 #: builds up front (chip_smoke.py)
-SOURCES = ("radius", "resident_adam", "sr_adam", "geometry", "masked_bn", "adam")
+SOURCES = ("radius", "resident_adam", "sr_adam", "geometry", "masked_bn", "adam", "conv1d")
 # flags of one source beyond NVCC_FLAGS.  geometry, masked_bn, adam: no
 # contraction of a product and a sum into one FMA, so that every operation
 # rounds once, as the plain PyTorch version's separate kernels round
+# (conv1d contracts: it is held to its plain version, cuBLAS's products,
+# within a tolerance, as FMA-built products are)
 EXTRA_FLAGS = {"geometry": ["--fmad=false"], "masked_bn": ["--fmad=false"],
                "adam": ["--fmad=false"]}
 

@@ -30,7 +30,7 @@ from typing import Callable, Dict, Hashable, Sequence
 
 import torch
 
-from ..ops import adam, masked_bn, sr_adam
+from ..ops import adam, conv1d, masked_bn, sr_adam
 
 #: captures and replays of epoch graphs in this process
 COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
@@ -38,7 +38,7 @@ COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
 
 def counted_wrappers():
     """The kernel wrappers an epoch graph may record (``count_launch``)."""
-    return (sr_adam.sr_adam_step, *masked_bn.WRAPPERS, *adam.WRAPPERS)
+    return (sr_adam.sr_adam_step, *masked_bn.WRAPPERS, *adam.WRAPPERS, *conv1d.WRAPPERS)
 
 
 def reset_counts() -> None:

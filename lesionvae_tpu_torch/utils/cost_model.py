@@ -172,6 +172,81 @@ def masked_bn_bytes(T: int, batch_size: int = 64, seq_len: int = 100,
             "backward_ms": 1e3 * out["backward_bytes"] / rate}
 
 
+def conv_layers(seq_len: int = 100, micro_ch: int = 13, lesion_ch: int = 3) -> dict:
+    """The fleet step's eight convolutions, k = 5 (models/fleet.py::
+    fleet_forward): {name: (length, C_in, C_out, transposed)}.  micro_c1 and
+    lesion_c1 take the input data, so their backward has no input gradient
+    (``CONV_INPUT_LAYERS``)."""
+    L = seq_len
+    return {"micro_c1": (L, micro_ch, 64, False), "micro_c2": (L // 2, 64, 128, False),
+            "micro_c3": (L // 4, 128, 128, False), "lesion_c1": (L, lesion_ch, 32, False),
+            "lesion_c2": (L // 2, 32, 64, False), "dec_t1": (L // 8, 128, 64, True),
+            "dec_t2": (2 * (L // 8), 64, 64, True),
+            "dec_t3": (4 * (L // 8), 64, micro_ch, True)}
+
+
+CONV_INPUT_LAYERS = ("micro_c1", "lesion_c1")
+CONV_PASSES = ("forward", "dx", "dw")
+
+
+def conv_flops(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: int = 13,
+               lesion_ch: int = 3) -> dict:
+    """FLOPs of the step's convolutions for T members (a multiply-add is 2):
+    by layer, each pass (forward; dx, none for the input layers; dw), and
+    summed by pass and in all."""
+    layers = {}
+    for name, (L, cin, cout, _t) in conv_layers(seq_len, micro_ch, lesion_ch).items():
+        f = 2 * T * batch_size * L * cin * cout * 5
+        layers[name] = {"forward": f, "dx": 0 if name in CONV_INPUT_LAYERS else f, "dw": f}
+    out = {p: sum(v[p] for v in layers.values()) for p in CONV_PASSES}
+    return {"layers": layers, **out, "total": sum(out.values())}
+
+
+def conv_bytes(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: int = 13,
+               lesion_ch: int = 3, compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """The least device-memory bytes of the step's convolutions
+    (``ops/csrc/conv1d.cu``) for T members, each input read once and each
+    output written once, in the compute dtype (bfloat16 with
+    ``compute_dtype`` bf16, else float32): forward x, w, b in and y out; dx
+    dy and w in and dx out; dw x and dy in, dw and db out.  By layer and
+    pass, and summed."""
+    item = 2 if compute_dtype == torch.bfloat16 else 4
+    layers = {}
+    for name, (L, cin, cout, _t) in conv_layers(seq_len, micro_ch, lesion_ch).items():
+        x, y = T * batch_size * L * cin, T * batch_size * L * cout
+        w, b = T * cin * cout * 5, T * cout
+        layers[name] = {"forward": item * (x + w + b + y),
+                        "dx": 0 if name in CONV_INPUT_LAYERS else item * (y + w + x),
+                        "dw": item * (x + y + w + b)}
+    out = {p: sum(v[p] for v in layers.values()) for p in CONV_PASSES}
+    return {"layers": layers, **out, "total": sum(out.values())}
+
+
+def conv_bound_ms(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: int = 13,
+                  lesion_ch: int = 3, compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """The least time of the step's convolutions on an H100 SXM: each layer's
+    pass the larger of its bytes (``conv_bytes``) over 3.35 TB/s and its
+    FLOPs (``conv_flops``) over the compute dtype's peak (``peak_tflops``);
+    by layer and pass, summed by pass, ``bound_ms`` over every pass, and
+    ``bound_by`` the term that is larger in the sum."""
+    flops = conv_flops(T, batch_size, seq_len, micro_ch, lesion_ch)
+    nbytes = conv_bytes(T, batch_size, seq_len, micro_ch, lesion_ch, compute_dtype)
+    peak, rate = peak_tflops(compute_dtype) * 1e12, H100_HBM_GBPS * 1e9
+    layers, t_ops, t_bytes = {}, 0.0, 0.0
+    for name in flops["layers"]:
+        layers[name] = {}
+        for p in CONV_PASSES:
+            f_ms = 1e3 * flops["layers"][name][p] / peak
+            b_ms = 1e3 * nbytes["layers"][name][p] / rate
+            layers[name][p] = max(f_ms, b_ms)
+            t_ops += f_ms
+            t_bytes += b_ms
+    out = {p: sum(v[p] for v in layers.values()) for p in CONV_PASSES}
+    return {"layers": layers, **out, "bound_ms": sum(out.values()),
+            "flops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def traffic_summary(cost: dict, n_steps: int, device_s: float) -> dict:
     """Achieved bandwidth and MFU against the H100's peaks."""
     gb = cost["bytes_total"] * n_steps / 1e9

@@ -30,8 +30,8 @@ torch.set_num_threads(1)
 SEQ, MC, LC, LAT = 24, 5, 3, 4
 LR, WD, CLIP = 2e-4, 1e-3, 2.0
 HYPER = adam.Hyper(LR, WD, CLIP)
-# the dense and convolution weights' gradients come back from autograd
-# transposed inside a member (tests below hold the kernel's table to it)
+# gradients laid out transposed inside a member, as autograd returns the
+# dense weights' (tests below hold the kernel's table to every route)
 TRANSPOSED = ("fc_dec.weight", "fc_mu.weight", "micro_c2.weight", "dec_t1.weight")
 
 
@@ -380,9 +380,11 @@ def _norm_args(T=2):
 
 def test_norm_table_of_the_paths_leaves():
     """A real step's gradients (the fleet's, from autograd on the CPU) go
-    into the table: the transposed leaves read down their rows, every leaf
-    starts where the one before ended, and the table holds what the kernel
-    reads (csrc/adam.cu: Leaf, 80 bytes)."""
+    into the table: the dense weights' transposed gradients read down their
+    rows, the convolutions' (written in the leaf's own layout by
+    ops/conv1d.py) along them, every leaf starts where the one before ended,
+    and the table holds what the kernel reads (csrc/adam.cu: Leaf, 80
+    bytes)."""
     assert ctypes.sizeof(adam.Leaf) == 80
     lay = layout(SEQ, MC, LC, LAT)
     for store in (None, torch.bfloat16):
@@ -396,8 +398,10 @@ def test_norm_table_of_the_paths_leaves():
                 x.data_ptr(), d.data_ptr(), rows, cols, x[0].numel()), name
             assert e.bf16 == (x.dtype == torch.bfloat16) and e.first_tile == first
             first += adam.leaf_tiles(tuple(x.shape[1:]))[0]
-            if name in ("fc_dec.weight", "fc_mu.weight", "micro_c1.weight"):
+            if name in ("fc_dec.weight", "fc_mu.weight"):
                 assert e.s0 == 1 and e.s2 != 1 and e.rows_fast == 1, name  # down the rows
+            if name in ("micro_c1.weight", "micro_c2.weight", "dec_t1.weight"):
+                assert x[0].is_contiguous() and e.rows_fast == 0, name     # along them
         assert first == opt._work.shape[1]
 
 
@@ -433,19 +437,21 @@ def _route(e):
 # latent 10), as (rows_fast, src_vec, dst_vec): fc_dec.weight (90% of the
 # bytes) loaded down its 1,536 rows 16 bytes at a time and stored in pairs;
 # fc_mu/fc_logv.weight columns of 10 rows (not 16-byte aligned) element by
-# element; micro_c1.weight's packed rows of 65 stored one element at a
-# time; dec_t1.weight's two column strides element by element; the biases
-# and the BatchNorm leaves (float32 in both storages) loaded along their
-# rows in pairs where a member's row is even (dec_t3.bias's 13 is not)
+# element; the convolutions' weights, which ops/conv1d.py writes in the
+# leaf's own layout, along their rows, in pairs where a member's row is even
+# (micro_c1's and lesion_c1's rows of 65 and 15 are not: element by
+# element, loaded and stored); the biases and the BatchNorm leaves (float32
+# in both storages) loaded along their rows in pairs where a member's row is
+# even (dec_t3.bias's 13 is not)
 PATH_ROUTES = {
     "f32": {"fc_dec.weight": (1, 4, 2), "fc_logv.weight": (1, 1, 2),
-            "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (1, 4, 1),
-            "micro_c3.weight": (1, 4, 2), "dec_t1.weight": (0, 1, 2),
+            "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (0, 1, 1),
+            "micro_c3.weight": (0, 2, 2), "dec_t1.weight": (0, 2, 2),
             "fc_mu.bias": (0, 2, 2), "fc_dec.bias": (0, 2, 2), "dec_t3.bias": (0, 1, 2),
             "micro_b1.weight": (0, 2, 2)},
     "bf16": {"fc_dec.weight": (1, 8, 2), "fc_logv.weight": (1, 1, 2),
-             "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (1, 8, 1),
-             "lesion_c1.weight": (1, 8, 1), "dec_t1.weight": (0, 1, 2),
+             "fc_mu.weight": (1, 1, 2), "micro_c1.weight": (0, 1, 1),
+             "lesion_c1.weight": (0, 1, 1), "dec_t1.weight": (0, 2, 2),
              "micro_c1.bias": (0, 2, 2), "fc_mu.bias": (0, 2, 2), "fc_dec.bias": (0, 2, 2),
              "dec_t3.bias": (0, 1, 2), "micro_b1.weight": (0, 2, 2)},
 }

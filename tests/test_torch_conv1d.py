@@ -1,0 +1,369 @@
+"""The fleet's convolutions (``ops/conv1d.py``) against the JAX package's
+``Conv1d`` / ``ConvTranspose1d`` (lesionvae_tpu/models/layers.py:165-213)
+under ``jax.vmap`` over the members, with ``jax.grad`` for the gradients of
+the input, the kernel and the bias; the hand-written backward against
+autograd through the plain forward; a bf16 case; the kernels' row geometry
+(padded rows, staged tiles, split ranges), read from the kernels' source,
+written out in numpy and held to the plain version; and the step's FLOP
+and byte counts against a hand count.  The CUDA kernels themselves run only on the card (chip_smoke.py)."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lesionvae_tpu.models import layers as jlayers
+from lesionvae_tpu_torch.models.convert import conv_weight
+from lesionvae_tpu_torch.models.layers import KERNEL, PADDING
+from lesionvae_tpu_torch.ops import conv1d, cuda_build
+from lesionvae_tpu_torch.utils import cost_model as tcm
+
+torch.set_num_threads(1)
+
+T = 3          # members, each with its own weights
+# the eight layer kinds of the step at narrow widths: (L, C_in, C_out,
+# transposed), named after the layer whose kind and length they take
+LAYERS = {"micro_c1": (100, 13, 5, False), "micro_c2": (50, 5, 13, False),
+          "micro_c3": (25, 13, 13, False), "lesion_c1": (100, 3, 5, False),
+          "lesion_c2": (50, 5, 3, False), "dec_t1": (12, 13, 5, True),
+          "dec_t2": (24, 5, 5, True), "dec_t3": (48, 5, 13, True)}
+
+
+def _inputs(L, cin, cout, n=2, seed=0):
+    """h (T, n, L, C_in), flax kernels (T, 5, C_in, C_out), biases (T, C_out)
+    and an upstream gradient (T, n, L, C_out), float64, a member each its own."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(T, n, L, cin)), rng.normal(size=(T, KERNEL, cin, cout)) * 0.3,
+            rng.normal(size=(T, cout)), rng.normal(size=(T, n, L, cout)))
+
+
+def _jax(h, kernel, bias, dy, transposed):
+    """(y, dh, dkernel, dbias) of the flax layer vmapped over the members;
+    the gradients of sum(y * dy) by jax.grad."""
+    cout = kernel.shape[-1]
+    layer = (jlayers.ConvTranspose1d if transposed else jlayers.Conv1d)(cout)
+
+    def one(x, k, b):
+        return layer.apply({"params": {"conv": {"kernel": k, "bias": b}}}, x)
+
+    def loss(x, k, b, g):
+        return jnp.sum(one(x, k, b) * g)
+
+    y = jax.vmap(one)(h, kernel, bias)
+    grads = jax.vmap(jax.grad(loss, argnums=(0, 1, 2)))(h, kernel, bias, dy)
+    return [np.asarray(a) for a in (y, *grads)]
+
+
+def _port_weight(kernel, transposed):
+    return torch.from_numpy(np.stack([conv_weight(k, transposed) for k in kernel]).copy())
+
+
+def test_constants_are_the_models():
+    assert (conv1d.TAPS, conv1d.PAD) == (KERNEL, PADDING) == (5, 2)
+
+
+@pytest.mark.parametrize("name", list(LAYERS))
+def test_plain_matches_vmapped_jax_layer_f64(name):
+    """Forward and the three gradients to 1e-10 in float64, through
+    ``fleet_conv1d`` (the plain versions on the CPU) and autograd."""
+    L, cin, cout, transposed = LAYERS[name]
+    h, kernel, bias, dy = _inputs(L, cin, cout, seed=len(name))
+    want = _jax(h, kernel, bias, dy, transposed)
+    ht = torch.from_numpy(h).requires_grad_()
+    w = _port_weight(kernel, transposed).requires_grad_()
+    b = torch.from_numpy(bias).requires_grad_()
+    y = conv1d.fleet_conv1d(ht, w, b, transposed)
+    dh, dw, db = torch.autograd.grad(y, (ht, w, b), torch.from_numpy(dy))
+    # the flax kernel's gradient carried into the port's layout, as the weights are
+    want[2] = np.stack([conv_weight(k, transposed) for k in want[2]])
+    got = [y.detach().numpy(), dh.numpy(), dw.numpy(), db.numpy()]
+    for what, g, wnt in zip(("y", "dh", "dw", "db"), got, want):
+        np.testing.assert_allclose(g, wnt, rtol=0, atol=1e-10, err_msg=f"{name} {what}")
+    # the members differ: each used its own weights
+    assert np.abs(want[0][0] - want[0][1]).max() > 1e-3
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("need_dh", [True, False])
+def test_backward_equals_autograd_through_the_plain_forward(transposed, need_dh):
+    """``conv1d_backward_plain`` (and the ``Function``'s backward, which runs
+    it on the CPU) against ``torch.autograd.grad`` through ``conv1d_plain``,
+    in float64: the same products summed in another order by the CPU's
+    BLAS, so to 1e-12; dw in the leaf's own layout, contiguous; no dh where
+    the input needs no gradient."""
+    L, cin, cout = 25, 13, 5
+    h, kernel, bias, dy = _inputs(L, cin, cout, n=3, seed=7)
+    h, b, dy = torch.from_numpy(h), torch.from_numpy(bias), torch.from_numpy(dy)
+    w = _port_weight(kernel, transposed)
+    leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+    y = conv1d.conv1d_plain(*leaves, transposed)
+    want = torch.autograd.grad(y, leaves, dy)
+    dh, dw, db = conv1d.conv1d_backward_plain(h, w, dy, transposed, need_dh)
+    assert dw.shape == w.shape and dw.is_contiguous() and db.shape == b.shape
+    for g, wnt in zip((dh, dw, db), want):
+        if g is not None:
+            torch.testing.assert_close(g, wnt, rtol=0, atol=1e-12)
+    assert (dh is None) != need_dh
+    hf = h.clone().requires_grad_(need_dh)
+    wf, bf = w.clone().requires_grad_(), b.clone().requires_grad_()
+    y = conv1d.fleet_conv1d(hf, wf, bf, transposed)
+    got = torch.autograd.grad(y, [t for t in (hf, wf, bf) if t.requires_grad], dy)
+    assert all(torch.equal(g, x) for g, x in zip(got, [t for t in (dh, dw, db)
+                                                       if t is not None]))
+
+
+def test_dh_is_skipped_where_the_input_takes_no_gradient(monkeypatch):
+    """micro_c1 and lesion_c1 take the input data: their backward runs no
+    convolution for dh."""
+    calls = []
+    plain = conv1d.conv1d_plain
+    monkeypatch.setattr(conv1d, "conv1d_plain",
+                        lambda *a: calls.append(a[3]) or plain(*a))
+    h, kernel, bias, dy = _inputs(100, 3, 5)
+    w = _port_weight(kernel, False).requires_grad_()
+    b = torch.from_numpy(bias).requires_grad_()
+    y = conv1d.fleet_conv1d(torch.from_numpy(h), w, b, False)
+    y.backward(torch.from_numpy(dy))
+    assert calls == [False] and w.grad.shape == w.shape
+
+
+def test_bf16_plain_holds_to_its_rounding():
+    """bf16 inputs through ``fleet_conv1d`` on the CPU against the float64
+    product of the same (bf16) inputs: each output within 2^-7 x max(1,
+    |exact|), twice the 2^-8 that rounding the exact value once to bf16 can
+    give (read 3.9e-3: the CPU's bf16 products and sums carry float32 and
+    round once)."""
+    L, cin, cout = 24, 13, 13
+    h, kernel, bias, dy = _inputs(L, cin, cout, seed=3)
+    for transposed in (False, True):
+        x64 = [torch.from_numpy(a).to(torch.bfloat16).double()
+               for a in (h, bias, dy)]
+        w64 = _port_weight(kernel, transposed).to(torch.bfloat16).double()
+        leaves16 = [t.to(torch.bfloat16).requires_grad_() for t in (x64[0], w64, x64[1])]
+        leaves64 = [t.clone().requires_grad_() for t in (x64[0], w64, x64[1])]
+        y16 = conv1d.fleet_conv1d(*leaves16, transposed)
+        y64 = conv1d.fleet_conv1d(*leaves64, transposed)
+        g16 = torch.autograd.grad(y16, leaves16, x64[2].to(torch.bfloat16))
+        g64 = torch.autograd.grad(y64, leaves64, x64[2])
+        assert y16.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in g16)
+        for what, got, want in zip(("y", "dh", "dw", "db"), (y16, *g16), (y64, *g64)):
+            err = ((got.double() - want).abs() / want.abs().clamp(min=1.0)).max().detach()
+            assert float(err) <= 2.0 ** -7, (transposed, what, float(err))
+
+
+# ------------------------------------------------------------ the kernels' geometry
+# csrc/conv1d.cu, read from the source: its tile constants, and its row
+# geometry (padded, staged_rows) as written there
+_CU = (cuda_build.CSRC / "conv1d.cu").read_text()
+_PADDED = "return n * (L + 4) + (r - n * L) + 2;"
+_STAGED = "return rows + 4 + 4 * ((rows - 1 + L - 1) / L);"
+
+
+def _cu_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+def _padded_row(r, L):
+    """Row r = (n, l) of a member in its padded rows, where each sample has
+    two zero rows before and after it (csrc/conv1d.cu: padded, _PADDED).  A
+    tile of rows r0..r1 reads padded rows _padded_row(r0) - 2 ..
+    _padded_row(r1) + 2, one contiguous range the kernels stage."""
+    n = r // L
+    return n * (L + 4) + (r - n * L) + 2
+
+
+def _staged_rows(rows, L):
+    """The most padded rows a tile of ``rows`` rows stages: its rows, two
+    before and after, and four a sample boundary inside it
+    (csrc/conv1d.cu: staged_rows, _STAGED)."""
+    return rows + 4 + 4 * ((rows - 1 + L - 1) // L)
+
+
+def test_kernel_source_holds_the_same_constants_and_geometry():
+    """csrc/conv1d.cu's taps and weight-gradient channel tiles are the
+    host's, its output tiles by C_out are ``fwd_tile``'s, and its row
+    geometry and row split are the ones the mirrors below write out."""
+    for name, value in (("TAPS", conv1d.TAPS), ("WG_BI", conv1d.WGRAD_F32_IN),
+                        ("WH_BO", conv1d.WGRAD_BF16_OUT), ("WH_BI", conv1d.WGRAD_BF16_IN)):
+        assert _cu_constant(name) == value, name
+    assert "int fwd_bn(int cout) { return cout <= 16 ? 16 : (cout <= 32 ? 32 : 64); }" in _CU
+    assert [conv1d.fwd_tile(c) for c in (1, 16, 17, 32, 33, 640)] == [16, 16, 32, 32, 64, 64]
+    assert _PADDED in _CU and _STAGED in _CU
+    assert "*ra = static_cast<int>(static_cast<long long>(g.R) * sp / splits);" in _CU
+    assert "*rb = static_cast<int>(static_cast<long long>(g.R) * (sp + 1) / splits);" in _CU
+    assert "staged_rows(bf ? BF16_ROWS : TILE / bn, L)" in _CU
+    assert "staged_rows(WG_BR, g.L)" in _CU and "staged_rows(WH_BR, g.L)" in _CU
+
+
+def _staged(h, p0, rows):
+    """The staged tile of one member's rows h (N, L, C): padded rows p0 ..
+    p0 + rows - 1, a zero row outside the samples (csrc/conv1d.cu:
+    source_offset)."""
+    N, L, C = h.shape
+    out = np.zeros((rows, C))
+    for s in range(rows):
+        n, rest = divmod(p0 + s, L + 4)
+        if n < N and 2 <= rest < L + 2:
+            out[s] = h[n, rest - 2]
+    return out
+
+
+def _mirror_fwd(h, W, b, bm):
+    """One member's conv_fwd written out: tiles of ``bm`` rows, each staging
+    its padded range, output row r at tap k reading staged row
+    _padded_row(r) - p0 - 2 + k.  h (N, L, C_in), W (5, C_in, C_out)."""
+    N, L, C = h.shape
+    R = N * L
+    y = np.zeros((R, W.shape[2]))
+    for r0 in range(0, R, bm):
+        r_end = min(r0 + bm, R)
+        p0 = _padded_row(r0, L) - 2
+        rows = _padded_row(r_end - 1, L) - p0 + 3
+        assert rows <= _staged_rows(bm, L)
+        xs = _staged(h, p0, rows)
+        base = np.array([_padded_row(r, L) - p0 - 2 for r in range(r0, r_end)])
+        y[r0:r_end] = b + sum(xs[base + k] @ W[k] for k in range(conv1d.TAPS))
+    return y.reshape(N, L, -1)
+
+
+def _mirror_wgrad(h, dy, splits, stage):
+    """One member's conv_wgrad partials written out: ``splits`` ranges of
+    rows R * s // splits .. R * (s + 1) // splits, each in stages of
+    ``stage`` rows; G[o, i, k] and db summed split by split.  h (N, L,
+    C_in), dy (N, L, C_out)."""
+    N, L, C = h.shape
+    R = N * L
+    dyr = dy.reshape(R, -1)
+    G, db = np.zeros((dyr.shape[1], C, conv1d.TAPS)), np.zeros(dyr.shape[1])
+    for sp in range(splits):
+        ra, rb = R * sp // splits, R * (sp + 1) // splits
+        for rs in range(ra, rb, stage):
+            n = min(stage, rb - rs)
+            p0 = _padded_row(rs, L) - 2
+            rows = _padded_row(rs + n - 1, L) - p0 + 3
+            assert rows <= _staged_rows(stage, L)
+            xs = _staged(h, p0, rows)
+            base = np.array([_padded_row(r, L) - p0 - 2 for r in range(rs, rs + n)])
+            for k in range(conv1d.TAPS):
+                G[:, :, k] += dyr[rs:rs + n].T @ xs[base + k]
+            db += dyr[rs:rs + n].sum(axis=0)
+    return G, db
+
+
+@pytest.mark.parametrize("N,L,cin,cout", [(3, 100, 13, 5), (5, 25, 3, 13), (7, 12, 5, 40),
+                                          (40, 1, 3, 3), (2, 48, 20, 70)])
+def test_kernel_tiles_read_the_rows_the_plain_version_reads(N, L, cin, cout):
+    """The kernels' row geometry, in float64 numpy: the forward's tiles
+    (the float32 ones at every tile width the card picks by C_out, and the
+    bf16 ones) and the weight gradient's split ranges and stages (float32
+    and bf16) give the plain version's y, dw and db, at ragged tiles, short
+    samples (L = 1, 12, 25) and narrow and odd channel counts."""
+    rng = np.random.default_rng(N * L)
+    h = rng.normal(size=(1, N, L, cin))
+    w = rng.normal(size=(1, cout, cin, conv1d.TAPS))
+    b = rng.normal(size=(1, cout))
+    dy = rng.normal(size=(1, N, L, cout))
+    ht, wt, bt, dyt = map(torch.from_numpy, (h, w, b, dy))
+    want = conv1d.conv1d_plain(ht, wt, bt, False)[0].numpy()
+    W = w[0].transpose(2, 1, 0)                   # (5, C_in, C_out) at tap k
+    tile = _cu_constant("TILE")
+    for bm in sorted({tile // 16, tile // 32, tile // 64, tile // conv1d.fwd_tile(cout),
+                      _cu_constant("BF16_ROWS")}):
+        np.testing.assert_allclose(_mirror_fwd(h[0], W, b[0], bm), want, atol=1e-12)
+    dw, db = conv1d.conv_wgrad_plain(ht, dyt, False)
+    for dtype, stage in ((torch.float32, _cu_constant("WG_BR")),
+                         (torch.bfloat16, _cu_constant("WH_BR"))):
+        for splits in sorted({1, 3, conv1d.wgrad_splits(64, N * L, cin, cout, dtype)}):
+            if splits <= N * L:
+                G, gdb = _mirror_wgrad(h[0], dy[0], splits, stage)
+                np.testing.assert_allclose(G, dw[0].numpy(), atol=1e-11)
+                np.testing.assert_allclose(gdb, db[0].numpy(), atol=1e-11)
+
+
+def test_input_gradient_is_the_flipped_swapped_convolution():
+    """dh of a Conv1d is the ConvTranspose1d of dy with the same leaf, and
+    the other way round: what lets conv_fwd serve the input gradient."""
+    h, kernel, bias, dy = _inputs(25, 13, 5, seed=11)
+    for transposed in (False, True):
+        w = _port_weight(kernel, transposed)
+        ht = torch.from_numpy(h).requires_grad_()
+        y = conv1d.conv1d_plain(ht, w, torch.from_numpy(bias), transposed)
+        (want,) = torch.autograd.grad(y, ht, torch.from_numpy(dy))
+        got = conv1d.conv1d_plain(torch.from_numpy(dy), w, None, not transposed)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+# the full-width path's layers at 64 members x batch 64: (name, splits a
+# member's rows take in float32 and in bf16)
+PATH_SPLITS = {"micro_c1": (17, 17), "micro_c2": (3, 5), "micro_c3": (2, 3),
+               "lesion_c1": (17, 17), "lesion_c2": (9, 17), "dec_t1": (3, 5),
+               "dec_t2": (5, 9), "dec_t3": (5, 9)}
+
+
+def test_wgrad_splits_at_the_paths_shapes():
+    """The row split is a function of the shapes: at the path's layers it
+    keeps every range at least MIN_SPLIT_ROWS rows and gives 64 members
+    enough blocks to fill the card."""
+    for name, (L, cin, cout, _t) in tcm.conv_layers().items():
+        got = tuple(conv1d.wgrad_splits(64, 64 * L, cin, cout, dt)
+                    for dt in (torch.float32, torch.bfloat16))
+        assert got == PATH_SPLITS[name], name
+        assert all(64 * L // s >= conv1d.MIN_SPLIT_ROWS for s in got)
+    assert conv1d.wgrad_splits(1, 7, 3, 3, torch.float32) == 1
+
+
+def test_wrappers_take_only_cuda_tensors():
+    h, w, b = torch.zeros(2, 3, 4, 5), torch.zeros(2, 6, 5, 5), torch.zeros(2, 6)
+    with pytest.raises(ValueError, match="run on cuda"):
+        conv1d.conv_fwd(h, w, b, False)
+    with pytest.raises(ValueError, match="run on cuda"):
+        conv1d.conv_wgrad(h, torch.zeros(2, 3, 4, 6), False)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        conv1d.fleet_conv1d(h.to("meta"), w.to("meta"), b.to("meta"), False)
+
+
+# ------------------------------------------------------------ the cost model
+# the path's layers by hand (lesionvae_tpu/models/lesion_vae.py:44-69 at
+# seq 100, 13 + 3 channels): L, C_in, C_out
+HAND = {"micro_c1": (100, 13, 64), "micro_c2": (50, 64, 128), "micro_c3": (25, 128, 128),
+        "lesion_c1": (100, 3, 32), "lesion_c2": (50, 32, 64), "dec_t1": (12, 128, 64),
+        "dec_t2": (24, 64, 64), "dec_t3": (48, 64, 13)}
+
+
+@pytest.mark.parametrize("compute,item", [("f32", 4), ("bf16", 2)])
+def test_conv_counts_match_a_hand_count(compute, item):
+    """64 members x batch 64: the forward's 51.24 GFLOP (micro_c1 3.41,
+    micro_c2 and micro_c3 16.78 each, lesion_c1 0.39, lesion_c2 4.19, dec_t1
+    and dec_t2 4.03 each, dec_t3 1.64), dw the same, dx all but the two
+    input layers'; the bytes each tensor once; the bound the FLOPs over 67
+    TFLOP/s in float32 and the bytes over 3.35 TB/s in bf16."""
+    dtype = torch.bfloat16 if compute == "bf16" else None
+    flops = tcm.conv_flops(64)
+    nbytes = tcm.conv_bytes(64, compute_dtype=dtype)
+    gflop = {"micro_c1": 3.41, "micro_c2": 16.78, "micro_c3": 16.78, "lesion_c1": 0.39,
+             "lesion_c2": 4.19, "dec_t1": 4.03, "dec_t2": 4.03, "dec_t3": 1.64}
+    assert {k: v[:3] for k, v in tcm.conv_layers().items()} == HAND
+    for name, (L, cin, cout) in HAND.items():
+        macs = 64 * 64 * L * cin * cout * 5
+        f = flops["layers"][name]
+        assert f["forward"] == f["dw"] == 2 * macs
+        assert f["dx"] == (0 if name in ("micro_c1", "lesion_c1") else 2 * macs)
+        assert round(f["forward"] / 1e9, 2) == gflop[name]
+        x, y, w = 64 * 64 * L * cin, 64 * 64 * L * cout, 64 * cin * cout * 5
+        assert nbytes["layers"][name]["forward"] == item * (x + y + w + 64 * cout)
+        assert nbytes["layers"][name]["dw"] == item * (x + y + w + 64 * cout)
+    assert flops["forward"] == 51_238_666_240
+    assert flops["total"] == 2 * 51_238_666_240 + 47_437_578_240
+    # h in and y out: 168.2 M elements a forward
+    assert sum(64 * 64 * L * (cin + cout) for L, cin, cout in HAND.values()) == 168_230_912
+    bound = tcm.conv_bound_ms(64, compute_dtype=dtype)
+    if compute == "f32":
+        assert bound["bound_by"] == "operations"
+        assert bound["forward"] == pytest.approx(0.776, abs=1e-3)
+        assert bound["bound_ms"] == pytest.approx(2.260, abs=1e-3)
+    else:
+        assert bound["bound_by"] == "bytes"
+        assert bound["bound_ms"] == pytest.approx(nbytes["total"] / 3.35e9, rel=1e-9)

@@ -74,3 +74,21 @@ def test_fleet_step_opens_its_layer_ranges_only_when_asked(on, monkeypatch):
     names = {e["name"] for e in prof.trace_events(p) if e.get("cat") == "user_annotation"}
     layers = {n for n in names if n.startswith("layer:")}
     assert layers == ({f"layer:{k}" for k in prof.LAYER_KINDS} if on else set())
+
+
+def test_a_launch_takes_the_innermost_range_open_at_it():
+    """The convolutions' backward ranges open inside ``layer:backward``: a
+    launch inside one is ``conv_backward``, one after it ``backward`` again,
+    one outside every range ``other``."""
+    events = [_ev("user_annotation", "layer:conv", 0, 10),
+              _ev("user_annotation", "layer:backward", 20, 40),
+              _ev("user_annotation", "layer:conv_backward", 25, 10),
+              _ev("user_annotation", "layer:conv_backward", 40, 5),
+              _ev("cuda_runtime", "cudaLaunchKernel", 22, 1, 1),
+              _ev("cuda_runtime", "cudaLaunchKernel", 30, 1, 2),
+              _ev("cuda_runtime", "cudaLaunchKernel", 38, 1, 3),
+              _ev("cuda_runtime", "cudaLaunchKernel", 42, 1, 4),
+              _ev("cuda_runtime", "cudaLaunchKernel", 55, 1, 5),
+              _ev("cuda_runtime", "cudaLaunchKernel", 70, 1, 6)]
+    assert prof.launch_kinds(events) == {1: "backward", 2: "conv_backward", 3: "backward",
+                                         4: "conv_backward", 5: "backward"}
