@@ -3017,7 +3017,7 @@ def check_programs(cohort_root: Path, cfg) -> dict:
     del warm
     program.reset_counts()
     real, t_real = timed(lambda: batched.launch_many_vaes(Xm, Xl, n_real, **kw))
-    if program.COUNTS != {"captures": 0, "replays": PROGRAM_EPOCHS}:
+    if (program.COUNTS["captures"], program.COUNTS["replays"]) != (0, PROGRAM_EPOCHS):
         fail(f"the real launch after a warm one: {graph_counts()}")
     if not np.isfinite(real.hist.cpu().numpy()).all():
         fail("the real launch after a warm one: history not finite")

@@ -38,10 +38,17 @@ the normative summary after it run eagerly.
 
 ``FLEET_LAUNCH_LEDGER`` records one entry a block launch, as the JAX
 package's does a program dispatch: the program's name and the (shape,
-dtype) of each staged argument; ``utils/cost_model.bench_traffic_fields``
-reads it.  With ``mesh=`` each data rank trains its own block of members
-with no collective (lesionvae_tpu/train/batched.py:58-66), and ``fetch``
-assembles the fleet on every rank.
+dtype) of each staged argument.  With ``mesh=`` each data rank trains its
+own block of members with no collective (lesionvae_tpu/train/batched.py:58-66),
+and ``fetch`` assembles the fleet on every rank.
+
+Spans (``utils.profiling.span``) cut the launch's host work at its
+boundaries: ``fleet.init`` (the members' initial weights, built on the CPU),
+``fleet.draws``, then a block's ``fleet.upload``, ``fleet.normalize``,
+``fleet.state``, ``fleet_train`` (the program's run) and ``member_summary``;
+``fetch.history`` (where the host waits for the card) and ``fetch.members``.
+A chunked launch opens a block's spans once a chunk.  ``fleet_train`` and
+``member_summary`` are also device ranges (every kernel they launch).
 """
 
 from __future__ import annotations
@@ -51,17 +58,17 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layer_range, layout
 from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
+from ..utils.profiling import span
 from . import data as vdata
 from .lowmem import FlatLowmemOptimizer, LowmemOptimizer, draw_salts
 from .normative import member_summary
-from .program import EpochGraph, ProgramCache
+from .program import COUNTS, EpochGraph, ProgramCache, count_h2d
 from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
 from .trainer import TrainedVAE, betas
 
@@ -267,12 +274,17 @@ class FleetProgram:
         for dst, src in ((self.Xm, Xm), (self.Xl, Xl), (self.n_real, n_real),
                          (self.perms, perms), (self.noise, noise)):
             dst.copy_(src)
+        # the state and the blocks are on the device already; the draws
+        # come from the host
+        draws = (perms, noise, salts) if o.lowmem else (perms, noise)
+        count_h2d(*(t for t in draws if t.device.type == "cpu"))
 
     def run(self, state: FleetState, salts: torch.Tensor, Xm: torch.Tensor,
             Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
             noise: torch.Tensor) -> torch.Tensor:
         """Train ``state`` in place; returns its (T, epochs, 4) history."""
-        self.load(state, salts, Xm, Xl, n_real, perms, noise)
+        with span("program.load"):
+            self.load(state, salts, Xm, Xl, n_real, perms, noise)
         self.graph.run(self.epochs)
         with torch.no_grad():
             for name in ("weights", "affine"):
@@ -350,10 +362,13 @@ class FleetHandle:
         self.mesh = None
 
     def fetch(self) -> Tuple[List[TrainedVAE], np.ndarray]:
-        self.assemble()
-        hist = self.hist.cpu().numpy()
-        models = [TrainedVAE(self.state.member(i))
-                  for i in range(self.state.members)]
+        with span("fetch.history"):
+            self.assemble()
+            hist = self.hist.cpu().numpy()
+        with span("fetch.members"):
+            models = [TrainedVAE(self.state.member(i))
+                      for i in range(self.state.members)]
+            COUNTS["host_modules"] += len(models)
         log.info("trained %d VAEs concurrently (%d epochs, %d batches/epoch)",
                  len(models), self._epochs, self._n_batches)
         return models, hist
@@ -364,6 +379,7 @@ class FleetHandle:
 def init_state_dicts(members: int, hyper: Mapping[str, int], seed: int):
     """Initial weights of ``members`` VAEs (torch default init), drawn one
     after the other on the CPU from ``seed``."""
+    COUNTS["host_modules"] += members
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         return [LesionConditionedVAE(**hyper).state_dict() for _ in range(members)]
@@ -520,14 +536,16 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
 
     # weights, draws and salts: from the seed on the CPU, or injected
     if state_dicts is None:
-        state_dicts = init_state_dicts(T, lay.hyper, seed)
-    gen = torch.Generator().manual_seed(seed)
-    if perms is None or noise is None:
-        drawn = draw_fleet(T, n_pad, epochs, batch_size, latent_dim, gen)
-        perms = drawn[0] if perms is None else perms
-        noise = drawn[1] if noise is None else noise
-    if salts is None:
-        salts = draw_salts(T, gen)
+        with span("fleet.init"):
+            state_dicts = init_state_dicts(T, lay.hyper, seed)
+    with span("fleet.draws"):
+        gen = torch.Generator().manual_seed(seed)
+        if perms is None or noise is None:
+            drawn = draw_fleet(T, n_pad, epochs, batch_size, latent_dim, gen)
+            perms = drawn[0] if perms is None else perms
+            noise = drawn[1] if noise is None else noise
+        if salts is None:
+            salts = draw_salts(T, gen)
     draws = dict(zip(DRAWS, (state_dicts, perms, noise, salts)))
     for name, d in draws.items():
         if len(d) != T:
@@ -574,35 +592,43 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
 
     # the data, once onto the device
     def put(X):
-        return torch.from_numpy(np.asarray(X, np.float32)).to(device)
+        host = torch.from_numpy(np.asarray(X, np.float32))
+        count_h2d(host)
+        return host.to(device)
 
-    if warm_compile:
-        reps = n_pad // batch_size
-        rng = np.random.default_rng(0)
-        tile = lambda t: t[None].repeat(T, reps, 1, 1)  # noqa: E731
-        if quantize_upload:
-            pats = [rng.integers(0, 65536, (batch_size,) + X.shape[2:]).astype(np.uint16)
-                    for X in (Xm, Xl)]
-            Xm_d, Xl_d = (dequantize_u16(tile(codes_to_tensor(p, device)),
-                                         torch.full((T, 1, 1, p.shape[2]), -1.0,
-                                                    device=device),
-                                         torch.full((T, 1, 1, p.shape[2]),
-                                                    2.0 / 65535.0, device=device))
-                          for p in pats)
+    def put_codes(codes):
+        count_h2d(codes)
+        return codes_to_tensor(codes, device)
+
+    with span("fleet.upload"):
+        if warm_compile:
+            reps = n_pad // batch_size
+            rng = np.random.default_rng(0)
+            tile = lambda t: t[None].repeat(T, reps, 1, 1)  # noqa: E731
+            if quantize_upload:
+                pats = [rng.integers(0, 65536, (batch_size,) + X.shape[2:]).astype(np.uint16)
+                        for X in (Xm, Xl)]
+                Xm_d, Xl_d = (dequantize_u16(tile(put_codes(p)),
+                                             torch.full((T, 1, 1, p.shape[2]), -1.0,
+                                                        device=device),
+                                             torch.full((T, 1, 1, p.shape[2]),
+                                                        2.0 / 65535.0, device=device))
+                              for p in pats)
+            else:
+                pats = [rng.standard_normal((batch_size,) + X.shape[2:]).astype(np.float32)
+                        for X in (Xm, Xl)]
+                Xm_d, Xl_d = (tile(put(p)) for p in pats)
+        elif quantize_upload:
+            blocks = []
+            for X in (Xm, Xl):
+                codes, lo, scale = quantize_u16(X)
+                blocks.append(dequantize_u16(put_codes(codes), put(lo), put(scale)))
+            Xm_d, Xl_d = blocks
         else:
-            pats = [rng.standard_normal((batch_size,) + X.shape[2:]).astype(np.float32)
-                    for X in (Xm, Xl)]
-            Xm_d, Xl_d = (tile(put(p)) for p in pats)
-    elif quantize_upload:
-        blocks = []
-        for X in (Xm, Xl):
-            codes, lo, scale = quantize_u16(X)
-            blocks.append(dequantize_u16(codes_to_tensor(codes, device),
-                                         put(lo), put(scale)))
-        Xm_d, Xl_d = blocks
-    else:
-        Xm_d, Xl_d = put(Xm), put(Xl)
-    n_d = torch.from_numpy(np.asarray(n_real, np.int64)).to(device)
+            Xm_d, Xl_d = put(Xm), put(Xl)
+        n_host = torch.from_numpy(np.asarray(n_real, np.int64))
+        count_h2d(n_host)
+        n_d = n_host.to(device)
     # the staged arguments: the raw blocks (uint16 codes with the uint16
     # upload), the row counts and, with a summary, sham and the subject index
     up = "uint16" if quantize_upload else "float32"
@@ -613,26 +639,31 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
                   ArgSpec(tuple(np.shape(summary_spec[1])), "int32")]
     FLEET_LAUNCH_LEDGER.append(("fleet_train", tuple(specs)))
     norm_stats = None
-    if normalize_on_device:
-        Xm_d, Xl_d, norm_stats = vdata.normalize_on_device(Xm_d, Xl_d, n_d)
-    else:
-        Xm_d, Xl_d = (torch.nan_to_num(X, nan=0.0) for X in (Xm_d, Xl_d))
-    Xm_d, Xl_d = Xm_d.to(dtype), Xl_d.to(dtype)
+    with span("fleet.normalize"):
+        if normalize_on_device:
+            Xm_d, Xl_d, norm_stats = vdata.normalize_on_device(Xm_d, Xl_d, n_d)
+        else:
+            Xm_d, Xl_d = (torch.nan_to_num(X, nan=0.0) for X in (Xm_d, Xl_d))
+        Xm_d, Xl_d = Xm_d.to(dtype), Xl_d.to(dtype)
 
-    state = FleetState.from_state_dicts(draws["state_dicts"], lay, dtype,
-                                        store_dtype, device)
+    with span("fleet.state"):
+        sds = draws["state_dicts"]
+        state = FleetState.from_state_dicts(sds, lay, dtype, store_dtype, device)
+        count_h2d(*(sd[k] for sd in sds for k in (*lay.leaves, *lay.stats)
+                    if sd[k].device.type == "cpu"))
     program = fleet_program(lay, T, n_pad, epochs, batch_size, lr, weight_decay,
                             grad_clip, store_dtype, compute_dtype, flat_opt, device,
                             dtype)
-    with record_function("fleet_train"):
+    with span("fleet_train", device_range=True):
         hist = program.run(state, draws["salts"], Xm_d, Xl_d, n_d, draws["perms"],
                            draws["noise"])
     summary = None
     if summary_spec is not None:
         sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
-        with record_function("member_summary"):
+        with span("member_summary", device_range=True):
+            sham = torch.from_numpy(np.asarray(sham_T, np.float32)).to(device, dtype)
             summary = member_summary(
-                state, Xm_d, Xl_d, put(sham_T).to(dtype),
+                state, Xm_d, Xl_d, sham,
                 torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device),
                 int(n_seg), seed=int(norm_seed), noise=summary_noise,
                 compute_dtype=compute_dtype)

@@ -18,9 +18,19 @@ launch of the same configuration (a chunk of a chunked fleet, a real launch
 after a ``warm_compile`` one) copies its inputs in and replays the graph
 with no new capture.  Evicting a program frees its graph and buffers.
 
-``COUNTS`` counts captures and replays in this process.  A kernel wrapper
-counted with ``ops.cuda_build.count_launch`` adds its launches recorded in
-a graph to its count once a replay.
+``COUNTS`` counts captures and replays in this process, the bytes the
+launches copy from host memory to their device (``h2d_bytes``: the blocks,
+the initial weights and statistics, the host draws; counted alike on the
+CPU, where nothing crosses) and the ``LesionConditionedVAE`` modules they
+build with an init on the CPU (``host_modules``).  A kernel wrapper counted
+with ``ops.cuda_build.count_launch`` adds its launches recorded in a graph
+to its count once a replay.
+
+Spans (``utils.profiling.span``): ``program.load`` around a run's copy-in,
+``program.capture`` around the warm-up and capture, ``program.epoch``
+around each epoch (one replay on ``cuda``: the host's submission, not the
+graph's kernels), ``program.history`` around the single trainer's history
+read.  None opens inside a captured body.
 """
 
 from __future__ import annotations
@@ -31,9 +41,11 @@ from typing import Callable, Dict, Hashable, Sequence
 import torch
 
 from ..ops import adam, conv1d, masked_bn, sr_adam
+from ..utils.profiling import span
 
-#: captures and replays of epoch graphs in this process
-COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
+#: captures and replays of epoch graphs, bytes staged from host memory to a
+#: launch's device, modules built with an init on the CPU, in this process
+COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0}
 
 
 def counted_wrappers():
@@ -42,7 +54,13 @@ def counted_wrappers():
 
 
 def reset_counts() -> None:
-    COUNTS.update(captures=0, replays=0)
+    COUNTS.update(dict.fromkeys(COUNTS, 0))
+
+
+def count_h2d(*host) -> None:
+    """Add the bytes of the host arrays or tensors ``host``, staged to a
+    launch's device, to ``COUNTS["h2d_bytes"]``."""
+    COUNTS["h2d_bytes"] += sum(int(a.nbytes) for a in host)
 
 
 class EpochGraph:
@@ -79,24 +97,27 @@ class EpochGraph:
                 t.copy_(s)
 
     def capture(self) -> None:
-        self.warm_up()
-        before = {fn: fn.captured for fn in counted_wrappers()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
-            self.body()
-        self.per_replay = {fn: fn.captured - n for fn, n in before.items()}
-        self.graph = graph
+        with span("program.capture"):
+            self.warm_up()
+            before = {fn: fn.captured for fn in counted_wrappers()}
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+                self.body()
+            self.per_replay = {fn: fn.captured - n for fn, n in before.items()}
+            self.graph = graph
         COUNTS["captures"] += 1
 
     def run(self, times: int) -> None:
         if self.device.type != "cuda":
             for _ in range(times):
-                self.body()
+                with span("program.epoch"):
+                    self.body()
             return
         if self.graph is None:
             self.capture()
         for _ in range(times):
-            self.graph.replay()
+            with span("program.epoch"):
+                self.graph.replay()
             COUNTS["replays"] += 1
             for fn, n in self.per_replay.items():
                 fn.launches += n

@@ -26,6 +26,11 @@ replay of a captured CUDA graph (``train.program``).  ``train_loop`` is the
 same arithmetic as a Python loop of eager launches: the data-parallel steps
 (``axis``), with a collective in every step, run it, and it is the
 reference the graph is held against.
+
+Spans (``utils.profiling.span``): ``vae.init`` (the module's init and the
+draws, on the CPU), ``vae.upload`` (module, blocks and draws to the device)
+and ``vae_train`` (the run, the counterpart of the fleet's ``fleet_train``;
+a host range only, like the others).
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from ..models.lesion_vae import LesionConditionedVAE
 from ..ops import adam
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
-from .program import EpochGraph, ProgramCache
+from ..utils.profiling import span
+from .program import COUNTS, EpochGraph, ProgramCache, count_h2d
 
 log = get_logger("train")
 
@@ -322,14 +328,16 @@ class TrainProgram:
     def run(self, module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
             perms: torch.Tensor, noise: torch.Tensor) -> np.ndarray:
         """Train ``module`` in place; returns the (epochs, 4) history."""
-        self.load(module, Xm, Xl, perms, noise)
+        with span("program.load"):
+            self.load(module, Xm, Xl, perms, noise)
         self.graph.run(self.epochs)
         with torch.no_grad():
             for dst, src in zip(list(module.parameters()) + list(module.buffers()),
                                 self.opt.params + self.stats):
                 dst.copy_(src)
-        # a copy: on the CPU .numpy() would share the program's buffer
-        return self.hist.cpu().numpy().copy()
+        with span("program.history"):
+            # a copy: on the CPU .numpy() would share the program's buffer
+            return self.hist.cpu().numpy().copy()
 
     def free(self) -> None:
         self.graph.free()
@@ -412,35 +420,41 @@ def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"the VAE trains float32 on cuda, got {dtype}")
     full_fp32(device)
-    X_micro = np.nan_to_num(np.asarray(X_micro, np.float32), nan=0.0)
-    X_lesion = np.nan_to_num(np.asarray(X_lesion, np.float32), nan=0.0)
-    n, seq_len, micro_ch = X_micro.shape
-    lesion_ch = X_lesion.shape[2]
+    n, seq_len, micro_ch = np.shape(X_micro)
+    lesion_ch = np.shape(X_lesion)[2]
     n_batches = max(1, -(-n // batch_size))
     n_pad = n_batches * batch_size
 
-    with torch.random.fork_rng(devices=[]):
+    with span("vae.init"), torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         if module is None:
             module = LesionConditionedVAE(seq_len=seq_len, micro_ch=micro_ch,
                                           lesion_ch=lesion_ch, latent=latent_dim)
+            COUNTS["host_modules"] += 1
         if perms is None or noise is None:
             drawn = draw_run(n, n_pad, epochs, batch_size, module.latent,
                              torch.default_generator)
             perms = drawn[0] if perms is None else perms
             noise = drawn[1] if noise is None else noise
-    module.to(device=device, dtype=dtype)
 
     def padded(X):
         out = torch.zeros((n_pad,) + X.shape[1:], dtype=dtype, device=device)
         out[:n] = torch.from_numpy(X).to(device=device, dtype=dtype)
         return out
 
+    with span("vae.upload"):
+        X_micro = np.nan_to_num(np.asarray(X_micro, np.float32), nan=0.0)
+        X_lesion = np.nan_to_num(np.asarray(X_lesion, np.float32), nan=0.0)
+        count_h2d(*(t for t in (*module.parameters(), *module.buffers(), perms, noise)
+                    if t.device.type == "cpu"), X_micro, X_lesion)
+        module.to(device=device, dtype=dtype)
+        Xm_d, Xl_d = padded(X_micro), padded(X_lesion)
+        perms, noise = perms.to(device), noise.to(device, dtype)
     module.set_axis(axis)
     try:
-        hist = train_module(module, padded(X_micro), padded(X_lesion), n, perms,
-                            noise, epochs, batch_size, lr, weight_decay, grad_clip,
-                            axis)
+        with span("vae_train"):
+            hist = train_module(module, Xm_d, Xl_d, n, perms, noise, epochs, batch_size,
+                                lr, weight_decay, grad_clip, axis)
     finally:
         module.set_axis(None)
     hist_df = pd.DataFrame(hist, columns=["loss", "recon", "kld", "beta"])

@@ -2,11 +2,8 @@
 port of lesionvae_tpu/utils/cost_model.py).
 
 It counts, per fleet step (one batch of all T members), the bytes the step
-must move through device memory and the matrix FLOPs it must execute, so
-
-    achieved GB/s = bytes_per_step * n_steps / measured fleet device seconds
-
-can sit next to the card's peaks.  The counts are *the work the step must
+must move through device memory and the matrix FLOPs it must execute.
+The counts are *the work the step must
 do*, walked as the JAX package walks it (its layer list, one round trip a
 fusion-boundary tensor), not what the eager port moves: the port runs more,
 smaller kernels and writes more intermediates than that.
@@ -102,8 +99,7 @@ def fleet_step_cost(T: int, seq_len: int = 100, micro_ch: int = 13,
                     compute_dtype: Optional[torch.dtype] = torch.bfloat16) -> dict:
     """Bytes and FLOPs of ONE fleet step (one batch of T members): bytes by
     category, their total, the FLOPs, the parameters of a member and the
-    card's peak for the compute dtype (``peak_tflops``).  Feed it to
-    ``traffic_summary`` with the measured device seconds."""
+    card's peak for the compute dtype (``peak_tflops``)."""
     w_b, o_b, n_params = _param_bytes(seq_len, micro_ch, lesion_ch, latent,
                                       store_dtype)
     p_b = w_b + o_b
@@ -245,48 +241,3 @@ def conv_bound_ms(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: in
     return {"layers": layers, **out, "bound_ms": sum(out.values()),
             "flops_ms": t_ops, "bytes_ms": t_bytes,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
-
-
-def traffic_summary(cost: dict, n_steps: int, device_s: float) -> dict:
-    """Achieved bandwidth and MFU against the H100's peaks."""
-    gb = cost["bytes_total"] * n_steps / 1e9
-    tf = cost["flops_total"] * n_steps / 1e12
-    gbps = gb / device_s if device_s > 0 else 0.0
-    tfps = tf / device_s if device_s > 0 else 0.0
-    return {
-        "fleet_bytes_per_step_mb": round(cost["bytes_total"] / 1e6, 1),
-        "fleet_hbm_gbps": round(gbps, 1),
-        "fleet_hbm_frac_peak": round(gbps / H100_HBM_GBPS, 3),
-        "fleet_mfu": round(tfps / cost["peak_tflops"], 4),
-    }
-
-
-def bench_traffic_fields(ledger, epochs: int, batch_size: int, store_dtype,
-                         compute_dtype, fleet_device_s: float,
-                         latent: int = 10) -> dict:
-    """Traffic fields from a ``train.batched.FLEET_LAUNCH_LEDGER`` capture.
-
-    Each entry is one block launch; its staged arguments carry the member
-    count (Tc), the row padding (n_pad, which fixes the steps an epoch) and
-    the tensor widths, so the member-steps run are exact however the fleet
-    was split into chunks, blocks or mesh ranks."""
-    if not ledger or fleet_device_s <= 0:
-        return {}
-    member_steps = 0
-    for _prog, specs in ledger:
-        Tc, n_pad = specs[0].shape[0], specs[0].shape[1]
-        member_steps += Tc * epochs * max(1, n_pad // batch_size)
-    seq_len, micro_ch = ledger[0][1][0].shape[2], ledger[0][1][0].shape[3]
-    lesion_ch = ledger[0][1][1].shape[3]
-    cost = fleet_step_cost(T=1, seq_len=seq_len, micro_ch=micro_ch,
-                           lesion_ch=lesion_ch, latent=latent,
-                           batch_size=batch_size, store_dtype=store_dtype,
-                           compute_dtype=compute_dtype)
-    gb = cost["bytes_total"] * member_steps / 1e9
-    tf = cost["flops_total"] * member_steps / 1e12
-    return {
-        "fleet_traffic_gb": round(gb, 1),
-        "fleet_hbm_gbps": round(gb / fleet_device_s, 1),
-        "fleet_hbm_frac_peak": round(gb / fleet_device_s / H100_HBM_GBPS, 3),
-        "fleet_mfu": round(tf / fleet_device_s / cost["peak_tflops"], 4),
-    }

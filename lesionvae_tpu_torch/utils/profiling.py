@@ -1,8 +1,12 @@
 """Tracing/profiling hooks (SURVEY.md §5.1: the reference has none; timing is
 first-class here because the headline metric is full-cohort wall-clock).
 
-- ``stage(name)``: context manager recording wall-clock per pipeline stage
-  into a process-global report (and the log).
+- ``span(name)``: the program's one named range.  It opens a range on the
+  ``torch.profiler`` timeline, on the clock of the card's kernels and
+  copies, and adds one call and its host seconds to the process's totals
+  by name (``report``, ``counts``).  Off the profiler it costs one range
+  enter and exit and two clock reads.
+- ``stage(name)``: a span of a pipeline stage, with a log line.
 - ``trace(dir, device)``: optional ``torch.profiler`` trace around a region,
   written as a Chrome trace (view in Perfetto or chrome://tracing).
 - ``device_ms(fn)``: the card's time per call of ``fn``, from CUDA events.
@@ -13,37 +17,65 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
+from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.profiler import record_function
 
 from .logging import get_logger
 
 log = get_logger("prof")
 
-_STAGES: List[Tuple[str, float]] = []
+_SECONDS: Dict[str, float] = defaultdict(float)
+_CALLS: Dict[str, int] = defaultdict(int)
+
+
+@contextlib.contextmanager
+def span(name: str, device_range: bool = False):
+    """A named range: on the profiler's host timeline, and one call and its
+    host seconds in the totals.
+
+    ``device_range``: a user range (``record_function``), which the
+    profiler also draws on the device from the first to the last kernel it
+    launched.  The profiler gives each kernel to the innermost user range
+    open at its launch, so a user range opened inside another takes the
+    outer one's kernels.  A span is therefore a host-only range unless it
+    names a launch whose device time is read (``fleet_train``,
+    ``member_summary``), and nothing inside those opens a user range."""
+    t0 = time.perf_counter()
+    try:
+        with (record_function(name) if device_range else _RecordFunctionFast(name)):
+            yield
+    finally:
+        _SECONDS[name] += time.perf_counter() - t0
+        _CALLS[name] += 1
 
 
 @contextlib.contextmanager
 def stage(name: str):
     t0 = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
-        dt = time.perf_counter() - t0
-        _STAGES.append((name, dt))
-        log.info("[stage] %s: %.2fs", name, dt)
+        log.info("[stage] %s: %.2fs", name, time.perf_counter() - t0)
 
 
 def report() -> Dict[str, float]:
-    """Aggregate wall-clock per stage name."""
-    out: Dict[str, float] = {}
-    for name, dt in _STAGES:
-        out[name] = out.get(name, 0.0) + dt
-    return out
+    """Host seconds by span name since the last ``reset``."""
+    return dict(_SECONDS)
+
+
+def counts() -> Dict[str, int]:
+    """Calls by span name since the last ``reset``."""
+    return dict(_CALLS)
 
 
 def reset() -> None:
-    _STAGES.clear()
+    _SECONDS.clear()
+    _CALLS.clear()
 
 
 def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
