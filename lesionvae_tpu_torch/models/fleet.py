@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from ..ops.conv1d import fleet_conv1d
@@ -60,13 +62,18 @@ def layer_range(kind: str):
 
 
 class Layout:
-    """Where each parameter of one member lies in the two buffers."""
+    """Where each parameter of one member lies in the two buffers, and in a
+    member's row: its weight leaves, its BatchNorm leaves and its running
+    statistics laid end to end (``width`` values), the form in which a
+    member's values cross between the host and the device."""
 
     def __init__(self, seq_len: int, micro_ch: int, lesion_ch: int, latent: int):
         self.hyper = {"seq_len": seq_len, "micro_ch": micro_ch,
                       "lesion_ch": lesion_ch, "latent": latent}
         with torch.device("meta"):
             module = LesionConditionedVAE(**self.hyper)
+        #: a member with no storage, in training mode: ``build`` copies it
+        self.skeleton = module
         bn = {name for name, mod in module.named_modules()
               if isinstance(mod, MaskedBatchNorm)}
         # name -> (buffer, offset, shape); buffer is "weights" or "affine"
@@ -78,9 +85,62 @@ class Layout:
             offsets[which] += p.numel()
         self.n_weights, self.n_affine = offsets["weights"], offsets["affine"]
         self.stats = {name: tuple(b.shape) for name, b in module.named_buffers()}
+        # a member's row: the weight leaves, the BatchNorm leaves, the
+        # statistics, each group in its buffers' order
+        shapes = {**{n: s for n, (_w, _o, s) in self.leaves.items()}, **self.stats}
+        self._order = [*self.names("weights"), *self.names("affine"), *self.stats]
+        self._sizes = [math.prod(shapes[name]) for name in self._order]
+        self.width = sum(self._sizes)
+        #: name -> shape, in the member's ``state_dict`` order
+        self.shapes = {name: shapes[name] for name in module.state_dict()}
 
     def names(self, which: str) -> List[str]:
         return [n for n, (w, _o, _s) in self.leaves.items() if w == which]
+
+    def split(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views of ``rows`` (..., width), one a parameter or statistic,
+        shaped (..., *shape) and keyed in the member's ``state_dict`` order."""
+        lead = rows.shape[:-1]
+        pieces = dict(zip(self._order, rows.split(self._sizes, dim=-1)))
+        return {name: pieces[name].view(*lead, *shape) for name, shape in self.shapes.items()}
+
+    def stack(self, state_dicts: Sequence[Mapping[str, torch.Tensor]]) -> torch.Tensor:
+        """Members' ``state_dict``s as (T, width) rows, in the dtype their
+        values promote to, on the device of the first."""
+        values = [sd[name] for sd in state_dicts for name in self.shapes]
+        dtype = functools.reduce(torch.promote_types, {v.dtype for v in values})
+        rows = torch.empty((len(state_dicts), self.width), dtype=dtype,
+                           device=values[0].device)
+        for row, sd in zip(rows, state_dicts):
+            for name, view in self.split(row).items():
+                view.copy_(sd[name].detach())
+        return rows
+
+    def build(self, row: torch.Tensor) -> LesionConditionedVAE:
+        """A member whose parameters and running statistics are views of
+        ``row`` (width,), on its device and in its dtype, in training mode:
+        the skeleton copied with no init and no allocation."""
+        module = _copy_module(self.skeleton)
+        owners = dict(module.named_modules())
+        for name, view in self.split(row).items():
+            path, attr = name.rsplit(".", 1)
+            if name in self.leaves:
+                owners[path]._parameters[attr] = nn.Parameter(view)
+            else:
+                owners[path]._buffers[attr] = view
+        return module
+
+
+def _copy_module(module: nn.Module) -> nn.Module:
+    """``module`` and its submodules copied with none of their dicts, sets
+    or lists shared (parameters, buffers, hooks, children); no tensor is
+    copied."""
+    new = object.__new__(type(module))
+    new.__dict__.update({k: v.copy() if isinstance(v, (dict, set, list)) else v
+                         for k, v in module.__dict__.items()})
+    for name, child in module._modules.items():
+        new._modules[name] = _copy_module(child)
+    return new
 
 
 @functools.lru_cache(maxsize=16)
@@ -106,11 +166,8 @@ class FleetState:
         self.affine = torch.zeros((members, lay.n_affine), dtype=dtype, device=device)
         self.leaves: Dict[str, torch.Tensor] = {}
         for name, (which, off, shape) in lay.leaves.items():
-            size = 1
-            for s in shape:
-                size *= s
             buf = self.weights if which == "weights" else self.affine
-            self.leaves[name] = buf[:, off:off + size].view(members, *shape)
+            self.leaves[name] = buf[:, off:off + math.prod(shape)].view(members, *shape)
         self.stats = {name: torch.zeros((members,) + shape, dtype=dtype, device=device)
                       for name, shape in lay.stats.items()}
 
@@ -119,17 +176,32 @@ class FleetState:
         return self.weights.device
 
     @classmethod
+    def from_rows(cls, rows: torch.Tensor, lay: Layout,
+                  dtype: torch.dtype = torch.float32,
+                  store_dtype: Optional[torch.dtype] = None,
+                  device="cuda") -> "FleetState":
+        """Members' rows (T, width) (``Layout.split``'s order), on any
+        device: one copy to ``device`` in ``dtype`` (synchronous from host
+        memory, so the rows may be overwritten once it returns), then the
+        weight leaves rounded there to the storage dtype (round to nearest,
+        as ``cast_params_storage`` does)."""
+        self = cls(lay, rows.shape[0], dtype, store_dtype, device)
+        src = rows.to(device=device, dtype=dtype)
+        nw, na = lay.n_weights, lay.n_affine
+        self.weights.copy_(src[:, :nw])
+        self.affine.copy_(src[:, nw:nw + na])
+        views = lay.split(src)
+        for name, t in self.stats.items():
+            t.copy_(views[name])
+        return self
+
+    @classmethod
     def from_state_dicts(cls, state_dicts: Sequence[Mapping[str, torch.Tensor]],
                          lay: Layout, dtype: torch.dtype = torch.float32,
                          store_dtype: Optional[torch.dtype] = None,
                          device="cuda") -> "FleetState":
-        """Stack members' ``state_dict``s; weight leaves are rounded to the
-        storage dtype (round to nearest, as ``cast_params_storage`` does)."""
-        self = cls(lay, len(state_dicts), dtype, store_dtype, device)
-        for name, dst in {**self.leaves, **self.stats}.items():
-            src = torch.stack([sd[name].detach() for sd in state_dicts])
-            dst.copy_(src.to(device=device, dtype=dtype))
-        return self
+        """Stack members' ``state_dict``s (``Layout.stack``, ``from_rows``)."""
+        return cls.from_rows(lay.stack(state_dicts), lay, dtype, store_dtype, device)
 
     def grad_leaves(self) -> Dict[str, torch.Tensor]:
         """The parameters as the forward of one training step takes them:
@@ -144,10 +216,20 @@ class FleetState:
                 for name, t in {**self.leaves, **self.stats}.items()}
 
     def member(self, i: int) -> LesionConditionedVAE:
-        module = LesionConditionedVAE(**self.layout.hyper).to(
-            device=self.device, dtype=self.dtype)
-        module.load_state_dict(self.state_dict(i))
-        return module
+        """Member i as a ``LesionConditionedVAE`` on the fleet's device, in
+        its dtype and in training mode, built from the trained state on the
+        device with no init and no copy through the host: its parameters and
+        running statistics are views of one contiguous row of its own,
+        cloned from the stacked buffers (a stored bfloat16 leaf widens
+        exactly), as ``state_dict(i)`` reads them."""
+        return self.modules(slice(i, i + 1))[0]
+
+    def modules(self, which: slice = slice(None)) -> List[LesionConditionedVAE]:
+        """The members ``which`` as ``member`` builds each."""
+        columns = [t[which].unbind(0) for t in (
+            self.weights, self.affine, *(self.stats[name] for name in self.layout.stats))]
+        return [self.layout.build(torch.cat([parts[0].to(self.dtype), *parts[1:]]))
+                for parts in zip(*columns)]
 
 
 def _widen(leaf: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:

@@ -20,8 +20,14 @@ Every permutation, every reparameterisation draw, the initial weights and
 the stochastic-rounding salts come from CPU generators seeded from ``seed``
 and move to the device once, so a ``cuda`` and a ``cpu`` run see the same
 numbers; ``perms=``, ``noise=``, ``salts=`` and ``state_dicts=`` inject
-others (the tests pass the JAX package's).  Nothing inside training waits
-for the device: history, finite flags and epoch sums stay on it until
+others (the tests pass the JAX package's).  No member exists as a module on
+the host: the initial weights are drawn (``draw_init``, with the calls
+torch's module init makes, bit for bit) or the injected ``state_dicts``
+stacked into one (T, width) row a member (``models.fleet.Layout``), pinned
+and reused across launches on ``cuda``, and cross to the device as one
+copy; ``FleetHandle.fetch`` builds each member on the device from the
+trained state (``FleetState.member``).  Nothing inside training waits for
+the device: history, finite flags and epoch sums stay on it until
 ``FleetHandle.fetch``.
 
 Training is one device program (``FleetProgram``, the counterpart of the
@@ -43,31 +49,36 @@ own block of members with no collective (lesionvae_tpu/train/batched.py:58-66),
 and ``fetch`` assembles the fleet on every rank.
 
 Spans (``utils.profiling.span``) cut the launch's host work at its
-boundaries: ``fleet.init`` (the members' initial weights, built on the CPU),
-``fleet.draws``, then a block's ``fleet.upload``, ``fleet.normalize``,
-``fleet.state``, ``fleet_train`` (the program's run) and ``member_summary``;
-``fetch.history`` (where the host waits for the card) and ``fetch.members``.
+boundaries: ``fleet.init`` (the members' initial weights drawn into their
+host rows, or the injected ones stacked there), ``fleet.draws``, then a
+block's ``fleet.upload``, ``fleet.normalize``, ``fleet.state`` (its rows'
+one copy to the device, and the summary's inputs), ``fleet_train`` (the
+program's run, which the launch does not wait for) and
+``member_summary``; ``fetch.members`` (a mesh's blocks assembled, the
+members built on the device behind the training still queued there) and
+``fetch.history`` (where the host waits for the card).
 A chunked launch opens a block's spans once a chunk.  ``fleet_train`` and
 ``member_summary`` are also device ranges (every kernel they launch).
 """
 
 from __future__ import annotations
 
+import math
 from collections import namedtuple
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.nn import init
 
 from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layer_range, layout
-from ..models.lesion_vae import LesionConditionedVAE
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
 from ..utils.profiling import span
 from . import data as vdata
 from .lowmem import FlatLowmemOptimizer, LowmemOptimizer, draw_salts
-from .normative import member_summary
+from .normative import fleet_noise, member_summary
 from .program import COUNTS, EpochGraph, ProgramCache, count_h2d
 from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
 from .trainer import TrainedVAE, betas
@@ -362,13 +373,16 @@ class FleetHandle:
         self.mesh = None
 
     def fetch(self) -> Tuple[List[TrainedVAE], np.ndarray]:
-        with span("fetch.history"):
-            self.assemble()
-            hist = self.hist.cpu().numpy()
+        """The members, built on the device from the trained state (every
+        one before this returns), then the history, the first read that
+        waits for the card: the members' host work overlaps the training
+        still queued there."""
         with span("fetch.members"):
-            models = [TrainedVAE(self.state.member(i))
-                      for i in range(self.state.members)]
-            COUNTS["host_modules"] += len(models)
+            self.assemble()
+            models = [TrainedVAE(m) for m in self.state.modules()]
+            COUNTS["fetched_members"] += len(models)
+        with span("fetch.history"):
+            hist = self.hist.cpu().numpy()
         log.info("trained %d VAEs concurrently (%d epochs, %d batches/epoch)",
                  len(models), self._epochs, self._n_batches)
         return models, hist
@@ -376,16 +390,60 @@ class FleetHandle:
     __call__ = fetch
 
 
-def init_state_dicts(members: int, hyper: Mapping[str, int], seed: int):
-    """Initial weights of ``members`` VAEs (torch default init), drawn one
-    after the other on the CPU from ``seed``."""
-    COUNTS["host_modules"] += members
+def draw_init(lay, members: int, seed: int,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Initial weights of ``members`` VAEs as (members, ``lay.width``)
+    float32 rows on the CPU (into ``out`` when given), member after member
+    from torch's global generator seeded with ``seed`` inside ``fork_rng``:
+    each convolution and dense layer with the calls its ``reset_parameters``
+    makes, in the module's construction order, so the rows are bit for bit
+    the ``state_dict``s of modules built one after the other, with no module
+    built.  BatchNorm scales and running variances 1, shifts and running
+    means 0 (no draws)."""
+    rows = torch.empty((members, lay.width)) if out is None else out
+    views = lay.split(rows)
+    weights = lay.names("weights")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return [LesionConditionedVAE(**hyper).state_dict() for _ in range(members)]
+        for i in range(members):
+            for w, b in zip(weights[0::2], weights[1::2]):
+                weight = views[w][i]
+                init.kaiming_uniform_(weight, a=math.sqrt(5))
+                fan_in, _ = init._calculate_fan_in_and_fan_out(weight)
+                bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0
+                init.uniform_(views[b][i], -bound, bound)
+    for name in (*lay.names("affine"), *lay.stats):
+        views[name].fill_(1.0 if name.endswith((".weight", ".running_var")) else 0.0)
+    return rows
 
 
-DRAWS = ("state_dicts", "perms", "noise", "salts")
+class HostRows:
+    """The pinned (members, width) float32 rows a fleet's initial weights
+    are drawn into on ``cuda``, kept in ``PROGRAMS`` across the launches of
+    one layout and fleet size.  ``FleetState.from_rows`` copies them to the
+    device synchronously, so a launch's draws never overwrite a copy still
+    pending (a ``warm_compile`` launch, then a real one)."""
+
+    def __init__(self, lay, members: int):
+        self.rows = torch.empty((members, lay.width), pin_memory=True)
+
+    def free(self) -> None:
+        self.rows = None
+
+
+def host_rows(lay, members: int, device: torch.device) -> Optional[torch.Tensor]:
+    """The cached pinned rows on ``cuda``; None (fresh rows) elsewhere."""
+    if device.type != "cuda":
+        return None
+    key = ("host_rows", tuple(sorted(lay.hyper.items())), members)
+    return PROGRAMS.get(key, lambda: HostRows(lay, members)).rows
+
+
+def init_state_dicts(members: int, hyper: Mapping[str, int], seed: int):
+    """Initial weights of ``members`` VAEs (torch default init, ``draw_init``)
+    as ``state_dict``s: views of one row a member."""
+    lay = layout(**hyper)
+    return [lay.split(row) for row in draw_init(lay, members, seed)]
 
 
 def member_draws(members: int, n_pad: int, hyper: Mapping[str, int], epochs: int,
@@ -535,9 +593,13 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
     lay = layout(seq_len, micro_ch, lesion_ch, latent_dim)
 
     # weights, draws and salts: from the seed on the CPU, or injected
-    if state_dicts is None:
-        with span("fleet.init"):
-            state_dicts = init_state_dicts(T, lay.hyper, seed)
+    for name, d in (("state_dicts", state_dicts), ("perms", perms), ("noise", noise),
+                    ("salts", salts)):
+        if d is not None and len(d) != T:
+            raise ValueError(f"{name} has {len(d)} members for a {T}-member fleet")
+    with span("fleet.init"):
+        rows = (draw_init(lay, T, seed, host_rows(lay, T, device)) if state_dicts is None
+                else lay.stack(state_dicts))
     with span("fleet.draws"):
         gen = torch.Generator().manual_seed(seed)
         if perms is None or noise is None:
@@ -546,10 +608,7 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
             noise = drawn[1] if noise is None else noise
         if salts is None:
             salts = draw_salts(T, gen)
-    draws = dict(zip(DRAWS, (state_dicts, perms, noise, salts)))
-    for name, d in draws.items():
-        if len(d) != T:
-            raise ValueError(f"{name} has {len(d)} members for a {T}-member fleet")
+    draws = {"rows": rows, "perms": perms, "noise": noise, "salts": salts}
     if perms.shape[-1] != n_pad:
         raise ValueError(f"perms permute {perms.shape[-1]} rows, the blocks hold "
                          f"{n_pad}: pad every block of one fleet to the same rows")
@@ -647,10 +706,18 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
         Xm_d, Xl_d = Xm_d.to(dtype), Xl_d.to(dtype)
 
     with span("fleet.state"):
-        sds = draws["state_dicts"]
-        state = FleetState.from_state_dicts(sds, lay, dtype, store_dtype, device)
-        count_h2d(*(sd[k] for sd in sds for k in (*lay.leaves, *lay.stats)
-                    if sd[k].device.type == "cpu"))
+        rows = draws["rows"]
+        state = FleetState.from_rows(rows, lay, dtype, store_dtype, device)
+        if rows.device.type == "cpu":
+            count_h2d(rows)
+        if summary_spec is not None:
+            # the summary's inputs cross before the training: a copy from
+            # host memory waits for the work queued ahead of it, and the
+            # launch then returns with the training still queued
+            sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
+            sham = torch.from_numpy(np.asarray(sham_T, np.float32)).to(device, dtype)
+            subj = torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device)
+            eps = fleet_noise(state, n_pad, int(norm_seed), summary_noise, Xm_d)
     program = fleet_program(lay, T, n_pad, epochs, batch_size, lr, weight_decay,
                             grad_clip, store_dtype, compute_dtype, flat_opt, device,
                             dtype)
@@ -659,14 +726,9 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
                            draws["noise"])
     summary = None
     if summary_spec is not None:
-        sham_T, subj_idx_T, n_seg, norm_seed = summary_spec
         with span("member_summary", device_range=True):
-            sham = torch.from_numpy(np.asarray(sham_T, np.float32)).to(device, dtype)
-            summary = member_summary(
-                state, Xm_d, Xl_d, sham,
-                torch.from_numpy(np.asarray(subj_idx_T, np.int64)).to(device),
-                int(n_seg), seed=int(norm_seed), noise=summary_noise,
-                compute_dtype=compute_dtype)
+            summary = member_summary(state, Xm_d, Xl_d, sham, subj, int(n_seg), noise=eps,
+                                     compute_dtype=compute_dtype)
     return FleetHandle(state, hist, epochs, n_batches, Xm_d, Xl_d,
                        summary=summary, norm_stats=norm_stats)
 

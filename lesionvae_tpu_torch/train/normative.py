@@ -144,7 +144,9 @@ def fleet_reconstruct(state: FleetState, Xm: torch.Tensor, Xl: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def _fleet_noise(state: FleetState, n: int, seed: int, noise, like: torch.Tensor):
+def fleet_noise(state: FleetState, n: int, seed: int, noise, like: torch.Tensor):
+    """The fleet's normative draws A and B, (n, latent) each: ``noise`` or
+    those of ``seed`` and ``seed + 1``, on ``like``'s device in its dtype."""
     latent = state.layout.hyper["latent"]
     a, b = noise if noise is not None else (reparam_noise(n, latent, seed),
                                             reparam_noise(n, latent, seed + 1))
@@ -187,7 +189,7 @@ def normative_zscores_fleet(state: FleetState, Xm_T, Xl_T, sham_T, seed: int = 0
     like = state.affine
     Xm, Xl = _fleet_input(Xm_T, like), _fleet_input(Xl_T, like)
     sham = _fleet_input(sham_T, like)
-    eps_a, eps_b = _fleet_noise(state, Xm.shape[1], seed, noise, like)
+    eps_a, eps_b = fleet_noise(state, Xm.shape[1], seed, noise, like)
     out = normative_core_fleet(state, Xm, Xl, sham, eps_a, eps_b)
     return tuple(t.cpu().numpy() for t in out)
 
@@ -202,7 +204,7 @@ def member_summary(state: FleetState, Xm: torch.Tensor, Xl: torch.Tensor,
     (T, n) maps each row to a segment in [0, n_seg); pad rows point at an
     unused one.  Returns (mean_r, std_r, mag (T, n), prof (T, n_seg, L),
     counts (T, n_seg))."""
-    eps_a, eps_b = _fleet_noise(state, Xm.shape[1], seed, noise, Xm)
+    eps_a, eps_b = fleet_noise(state, Xm.shape[1], seed, noise, Xm)
     mean_r, std_r, z, mag = normative_core_fleet(state, Xm, Xl, sham, eps_a,
                                                  eps_b, compute_dtype)
     absz = z.abs().mean(dim=3)                                    # (T, n, L)

@@ -21,8 +21,10 @@ with no new capture.  Evicting a program frees its graph and buffers.
 ``COUNTS`` counts captures and replays in this process, the bytes the
 launches copy from host memory to their device (``h2d_bytes``: the blocks,
 the initial weights and statistics, the host draws; counted alike on the
-CPU, where nothing crosses) and the ``LesionConditionedVAE`` modules they
-build with an init on the CPU (``host_modules``).  A kernel wrapper counted
+CPU, where nothing crosses), the ``LesionConditionedVAE`` modules built with
+an init on the CPU (``host_modules``: the single trainer's; a fleet builds
+none) and the fleet members built from the trained state on the device at
+``FleetHandle.fetch`` (``fetched_members``).  A kernel wrapper counted
 with ``ops.cuda_build.count_launch`` adds its launches recorded in a graph
 to its count once a replay.
 
@@ -44,8 +46,10 @@ from ..ops import adam, conv1d, masked_bn, sr_adam
 from ..utils.profiling import span
 
 #: captures and replays of epoch graphs, bytes staged from host memory to a
-#: launch's device, modules built with an init on the CPU, in this process
-COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0}
+#: launch's device, modules built with an init on the CPU, fleet members
+#: built from device state, in this process
+COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0,
+                          "fetched_members": 0}
 
 
 def counted_wrappers():

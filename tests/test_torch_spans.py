@@ -4,8 +4,8 @@ launch and fetch and the single trainer open their spans once each, in
 order and nested as documented, as host ranges but for the two launches
 read on the device; the span totals equal the profiler's range counts; a
 span whose body raises is closed and counted; the modules built with an
-init on the CPU and the bytes staged to the device match what the shapes
-give."""
+init on the CPU (none for a fleet), the members built from device state at
+``fetch`` and the bytes staged to the device match what the shapes give."""
 
 import json
 from collections import Counter
@@ -89,7 +89,7 @@ def test_a_fleet_launch_opens_its_spans_in_order(chunks):
     events, _counts = _profiled(lambda: _fleet(upload_chunks=chunks))
     top = _children(events)
     assert _names(top) == (["fleet.init", "fleet.draws"] + BLOCK * chunks
-                           + ["fetch.history", "fetch.members"])
+                           + ["fetch.members", "fetch.history"])
     for train in (ev for ev in top if ev[0] == "fleet_train"):
         assert _names(_children(events, train)) == ["program.load"] + ["program.epoch"] * E
 
@@ -145,13 +145,17 @@ def test_a_span_whose_body_raises_is_closed_and_counted(opener):
     assert set(profiling.report()) == {"fails"}
 
 
-@pytest.mark.parametrize("run,modules", [(_fleet, 2 * T),
-                                         (lambda: _fleet(upload_chunks=2), 2 * T),
-                                         (_single, 1)])
-def test_modules_built_on_the_host(run, modules):
+@pytest.mark.parametrize("run,modules,fetched", [(_fleet, 0, T),
+                                                 (lambda: _fleet(upload_chunks=2), 0, T),
+                                                 (_single, 1, 0)])
+def test_modules_built_on_the_host(run, modules, fetched):
+    """A fleet builds no module on the host (its initial weights are drawn
+    into rows, its members built on the device at ``fetch``); the single
+    trainer builds its one."""
     tprog.reset_counts()
     run()
     assert tprog.COUNTS["host_modules"] == modules
+    assert tprog.COUNTS["fetched_members"] == fetched
 
 
 def _member_bytes():
