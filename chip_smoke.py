@@ -46,11 +46,13 @@ Phases; any failure exits non-zero before the result line is printed:
      and one backward kernel a layer; the general route: statistics, apply,
      gradient sums, gradient; eval: apply), at the seven layers' shapes of
      the cohort path's step (64 members x batch 64 x L x C: the cluster
-     route), at the cluster route's edges (a cluster of 16 blocks, batch
+     route) and of the single VAE's (one member x batch 64 x L x C), at
+     the cluster route's edges (a cluster of 16 blocks, batch
      128 x 64 x 64, and of one, batch 8 x 37 x 8) and at shapes that take
      the general route (batch 512, and a row
      of 5 channels, no whole 16-byte vector), float32 and bf16, training
-     with pad rows, an all-pad member and a NaN member, and eval: y, mean,
+     with pad rows (an all-pad member and a NaN member where there are
+     three members or more), and eval: y, mean,
      var, the running statistics, dx, dweight and dbias bit-equal to the
      plain version (NaN for NaN; the sums have one fixed order), and
      a second call the same bits;
@@ -58,8 +60,9 @@ Phases; any failure exits non-zero before the result line is printed:
      float32-storage update (``ops/csrc/adam.cu``), at the paths' shapes:
      the 36 leaf gradients of a real 64-member full-width step as autograd
      returns them (float32, and bf16 weight gradients), the single VAE's
-     (one member) and its flat gradient as a one-leaf table; float32 rows of
-     64 x 2,741,153, 64 x 1,088 and 1 x 2,742,241; members over, under and
+     one-member step's, and ``train_loop``'s flat gradient as a one-leaf
+     table; float32 rows of 64 and of 1 x 2,741,153 and x 1,088, and
+     1 x 2,742,241; members over, under and
      near the clip, a skipping member, NaN and inf gradients; the gather
      also at its alignment edges (every load and store route, destinations
      at even and odd elements, odd member strides, columns off 8,
@@ -69,7 +72,9 @@ Phases; any failure exits non-zero before the result line is printed:
      kernel functions and the gather's blocks an SM (``[occupancy]``);
    - the fleet's convolutions (``ops/csrc/conv1d.cu``: the forward, dx and
      dw with db), at the eight layers' shapes of the cohort path's step (64
-     members x batch 64, inputs laid out as the step lays them) and at four
+     members x batch 64, inputs laid out as the step lays them; member 0
+     alone too, as the single VAE runs a layer: y and dh bit-equal to its
+     64-member launch, dw and db to the tolerance) and at four
      edge shapes, float32 and bf16: each output's error against the float64
      product at most CONV_PLAIN_RATIO times the plain version's, and in
      float32 within KERNEL_TOL (see CONV_PLAIN_RATIO), a second call the
@@ -99,8 +104,11 @@ Phases; any failure exits non-zero before the result line is printed:
       in float32, and the same three again with TF32 on as a control that
       must exceed every one of those bounds; then the
       ``score`` CLI stage on ``cuda`` serving a saved model, held against a
-      CPU float32 ``score_subjects``; the training must launch the gather and
-      norm and the update once a step;
+      CPU float32 ``score_subjects``; the training (a fleet of one member)
+      must launch the gather and norm once a step, the update twice
+      (weights, BatchNorm leaves), the convolution kernels 14 + 8 times and
+      the masked BatchNorm's cluster kernels seven times each (the kernels
+      line's ``launches_by_path`` gives them under ``vae``);
    e. the cohort fleet at full width: a profiles cohort for the 16 geometry
       tracts (37 subjects x 4 timepoints, 925 rows a member), the
       ``vae-cohort`` CLI stage on ``cuda`` with bf16 storage (64 members
@@ -111,8 +119,10 @@ Phases; any failure exits non-zero before the result line is printed:
       seven layers) and ``score-cohort`` over
       the saved members (the apply kernel alone: eval); then, at full width and small depth, the float32 fleet
       held against the CPU (normalization, a 1-epoch history, the normative
-      summary, serving), one member of the fleet against the same member
-      trained alone on the card, and a uint16-upload and a bf16-compute run;
+      summary, serving), one member of the fleet and the same member trained
+      alone by ``train_module`` (its one-member fleet program) against that
+      member trained alone by the module's eager route (``train_loop``) on
+      the card, and a uint16-upload and a bf16-compute run;
    f. the whole pipeline (``all --with-vae --no-plots --device cuda`` through
       ``cli.main``): geometry (100 streamlines a bundle) -> lesion (2000
       directions over the cohort's 48^3 volumes) -> the float32 fleet (64
@@ -157,8 +167,12 @@ Phases; any failure exits non-zero before the result line is printed:
       the chunked case, 2 epochs) and the bf16-storage 64-member fleet (2
       epochs) at full width, graph against eager (``train_loop``,
       ``train_fleet``) on the same inputs: two eager runs are read first;
-      where they agree bit for bit the graph must too, else it is held to
-      the larger of that reading and ALONE_TOL / ALONE_MOVE; (b) host ms,
+      where they agree bit for bit the fleet's graph must too, else it is
+      held to the larger of that reading and ALONE_TOL / ALONE_MOVE, to
+      which the single VAE's graph (its one-member fleet program: the
+      fleet's kernels) is held against the module's eager route (cuDNN,
+      ``MaskedBatchNorm``); the single VAE's graph must repeat bit for bit
+      and equal ``train_fleet`` at one member bit for bit; (b) host ms,
       device ms, kernels and host launch calls a step of both forms
       (``benchmarks/vae_step_profile.py --route bmm|graph``): the single
       VAE, 4 float32 members, 64 bf16-storage members (and their graph with
@@ -234,10 +248,10 @@ HIST_TOL = 2e-4
 # the cohort path: 16 tracts x 4 timepoints, rows padded 925 -> 960
 COHORT_MEMBERS, COHORT_PAD, COHORT_STEPS = 64, 960, 40 * 15
 # a member of the float32 fleet against the same member trained alone on the
-# card, same weights and draws, 2 epochs (30 steps).  The stacked model's
-# convolutions are batched products in cuBLAS, the single model's run in
-# cuDNN, so the two sum in other orders.  Adam divides every gradient by its
-# own running size: where a gradient is of the size of its rounding error the
+# card by the module's eager route (``train_loop``), same weights and draws, 2
+# epochs (30 steps).  The stacked model's convolutions are the port's
+# kernels, the module's run in cuDNN, so the two sum in other orders.  Adam
+# divides every gradient by its own running size: where a gradient is of the size of its rounding error the
 # step is ±lr on either side, and BatchNorm's running statistics follow such
 # weights (a convolution's bias ahead of a BatchNorm has no gradient at all
 # but for rounding, and moves by it alone).  So single elements are not
@@ -330,6 +344,10 @@ def conv1d_launches() -> dict:
 # forward (the normative summary's, serving's) conv_fwd eight times and the
 # masked BatchNorm apply kernel seven times
 CONV_A_STEP = {"conv_fwd": 14, "conv_wgrad": 8}
+# the single VAE trains as a fleet of one member: a step launches the same
+# convolution kernels and the masked BatchNorm's cluster route, one launch
+# forward and one backward a layer, nothing of its general route
+SINGLE_A_STEP = {**CONV_A_STEP, "bn_cluster_forward": 7, "bn_cluster_backward": 7}
 
 
 def eval_forwards(path: str, bn: dict) -> int:
@@ -773,13 +791,15 @@ def sr_adam_at_path_shape(members: int, lay) -> dict:
 # the gradient gather with each member's norm and the float32-storage update
 # (ops/csrc/adam.cu) at the paths' shapes: the 36 leaf gradients of one real
 # 64-member full-width fleet step (as autograd returns them, float32 and
-# bf16 weight gradients; the single VAE's as one member of them, and its
+# bf16 weight gradients; the single VAE's of one member, and train_loop's
 # flat gradient as a one-leaf table), and float32 rows of 64 x 2,741,153
-# (the fleet's weights), 64 x 1,088 (its BatchNorm leaves) and 1 x 2,742,241
-# (the single VAE's flat buffer).  Member t's gradients are scaled to a norm
+# (the fleet's weights), 64 x 1,088 (its BatchNorm leaves), 1 x 2,741,153
+# and 1 x 1,088 (the single VAE's, a fleet of one member) and 1 x 2,742,241
+# (train_loop's flat buffer).  Member t's gradients are scaled to a norm
 # of 2 * 3^(t % 5 - 2), so members lie on both sides of the clip and near it;
 # one member holds a NaN and one an infinite gradient
-ADAM_ROWS = ((COHORT_MEMBERS, 2_741_153), (COHORT_MEMBERS, 1_088), (1, 2_742_241))
+ADAM_ROWS = ((COHORT_MEMBERS, 2_741_153), (COHORT_MEMBERS, 1_088), (1, 2_742_241),
+             (1, 2_741_153), (1, 1_088))
 
 
 def same_bits_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -797,7 +817,9 @@ def norm_outputs(opt) -> list:
 def adam_norm_errors() -> dict:
     """``grad_sq_norm`` against its plain version at the paths' shapes: the
     fleet's 36 leaves of 64 members in both storages, the single VAE's 36
-    leaves (one member) and its flat gradient (a one-leaf table, no
+    leaves of its one-member fleet step (float32 storage, as autograd
+    returns them at one member), member 0 of the 64-member leaves into
+    ``train_loop``'s flat buffer and that buffer (a one-leaf table, no
     destination): packed rows, sums of squares and norms bit-equal (NaN for
     NaN), a second call the same bits, the members on both sides of the
     clip, the NaN and the infinite member's norm NaN and inf."""
@@ -808,15 +830,18 @@ def adam_norm_errors() -> dict:
     from lesionvae_tpu_torch.train.trainer import ClipDecayAdam
 
     cases, seen = 0, {}
-    for label, store in (("f32", None), ("bf16", torch.bfloat16)):
-        state, grads = path_grads(COHORT_MEMBERS, store)
+    for label, members, store in (("f32", COHORT_MEMBERS, None),
+                                  ("bf16", COHORT_MEMBERS, torch.bfloat16),
+                                  ("f32 one member", 1, None)):
+        state, grads = path_grads(members, store)
         T = state.members
         raw = torch.sqrt(sum((x.double() ** 2).flatten(1).sum(1) for x in grads.values()))
         scale = 2.0 * 3.0 ** (torch.arange(T, device="cuda") % 5 - 2) / raw
         for x in grads.values():
             x.mul_(scale.view(-1, *[1] * (x.dim() - 1)).to(x.dtype))
-        grads["fc_dec.weight"][3, 7, 11] = float("nan")
-        grads["micro_b1.bias"][5, 2] = float("inf")
+        if T > 5:
+            grads["fc_dec.weight"][3, 7, 11] = float("nan")
+            grads["micro_b1.bias"][5, 2] = float("inf")
         seen[label] = {n: list(x.stride()) for n, x in grads.items() if not x.is_contiguous()}
         opts = [LowmemOptimizer(state, 2e-4, 1e-3, 2.0) for _ in range(2)]
         adam.grad_sq_norm(*norm_args(opts[0], grads))
@@ -828,17 +853,20 @@ def adam_norm_errors() -> dict:
         want = norm_outputs(opts[1])
         for what, g, w, a in zip(("g_w", "g_a", "sq", "g_norm"), got, want, again):
             if not same_bits_nan(g, w) or not same_bits_nan(g, a):
-                fail(f"gradient norm kernel vs plain at 64 x 36 leaves, {label}: {what} "
+                fail(f"gradient norm kernel vs plain at {T} x 36 leaves, {label}: {what} "
                      f"differs in {bits_differ(g, w)} elements (second call "
                      f"{bits_differ(g, a)})")
         norm = got[3]
-        if not (torch.isnan(norm[3]) and torch.isinf(norm[5])
-                and bool((norm < 2.0).any()) and bool((norm[6:] > 2.0).any())):
-            fail(f"gradient norm at 64 x 36 leaves, {label}: norms {norm[:8].tolist()}")
+        # one member: 2 * 3^-2 of the clip, finite
+        ok = (torch.isnan(norm[3]) and torch.isinf(norm[5]) and bool((norm < 2.0).any())
+              and bool((norm[6:] > 2.0).any())) if T > 5 else bool((norm < 2.0).all())
+        if not ok:
+            fail(f"gradient norm at {T} x 36 leaves, {label}: norms {norm[:8].tolist()}")
         cases += 1
         if label == "f32":
-            # the single VAE: member 0's gradients into its flat buffer's
-            # views, then that buffer as a one-leaf table
+            # train_loop's optimizer (the module route, which the mesh
+            # runs): member 0's gradients into its flat buffer's views, then
+            # that buffer as a one-leaf table
             with torch.device("meta"):
                 module = LesionConditionedVAE(100, 13, 3, 10)
             single = [ClipDecayAdam(module.to_empty(device="cuda"), 2e-4, 1e-3, 2.0)
@@ -855,16 +883,18 @@ def adam_norm_errors() -> dict:
             torch.cuda.synchronize()
             for i, (g, w) in enumerate(zip(outs[0] + outs[2], outs[1] + outs[3])):
                 if not same_bits_nan(g, w):
-                    fail(f"gradient norm kernel vs plain, the single VAE (output {i}): "
-                         f"{bits_differ(g, w)} elements differ")
+                    fail(f"gradient norm kernel vs plain, train_loop's flat buffer "
+                         f"(output {i}): {bits_differ(g, w)} elements differ")
             cases += 2
         del state, grads, opts
         torch.cuda.empty_cache()
     edges = norm_edge_cases()
     print(f"[kernels] gradient norm (grad_sq_norm) vs plain at 64 members x the 36 leaves "
           f"of a full-width step, float32 and bf16 weight gradients, non-contiguous leaves "
-          f"as autograd returned them {json.dumps(seen['f32'])}; the single VAE's 36 "
-          f"leaves and its flat gradient as a one-leaf table ({cases} cases): packed rows, "
+          f"as autograd returned them {json.dumps(seen['f32'])}; the single VAE's one "
+          f"member x 36 leaves, float32 {json.dumps(seen['f32 one member'])}; member 0's "
+          f"36 leaves into train_loop's flat buffer and that buffer as a one-leaf "
+          f"table ({cases} cases): packed rows, "
           f"sums of squares and norms bit-equal (NaN for NaN), a second call the same "
           f"bits, members over and under the clip, a NaN member's norm NaN, an inf "
           f"member's inf; alignment edges ({edges} cases: every route, destinations at "
@@ -950,8 +980,8 @@ def adam_step_errors() -> dict:
     """``adam_step`` against its plain version at ADAM_ROWS: every bit of p,
     m and v (NaN for NaN), members below and above the clip, counts 1 and
     123,457, a member with ``finite`` false kept bit for bit, a member with
-    a NaN and an inf gradient; the single VAE's row below and above the clip
-    and skipped."""
+    a NaN and an inf gradient; each one-member row (the single VAE's two,
+    train_loop's flat one) below and above the clip and skipped."""
     from lesionvae_tpu_torch.benchmarks.adam_timing import update_rows
     from lesionvae_tpu_torch.ops import adam
 
@@ -993,7 +1023,7 @@ def adam_step_errors() -> dict:
         torch.cuda.empty_cache()
     print(f"[kernels] Adam update (adam_step) vs plain at {[list(r) for r in ADAM_ROWS]} "
           f"float32 rows, norms over and under the clip, counts 1 and 123457, a skipping "
-          f"member kept bit for bit, a NaN and an inf gradient; the single VAE's row "
+          f"member kept bit for bit, a NaN and an inf gradient; each one-member row "
           f"under and over the clip and skipped ({cases} cases): p, m, v bit-equal (NaN "
           f"for NaN); max abs err 0")
     return {"cases": cases, "max_abs_err": 0.0}
@@ -1252,11 +1282,13 @@ EDGE_BN_SHAPES = ((4, 128, 64, 64), (3, 8, 37, 8))
 
 def masked_bn_errors() -> float:
     """The kernels against their plain versions, float32 and bf16,
-    training (pad rows, an all-pad member, a NaN member) and eval, by
-    ``route``: at the seven layers' shapes and EDGE_BN_SHAPES (the cluster
-    route) and at GENERAL_BN_SHAPES (the general route): every output (y,
-    the statistics, dx, dweight, dbias) bit-equal, NaN for NaN, and a second
-    call the same bits.  Returns the largest |kernel - plain| (0 when bit-equal)."""
+    training (pad rows; with three members or more an all-pad member and a
+    NaN member) and eval, by ``route``: at the seven layers' shapes, of 64
+    members (the fleet's step) and of one member (the single VAE's), and
+    at EDGE_BN_SHAPES (the cluster route) and at GENERAL_BN_SHAPES (the
+    general route): every output (y, the statistics, dx, dweight, dbias)
+    bit-equal, NaN for NaN, and a second call the same bits.  Returns the
+    largest |kernel - plain| (0 when bit-equal)."""
     from lesionvae_tpu_torch.benchmarks.masked_bn_timing import OUTPUTS, bn_case, bn_run
     from lesionvae_tpu_torch.ops import masked_bn
     from lesionvae_tpu_torch.utils.cost_model import bn_layers
@@ -1264,6 +1296,7 @@ def masked_bn_errors() -> float:
     shapes = [(name, (64, 64, L, C)) for name, (L, C) in bn_layers().items()]
     shapes += [("edge", shape) for shape in EDGE_BN_SHAPES]
     shapes += [("general", shape) for shape in GENERAL_BN_SHAPES]
+    shapes += [(name, (1, 64, L, C)) for name, (L, C) in bn_layers().items()]
     edges = sorted(masked_bn.cluster_size(N, L) for _T, N, L, _C in EDGE_BN_SHAPES)
     if edges != [1, masked_bn.MAX_CLUSTER]:
         fail(f"masked BatchNorm edge shapes take clusters of {edges} blocks")
@@ -1274,8 +1307,10 @@ def masked_bn_errors() -> float:
             if (name == "general") != (path == "general"):
                 fail(f"masked BatchNorm route of {name} {(T, N, L, C)} {dtype}: {path}")
             routes[path] = routes.get(path, 0) + 2
+            special = T >= 3
             for training in (True, False):
-                case = bn_case(L, C, dtype, 100 + i, training, members=T, batch=N)
+                case = bn_case(L, C, dtype, 100 + i, training, special, members=T,
+                               batch=N)
                 got, want = bn_run(case, training, True), bn_run(case, training, False)
                 again = bn_run(case, training, True)
                 torch.cuda.synchronize()
@@ -1291,6 +1326,9 @@ def masked_bn_errors() -> float:
                              "differ")
                     ok = ~torch.isnan(w)
                     worst = max(worst, float((g.float() - w.float())[ok].abs().max()))
+                cases += 1
+                if not special:
+                    continue
                 y, dx = got[0], got[5]
                 nan_channel = (y[2, ..., C // 3] if training
                                else y[2, min(5, N - 1), L // 2, C // 3])
@@ -1300,12 +1338,13 @@ def masked_bn_errors() -> float:
                 if training and (got[1][1].any() or got[2][1].any()):
                     fail(f"masked BatchNorm at {where}: the all-pad member's statistics "
                          "are not 0 (its count clamps to 1)")
-                cases += 1
     print(f"[kernels] masked BatchNorm + ReLU vs plain at the seven layers' shapes "
-          f"(64 members x batch 64), at the cluster route's edges "
+          f"(64 members x batch 64, and one member x batch 64 as the single VAE trains), "
+          f"at the cluster route's edges "
           f"{[list(s) for s in EDGE_BN_SHAPES]} (clusters of {edges} blocks) and at "
           f"{[list(s) for s in GENERAL_BN_SHAPES]}, "
-          f"float32 and bf16, training with pad rows, an all-pad member and a NaN member, "
+          f"float32 and bf16, training with pad rows (an all-pad member and a NaN member "
+          f"where there are three or more), "
           f"and eval ({cases} cases; training layers by route {json.dumps(routes)}, their "
           f"eval forward the apply kernel, their backward the same route): y, mean, var, "
           f"running statistics, dx, dweight, dbias bit-equal (NaN for NaN), a second call "
@@ -1410,9 +1449,14 @@ def conv1d_nan_check(dtype) -> None:
 
 def conv1d_errors() -> dict:
     """The kernels (forward, dh, dw and db) against their plain versions and
-    the float64 product at the eight layers' shapes and EDGE_CONV_SHAPES,
-    float32 and bf16, to the tolerance above; a second call the same bits;
-    NaN through.  Returns the largest |kernel - float64| and the readings."""
+    the float64 product at the eight layers' shapes (64 members: the
+    fleet's step) and EDGE_CONV_SHAPES, float32 and bf16, to the tolerance
+    above; a second call the same bits; NaN through.  Each layer's member 0
+    also alone, as the single VAE (a fleet of one member) runs it: the
+    forward and dh tile by the output channels alone, so they must repeat
+    member 0's bits at 64 members; dw and db split the rows by the member
+    count, and are held to the tolerance.  Returns the largest |kernel -
+    float64| and the readings."""
     from lesionvae_tpu_torch.benchmarks.conv_timing import (OUTPUTS, conv_case, kernel_run,
                                                              plain_run)
     from lesionvae_tpu_torch.ops import conv1d
@@ -1423,52 +1467,72 @@ def conv1d_errors() -> dict:
     cases = [(name, {}) for name in conv_layers()]
     cases += [("edge", {"members": T, "batch": N, "shape": (L, ci, co, t)})
               for T, N, L, ci, co, t in EDGE_CONV_SHAPES]
-    worst, ratio, bounded, literal_dw, plain_dw = 0.0, 0.0, 0.0, 0.0, 0.0
+    acc = {"worst": 0.0, "ratio": 0.0, "bounded": 0.0, "literal_dw": 0.0, "plain_dw": 0.0}
+
+    def hold(c, where, outs=OUTPUTS) -> list:
+        """The kernels' outputs ``outs`` of case ``c`` held to the tolerance;
+        returns every output."""
+        got, again, plain = kernel_run(c), kernel_run(c), plain_run(c)
+        ref = plain_run(c, torch.float64)
+        scale = {}
+        if c["h"].dtype == torch.float32:
+            _dh, dw2, db2 = conv1d.conv1d_backward_plain(
+                c["h"].double() ** 2, c["w"].double(), c["dy"].double() ** 2,
+                c["transposed"], False)
+            scale = {"dw": dw2.sqrt(), "db": db2.sqrt()}
+        torch.cuda.synchronize()
+        for out, g, a, p, r in zip(OUTPUTS, got, again, plain, ref):
+            if g is None or out not in outs:
+                continue
+            if bits_differ(g, a):
+                fail(f"conv1d kernel at {where}: {out}: two calls differ")
+            kernel, base = conv_error(g, r), conv_error(p, r)
+            if kernel > CONV_PLAIN_RATIO * base:
+                fail(f"conv1d kernel at {where}: {out} error {kernel:.3e}, more than "
+                     f"{CONV_PLAIN_RATIO} x the plain version's {base:.3e}")
+            acc["ratio"] = max(acc["ratio"], kernel / base)
+            if c["h"].dtype == torch.float32:
+                held = conv_error(g, r, scale.get(out))
+                if held > KERNEL_TOL:
+                    fail(f"conv1d kernel at {where}: {out} error {held:.3e} above "
+                         f"{KERNEL_TOL}")
+                acc["bounded"] = max(acc["bounded"], held)
+                if out == "dw":
+                    if kernel > CONV_DW_LITERAL_TOL:
+                        fail(f"conv1d kernel at {where}: dw error {kernel:.3e} against "
+                             f"max(1, |ref|) above {CONV_DW_LITERAL_TOL}")
+                    acc["literal_dw"] = max(acc["literal_dw"], kernel)
+                    acc["plain_dw"] = max(acc["plain_dw"], base)
+            acc["worst"] = max(acc["worst"], float((g.double() - r).abs().max()))
+        return got
+
     for i, (name, kw) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             c = conv_case(name, dtype, 500 + i, **kw)
-            got, again, plain = kernel_run(c), kernel_run(c), plain_run(c)
-            ref = plain_run(c, torch.float64)
-            scale = {}
-            if dtype == torch.float32:
-                _dh, dw2, db2 = conv1d.conv1d_backward_plain(
-                    c["h"].double() ** 2, c["w"].double(), c["dy"].double() ** 2,
-                    c["transposed"], False)
-                scale = {"dw": dw2.sqrt(), "db": db2.sqrt()}
-            torch.cuda.synchronize()
             where = (f"{name} {list(c['h'].shape)} -> {c['dy'].shape[3]} channels "
                      f"{'transposed ' if c['transposed'] else ''}{dtype}")
-            for out, g, a, p, r in zip(OUTPUTS, got, again, plain, ref):
-                if g is None:
-                    continue
-                if bits_differ(g, a):
-                    fail(f"conv1d kernel at {where}: {out}: two calls differ")
-                kernel, base = conv_error(g, r), conv_error(p, r)
-                if kernel > CONV_PLAIN_RATIO * base:
-                    fail(f"conv1d kernel at {where}: {out} error {kernel:.3e}, more than "
-                         f"{CONV_PLAIN_RATIO} x the plain version's {base:.3e}")
-                ratio = max(ratio, kernel / base)
-                if dtype == torch.float32:
-                    held = conv_error(g, r, scale.get(out))
-                    if held > KERNEL_TOL:
-                        fail(f"conv1d kernel at {where}: {out} error {held:.3e} above "
-                             f"{KERNEL_TOL}")
-                    bounded = max(bounded, held)
-                    if out == "dw":
-                        if kernel > CONV_DW_LITERAL_TOL:
-                            fail(f"conv1d kernel at {where}: dw error {kernel:.3e} against "
-                                 f"max(1, |ref|) above {CONV_DW_LITERAL_TOL}")
-                        literal_dw, plain_dw = max(literal_dw, kernel), max(plain_dw, base)
-                worst = max(worst, float((g.double() - r).abs().max()))
+            got = hold(c, where)
+            if kw:
+                continue
+            one = {k: v[:1] if torch.is_tensor(v) else v for k, v in c.items()}
+            alone = hold(one, f"{where}, member 0 alone", ("dw", "db"))
+            for out, g, g64 in zip(OUTPUTS[:2], alone, got):
+                if g is not None and bits_differ(g, g64[:1]):
+                    fail(f"conv1d kernel at {where}: {out} of member 0 alone differs from "
+                         f"its 64-member launch in {bits_differ(g, g64[:1])} elements")
     for dtype in (torch.float32, torch.bfloat16):
         conv1d_nan_check(dtype)
+    worst, ratio, bounded = acc["worst"], acc["ratio"], acc["bounded"]
+    literal_dw, plain_dw = acc["literal_dw"], acc["plain_dw"]
     print(f"[kernels] conv1d vs plain and the float64 product at the eight layers' shapes "
           f"(64 members x batch 64) and at {[list(s) for s in EDGE_CONV_SHAPES]}, float32 "
           f"and bf16 ({2 * len(cases)} cases): y, dh, dw, db within {CONV_PLAIN_RATIO} x the "
           f"plain version's error (largest ratio {ratio:.3f}), float32 within {KERNEL_TOL} "
           f"(largest {bounded:.3e}; dw against max(1, |ref|) alone {literal_dw:.3e} within "
           f"{CONV_DW_LITERAL_TOL}, the plain version's {plain_dw:.3e}), a second call the "
-          f"same bits, NaN through; max abs err {worst:.3e}")
+          f"same bits, NaN through; each layer's member 0 alone (one member x batch 64, as "
+          f"the single VAE trains): y and dh bit-equal to its 64-member launch, dw and db "
+          f"held as above; max abs err {worst:.3e}")
     return {"max_abs_err": worst, "largest_ratio_to_plain": ratio,
             "largest_f32_error": bounded, "f32_dw_error_against_ref_alone": literal_dw,
             "f32_dw_plain_error_against_ref_alone": plain_dw}
@@ -1815,6 +1879,7 @@ def tf32_control(model, Xz, Xl, sham, eps, cpu) -> None:
     against the same CPU float32 results ``cpu`` = (forward, z, Sham std,
     history).  Lower precision must exceed every bound a sound run is held
     to, or the bound could not tell it from float32."""
+    from lesionvae_tpu_torch.models import lesion_vae
     from lesionvae_tpu_torch.train import trainer
     from lesionvae_tpu_torch.train.normative import normative_zscores_fused
 
@@ -1825,14 +1890,19 @@ def tf32_control(model, Xz, Xl, sham, eps, cpu) -> None:
 
     fwd_c, z_c, std_c, h_c = cpu
     sound = trainer.full_fp32
-    trainer.full_fp32 = tf32     # every VAE entry point calls it first
+    # every VAE entry point calls it first: the trainer's, and the trained
+    # model's eval forwards (``TrainedVAE``)
+    owners = (trainer, lesion_vae)
+    for owner in owners:
+        owner.full_fp32 = tf32
     try:
         fwd = max(rel_err(a.cpu(), b) for a, b in zip(model.apply(Xz, Xl, eps=eps), fwd_c))
         z_err = z_scaled_err(normative_zscores_fused(model, Xz, Xl, sham,
                                                      seed=VAE_SEED)[2], z_c, std_c)
         hist_err = rel_err(train_2_epochs(Xz, Xl, "cuda"), h_c)
     finally:
-        trainer.full_fp32 = sound
+        for owner in owners:
+            owner.full_fp32 = sound
         sound("cuda")
     line = (f"forward max rel err {fwd:.3e} (bound {PATH_TOL}), Z scaled by "
             f"min(1, std) {z_err:.3e} (bound {PATH_TOL}), 2-epoch history "
@@ -1845,7 +1915,8 @@ def tf32_control(model, Xz, Xl, sham, eps, cpu) -> None:
 
 def check_vae(root: Path, cfg, tract: str) -> dict:
     """``vae`` then ``score`` through the CLI on cuda, each held against the
-    CPU in float32; returns the optimizer kernels' launches in ``vae``."""
+    CPU in float32; returns the launches in ``vae`` of the optimizer
+    kernels, the masked BatchNorm kernels and the convolution kernels."""
     import pandas as pd
 
     from lesionvae_tpu_torch import cli
@@ -1887,14 +1958,22 @@ def check_vae(root: Path, cfg, tract: str) -> dict:
                 or not np.isfinite(z["Z"]).all()):
             fail(f"zscores_{tp}.npz: keys {z.files}, Z {z['Z'].shape}")
     steps = len(cfg.timepoints) * SINGLE_EPOCHS * -(-VAE_ROWS // VAE_BATCH)
-    # one launch of each a training step, at the replays and in the epoch
-    # run before each capture
-    opt = hold_adam_launches("vae", steps + -(-VAE_ROWS // VAE_BATCH) * program.COUNTS[
-        "captures"], {"grad_sq_norm": 1, "adam_step": 1})
+    # the one-member fleet program: a training step's kernels, at the
+    # replays and in the epoch run before each capture (the gather once, the
+    # update on the weights and on the BatchNorm leaves); the eval forwards
+    # of the normative pass run the module
+    run_steps = steps + -(-VAE_ROWS // VAE_BATCH) * program.COUNTS["captures"]
+    opt = hold_adam_launches("vae", run_steps, {"grad_sq_norm": 1, "adam_step": 2})
+    bn, conv = masked_bn_launches(), conv1d_launches()
+    fleet_kernels = {**bn, **conv}
+    want = {k: SINGLE_A_STEP.get(k, 0) * run_steps for k in fleet_kernels}
+    if fleet_kernels != want:
+        fail(f"vae: the fleet's kernels launched {fleet_kernels} times in {run_steps} "
+             f"training steps, {want} expected")
     print(f"[path] vae stage on cuda: {len(cfg.timepoints)} timepoints x "
           f"{VAE_ROWS} rows, {SINGLE_EPOCHS} epochs, {steps} train steps in "
           f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
-          f"stage {wall:.2f}s; kernel launches {json.dumps(opt)}, radius "
+          f"stage {wall:.2f}s; kernel launches {json.dumps({**opt, **fleet_kernels})}, radius "
           f"{radius.sample_radii.launches}, resident {ra.resident_adam.launches}; "
           f"{graph_counts()} (an epoch a replay)")
     print("[path] vae spans on cuda (s): " + json.dumps(spans))
@@ -1961,7 +2040,8 @@ def check_vae(root: Path, cfg, tract: str) -> dict:
         fail(f"score on cuda: {len(served)} rows, max rel err vs cpu {score_err:.3e}")
     print(f"[path] score stage on cuda: {len(served)} subjects; cuda vs cpu "
           f"float32 max rel err {score_err:.3e}")
-    return opt
+    return {"optimizer": opt, "masked_bn": bn,
+            "conv1d": {**conv, "a_step": {k: v / run_steps for k, v in conv.items()}}}
 
 
 # ---------------------------------------------------------------- the cohort fleet
@@ -2088,13 +2168,14 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
 
 def check_cohort_against_cpu(root: Path, cfg) -> None:
     """The fleet at full width and small depth: four members (four tracts at
-    9d) in float32, cuda against cpu and against single training."""
+    9d) in float32, cuda against cpu and against the eager module route
+    (``train_loop``), as is the single trainer's one-member program."""
     from lesionvae_tpu_torch.models.fleet import FleetState, layout
     from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
     from lesionvae_tpu_torch.pipeline.infer import score_cohort
     from lesionvae_tpu_torch.train import batched, data as vdata, normative
     from lesionvae_tpu_torch.train.checkpoint import load_vae
-    from lesionvae_tpu_torch.train.trainer import train_module
+    from lesionvae_tpu_torch.train.trainer import train_loop, train_module
 
     groups = {g: list(s) for g, s in cfg.subjects_by_group().items()}
     subjects = [s for subs in groups.values() for s in subs]
@@ -2136,7 +2217,9 @@ def check_cohort_against_cpu(root: Path, cfg) -> None:
     print(f"[path] float32 fleet, {T} members x 1 epoch from one seed, cuda vs cpu: "
           f"history max rel err {err:.3e} (tol {HIST_TOL})")
 
-    # (ii) a member of the cuda fleet against the same member trained alone
+    # (ii) a member of the cuda fleet, and the same member trained alone by
+    # the single trainer (its one-member fleet program), against the member
+    # trained alone by the eager module route (cuDNN, MaskedBatchNorm)
     lay = layout(100, 13, 3, VAE_LATENT)
     sds = batched.init_state_dicts(T, lay.hyper, VAE_SEED)
     perms, noise = batched.draw_fleet(T, n_pad, 2, VAE_BATCH, VAE_LATENT,
@@ -2145,12 +2228,17 @@ def check_cohort_against_cpu(root: Path, cfg) -> None:
                                       state_dicts=sds, perms=perms, noise=noise, **kw)
     models, h_fleet = handle.fetch()
     i = 2
-    alone = LesionConditionedVAE(**lay.hyper)
-    alone.load_state_dict(sds[i])
-    alone.to("cuda")
-    h_alone = train_module(alone, handle.Xm[i], handle.Xl[i], int(n_real[i]),
-                           perms[i], noise[i], 2, VAE_BATCH, 2e-4, 1e-3, 2.0)
-    h_err = rel_err(h_fleet[i], h_alone)
+
+    def member_alone(train):
+        module = LesionConditionedVAE(**lay.hyper)
+        module.load_state_dict(sds[i])
+        module.to("cuda")
+        hist = train(module, handle.Xm[i], handle.Xl[i], int(n_real[i]), perms[i],
+                     noise[i], 2, VAE_BATCH, 2e-4, 1e-3, 2.0)
+        return module, hist
+
+    alone, h_alone = member_alone(train_loop)
+    route, h_route = member_alone(train_module)
 
     def off(member):
         """(largest L2 distance of a tensor of ``member`` from the member
@@ -2158,25 +2246,28 @@ def check_cohort_against_cpu(root: Path, cfg) -> None:
         that tensor's name)."""
         return max((float((a.cpu() - b.cpu()).norm()) / float((b.cpu() - s0).norm()),
                     name)
-                   for (name, a), b, s0 in zip(member.module.state_dict().items(),
+                   for (name, a), b, s0 in zip(member.state_dict().items(),
                                                alone.state_dict().values(),
                                                sds[i].values()))
 
-    w_err, w_name = off(models[i])
+    readings = {"fleet": (rel_err(h_fleet[i], h_alone), *off(models[i].module)),
+                "train_module": (rel_err(h_route, h_alone), *off(route))}
     other = (i + 1) % T
-    control = (rel_err(h_fleet[other], h_alone), off(models[other])[0])
-    if (h_err > ALONE_TOL or w_err > ALONE_MOVE or control[0] <= ALONE_TOL
-            or control[1] <= ALONE_MOVE):
-        fail(f"fleet member {i} vs the same member trained alone on cuda, 2 epochs: "
-             f"history {h_err:.3e} (tol {ALONE_TOL}), tensors off by {w_err:.3e} of "
-             f"their movement (tol {ALONE_MOVE}); member {other} as a control: "
-             f"{control[0]:.3e}, {control[1]:.3e}")
-    print(f"[path] member {i} of the float32 cuda fleet vs train_module alone on "
-          f"cuda, same weights, permutations and noise, 2 epochs: history max rel "
-          f"err {h_err:.3e} (tol {ALONE_TOL}), weights and BatchNorm statistics off "
-          f"by at most {w_err:.3e} of the distance each moved ({w_name}; tol "
-          f"{ALONE_MOVE})")
-    print(f"[control] member {other} of the same fleet against that single run "
+    control = (rel_err(h_fleet[other], h_alone), off(models[other].module)[0])
+    if (any(h > ALONE_TOL or w > ALONE_MOVE for h, w, _n in readings.values())
+            or control[0] <= ALONE_TOL or control[1] <= ALONE_MOVE):
+        fail(f"member {i} of the fleet and trained alone by train_module vs the same "
+             f"member trained alone by train_loop on cuda, 2 epochs (history, tensors' "
+             f"offset of their movement, worst tensor): {readings} (tol {ALONE_TOL}, "
+             f"{ALONE_MOVE}); member {other} as a control: {control[0]:.3e}, "
+             f"{control[1]:.3e}")
+    for label, (h_err, w_err, w_name) in readings.items():
+        print(f"[path] member {i}, {label} (the fleet's kernels) vs train_loop alone (the "
+              f"module's cuDNN convolutions and MaskedBatchNorm) on cuda, same weights, "
+              f"permutations and noise, 2 epochs: history max rel err {h_err:.3e} (tol "
+              f"{ALONE_TOL}), weights and BatchNorm statistics off by at most "
+              f"{w_err:.3e} of the distance each moved ({w_name}; tol {ALONE_MOVE})")
+    print(f"[control] member {other} of the same fleet against that train_loop run "
           f"exceeds both: history {control[0]:.3e}, tensors {control[1]:.3e}")
 
     # (iii) the normative summary of four trained members of the path, and
@@ -2847,10 +2938,16 @@ def hold_graph(label: str, graph: dict, eager: dict) -> str:
             fail(f"{label}: two eager runs agree bit for bit, the graph does not: "
                  f"{json.dumps(graph)}")
         return "bit-equal, as eager against eager"
+    return hold_near(label, graph, eager)
+
+
+def hold_near(label: str, got: dict, eager: dict) -> str:
+    """A reading of other kernels against the eager runs held to the larger
+    of the eager runs' own reading and ALONE_TOL / ALONE_MOVE."""
     tol = max(ALONE_TOL, eager["history_max_rel"])
     move = max(ALONE_MOVE, eager["tensor_off_of_movement"])
-    if graph["history_max_rel"] > tol or graph["tensor_off_of_movement"] > move:
-        fail(f"{label}: graph against eager {json.dumps(graph)} beyond history {tol} "
+    if got["history_max_rel"] > tol or got["tensor_off_of_movement"] > move:
+        fail(f"{label}: against eager {json.dumps(got)} beyond history {tol} "
              f"and tensors {move} (eager against eager {json.dumps(eager)})")
     return f"within history {tol:.3e} and tensors {move:.3e} of their movement"
 
@@ -2903,22 +3000,39 @@ def check_programs(cohort_root: Path, cfg) -> dict:
         return (torch.from_numpy(np.asarray(hist)),
                 {k: v.detach().cpu() for k, v in module.state_dict().items()})
 
+    def member_eager():
+        # the one-member fleet's own eager form: its step as launches
+        state = FleetState.from_state_dicts([sd0], lay, torch.float32, None, "cuda")
+        hist = batched.train_fleet(state, LowmemOptimizer(state, *opt_args), Xz[:1],
+                                   Xlz[:1], n_d[:1], perms.cuda()[None],
+                                   noise.cuda()[None], PROGRAM_EPOCHS, VAE_BATCH)
+        return hist[0].cpu(), {k: v.cpu() for k, v in state.state_dict(0).items()}
+
     program.reset_counts()
     (e1, s_e1), (e2, s_e2) = timed(lambda: single(trainer.train_loop)), \
         timed(lambda: single(trainer.train_loop))
     g1, s_g1 = timed(lambda: single(trainer.train_module))
     g2, s_g2 = timed(lambda: single(trainer.train_module))
+    counts = dict(program.COUNTS)
+    m1, s_m1 = timed(member_eager)
     eager = run_readings(e2, e1, sd0)
     graph = run_readings(g1, e1, sd0)
     again = run_readings(g2, g1, sd0)
-    held = hold_graph("single VAE", graph, eager)
-    hold_graph("single VAE, graph against graph", again, eager)
-    if program.COUNTS["captures"] > 1 or program.COUNTS["replays"] != 2 * PROGRAM_EPOCHS:
+    member = run_readings(g1, m1, sd0)
+    # the graph is the one-member fleet program: the fleet's kernels against
+    # the module's eager route (cuDNN's backward differs run to run), and
+    # bit for bit against itself and its own eager launches
+    held = hold_near("single VAE", graph, eager)
+    for label, reading in (("graph against graph", again),
+                           ("graph against the one-member fleet eager", member)):
+        if not reading["bit_equal"]:
+            fail(f"single VAE, {label}: not bit-equal {json.dumps(reading)}")
+    if counts["captures"] > 1 or counts["replays"] != 2 * PROGRAM_EPOCHS:
         fail(f"single VAE: {graph_counts()}")
     out["single"] = {"eager_vs_eager": eager, "graph_vs_eager": graph, "held": held,
-                     "graph_vs_graph": again,
+                     "graph_vs_graph": again, "graph_vs_member_eager": member,
                      "eager_s": [s_e1, s_e2], "graph_s": [s_g1, s_g2],
-                     "graphs": dict(program.COUNTS)}
+                     "member_eager_s": s_m1, "graphs": counts}
     print(f"[programs] single VAE, {n0} rows x {PROGRAM_EPOCHS} epochs at full width, "
           f"graph against eager: {json.dumps(out['single'])}")
 
@@ -3065,15 +3179,18 @@ def start_cohort(root: Path, cfg, pool, profiles: bool):
 def run_vae_paths(root: Path, cfg) -> tuple:
     """Paths 3d and 3e over the profiles cohort under ``root``; returns the
     SR Adam kernel's launches on the cohort path, the masked BatchNorm
-    kernels' by stage, their launches a training step, the optimizer
-    kernels' launches by path and the convolution kernels' by stage."""
+    kernels' by stage, their launches a training step of the cohort path,
+    the optimizer kernels' launches by path and the convolution kernels' by
+    stage."""
     single = check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
     sr, bn, bn_a_step, cohort, conv = check_cohort_cli(root, cfg, common)
     check_cohort_against_cpu(root, cfg)
     torch.cuda.empty_cache()
-    return sr, bn, bn_a_step, {"vae": single, "vae-cohort": cohort}, conv
+    bn = {"vae": single["masked_bn"], **bn}
+    conv = {"vae": single["conv1d"], **conv}
+    return sr, bn, bn_a_step, {"vae": single["optimizer"], "vae-cohort": cohort}, conv
 
 
 def main(argv=None) -> int:
@@ -3355,7 +3472,11 @@ def main(argv=None) -> int:
                         "member's norm nor keeps a step count a member (timed as "
                         "fused_adam_informative_ms)",
         "fused_adam_informative_ms": opt_t["fused_adam_informative_ms"],
-        "affine": opt_t["adam_step_affine"], "single": opt_t["adam_step_single"],
+        "affine": opt_t["adam_step_affine"],
+        "single": {"weights": opt_t["adam_step_single_weights"],
+                   "affine": opt_t["adam_step_single_affine"],
+                   "launches_by_path": {
+                       "vae": opt_launches.get("vae", {}).get("adam_step")}},
         "registers": adam_sass["adam_kernel"]["registers"],
         "sass_per_element": adam_sass["adam_kernel"]["per"]}]}))
     print(f"[time] chip_smoke.py wall {time.perf_counter() - t_script:.1f}s; {card}")

@@ -21,7 +21,8 @@ elements a member):
   leaf where PyTorch has no ``_foreach_copy_``), replayed from a CUDA graph;
   it computes no norm, so it is not a yardstick of the same function;
 - ``adam_step`` on the 64-member weight rows, the 64 x 1,088 affine rows,
-  and the single VAE's flat buffer (one member of 2,742,241);
+  and the single VAE's two rows (a fleet of one member: 1 x 2,741,153
+  and 1 x 1,088);
 - the whole optimizer step as the fleet runs it (``LowmemOptimizer.step``)
   against the parent's eager chain (``parent_step``: one copy a leaf, the
   widened square and two sums, the update as elementwise kernels or
@@ -54,8 +55,6 @@ from ..utils.profiling import device_ms
 
 MEMBERS, BATCH, SEQ, MICRO, LESION, LATENT = 64, 64, 100, 13, 3, 10
 LR, WD, CLIP = 2e-4, 1e-3, 2.0
-# the single VAE's flat buffer: every parameter of one member
-SINGLE = 2_742_241
 # the eager chains, timed in turns: fewer calls than the kernels
 CHAIN_REPS, CHAIN_INNER = 10, 5
 
@@ -213,7 +212,9 @@ def timings() -> dict:
         del state, grads, opt, args
         torch.cuda.empty_cache()
     for label, (members, n) in (("weights", (MEMBERS, 2_741_153)),
-                                ("affine", (MEMBERS, 1_088)), ("single", (1, SINGLE))):
+                                ("affine", (MEMBERS, 1_088)),
+                                ("single_weights", (1, 2_741_153)),
+                                ("single_affine", (1, 1_088))):
         a = update_rows(members, n, 1)
         out[f"adam_step_{label}"] = {
             "members": members, "n": n,

@@ -8,7 +8,8 @@
 
 Trains the slice's model (seq 100, 13 + 3 channels, latent 10, about
 2.74 M parameters) at batch 64 on random data with ``train_step``, the
-step of ``train_lesion_vae``, on the card, and reports:
+module's step (``train_loop``, the data-parallel trainer's), on the card,
+and reports:
 
 - the host wall-clock per step over ``--steps`` steps, ending in a
   synchronise (what a user of ``vae.train`` waits for);
@@ -35,12 +36,14 @@ storage and compute only).  All three train the same members with the same
 optimizer and agree on the CPU (tests/test_torch_fleet.py).
 
 ``--route graph`` reads the form the package trains with on the card: the
-step inside the training program (``train.trainer.TrainProgram``,
-``train.batched.FleetProgram``), an epoch of ``EPOCH_STEPS`` steps captured
+step inside the training program (``train.batched.FleetProgram``; the
+single VAE trains as a fleet of one member, so without ``--fleet`` it reads
+that program at one member), an epoch of ``EPOCH_STEPS`` steps captured
 once as a CUDA graph and replayed, one ``cudaGraphLaunch`` an epoch; the
 steps read are rounded up to whole epochs, and the first epoch of the
 warm-up holds the capture.  ``bmm`` (the default) is the step as a Python
-call of eager launches, as ``train_loop`` / ``train_fleet`` run it.
+call of eager launches, as ``train_loop`` (the module's step: cuDNN
+convolutions, ``MaskedBatchNorm``) / ``train_fleet`` run it.
 
 With ``--fleet`` the profiled steps also read the step's device time by
 layer: ``models.fleet.LAYER_RANGES`` names a ``record_function`` range
@@ -80,7 +83,7 @@ from ..ops import sr_adam
 from ..train import program as tprog
 from ..train.batched import FleetProgram, fleet_step, init_state_dicts
 from ..train.lowmem import LowmemOptimizer
-from ..train.trainer import ClipDecayAdam, TrainProgram, train_step
+from ..train.trainer import ClipDecayAdam, train_step
 from ..utils.precision import full_fp32
 
 BATCH, SEQ, MICRO, LESION, LATENT = 64, 100, 13, 3, 10
@@ -279,37 +282,29 @@ def _graph_readout(program, steps: int, warm: int, layers=None) -> dict:
     return out
 
 
-def _draws(device, epochs: int, members: int = 0):
-    """Random permutations and noise of ``epochs`` epochs of EPOCH_STEPS
-    batches; with ``members`` a leading member axis."""
-    lead = (members,) if members else ()
+def _draws(device, epochs: int, members: int):
+    """Random permutations and noise of ``members`` x ``epochs`` epochs of
+    EPOCH_STEPS batches."""
     n_pad = EPOCH_STEPS * BATCH
-    perms = torch.rand(lead + (epochs, n_pad)).argsort(dim=-1)
-    noise = torch.randn(lead + (epochs, EPOCH_STEPS, BATCH, LATENT))
+    perms = torch.rand((members, epochs, n_pad)).argsort(dim=-1)
+    noise = torch.randn((members, epochs, EPOCH_STEPS, BATCH, LATENT))
     return perms.to(device), noise.to(device)
 
 
 def main(steps: int = 100, route: str = "bmm") -> dict:
+    """The single VAE's step: ``bmm`` the module's eager step, ``graph`` the
+    one-member fleet program it trains with (``main_fleet`` at one member)."""
     if route not in ("bmm", "graph"):
         raise ValueError("the single VAE reads --route bmm (eager) or graph")
+    if route == "graph":
+        return main_fleet(1, "f32", "f32", steps, "graph")
     device = torch.device("cuda")
     full_fp32(device)
     torch.manual_seed(0)
     module = LesionConditionedVAE(SEQ, MICRO, LESION, LATENT).to(device)
-    if route == "graph":
-        n_pad = EPOCH_STEPS * BATCH
-        epochs = _epochs_of(max(steps, 10))
-        program = TrainProgram(n_pad, n_pad, tuple(sorted(module.hyperparameters().items())),
-                               None, epochs, BATCH, 2e-4, 1e-3, 2.0, device, torch.float32)
-        g = np.random.default_rng(0)
-        Xm, Xl = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (
-            g.normal(size=(n_pad, SEQ, MICRO)), g.uniform(size=(n_pad, SEQ, LESION))))
-        program.load(module, Xm, Xl, *_draws(device, epochs))
-        out = _graph_readout(program, steps, warm=10)
-    else:
-        opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
-        data = _data(device)
-        out = _readout(lambda n: _steps(module, opt, data, n), steps, warm=10)
+    opt = ClipDecayAdam(module, 2e-4, 1e-3, 2.0)
+    data = _data(device)
+    out = _readout(lambda n: _steps(module, opt, data, n), steps, warm=10)
     out.update(route=route, params=sum(p.numel() for p in module.parameters()),
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(json.dumps(out))

@@ -30,12 +30,15 @@ other rows of the batch (``MaskedBatchNorm``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import full_fp32
 from .layers import (MaskedBatchNorm, avg_pool_half, conv1d, conv_transpose1d,
                      dense, interp_linear, upsample2_linear)
 
@@ -143,3 +146,40 @@ class LesionConditionedVAE(nn.Module):
                               device=where)
         z = mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * logv)
         return self.decode(z, h_lesion, mask), mu, logv
+
+
+@dataclasses.dataclass
+class TrainedVAE:
+    """A trained model: the module holds the weights and the BatchNorm
+    running stats."""
+
+    module: LesionConditionedVAE
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.module.parameters()).dtype
+
+    def as_tensor(self, x) -> torch.Tensor:
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))
+        return x.to(device=self.device, dtype=self.dtype)
+
+    def apply(self, x_micro, x_lesion, eps=None, generator=None):
+        """Eval-mode forward (running BN stats), sampling z ~ q(z|x) with
+        ``eps`` or the generator; the reference's eval forward samples too."""
+        full_fp32(self.device)
+        self.module.eval()
+        with torch.no_grad():
+            return self.module(self.as_tensor(x_micro), self.as_tensor(x_lesion),
+                               eps=eps, generator=generator)
+
+    def encode(self, x_micro, x_lesion):
+        full_fp32(self.device)
+        self.module.eval()
+        with torch.no_grad():
+            return self.module.encode(self.as_tensor(x_micro),
+                                      self.as_tensor(x_lesion))

@@ -73,15 +73,15 @@ from torch.nn import init
 
 from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layer_range, layout
+from ..models.lesion_vae import LesionConditionedVAE, TrainedVAE
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
 from ..utils.profiling import span
 from . import data as vdata
 from .lowmem import FlatLowmemOptimizer, LowmemOptimizer, draw_salts
 from .normative import fleet_noise, member_summary
-from .program import COUNTS, EpochGraph, ProgramCache, count_h2d
+from .program import COUNTS, EpochGraph, ProgramCache, betas, count_h2d
 from .quantize import codes_to_tensor, dequantize_u16, quantize_u16
-from .trainer import TrainedVAE, betas
 
 log = get_logger("batched")
 
@@ -268,16 +268,24 @@ class FleetProgram:
         self.ep.add_(1)
 
     @torch.no_grad()
-    def load(self, state: FleetState, salts: torch.Tensor, Xm: torch.Tensor,
+    def load(self, state: FleetState, salts: Optional[torch.Tensor], Xm: torch.Tensor,
              Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
              noise: torch.Tensor) -> None:
-        """A launch's start: its members' weights and statistics, zero
-        moments and step counts, its salts, epoch 0, its data and draws."""
-        st, o = self.state, self.opt
+        """A launch's start: its members' weights and statistics, then
+        ``start``."""
+        st = self.state
         for name in ("weights", "affine"):
             getattr(st, name).copy_(getattr(state, name))
         for k, t in st.stats.items():
             t.copy_(state.stats[k])
+        self.start(salts, Xm, Xl, n_real, perms, noise)
+
+    @torch.no_grad()
+    def start(self, salts: Optional[torch.Tensor], Xm: torch.Tensor, Xl: torch.Tensor,
+              n_real: torch.Tensor, perms: torch.Tensor, noise: torch.Tensor) -> None:
+        """Zero moments and step counts, a launch's salts (read with
+        bfloat16 storage only), epoch 0, its data and draws."""
+        o = self.opt
         for t in (o.mu_w, o.nu_w, o.mu_a, o.nu_a, o.count, self.hist, self.ep):
             t.zero_()
         if o.lowmem:
@@ -285,12 +293,8 @@ class FleetProgram:
         for dst, src in ((self.Xm, Xm), (self.Xl, Xl), (self.n_real, n_real),
                          (self.perms, perms), (self.noise, noise)):
             dst.copy_(src)
-        # the state and the blocks are on the device already; the draws
-        # come from the host
-        draws = (perms, noise, salts) if o.lowmem else (perms, noise)
-        count_h2d(*(t for t in draws if t.device.type == "cpu"))
 
-    def run(self, state: FleetState, salts: torch.Tensor, Xm: torch.Tensor,
+    def run(self, state: FleetState, salts: Optional[torch.Tensor], Xm: torch.Tensor,
             Xl: torch.Tensor, n_real: torch.Tensor, perms: torch.Tensor,
             noise: torch.Tensor) -> torch.Tensor:
         """Train ``state`` in place; returns its (T, epochs, 4) history."""
@@ -303,6 +307,30 @@ class FleetProgram:
             for k, t in state.stats.items():
                 t.copy_(self.state.stats[k])
         return self.hist.clone()
+
+    def run_module(self, module: LesionConditionedVAE, Xm: torch.Tensor,
+                   Xl: torch.Tensor, n: int, perms: torch.Tensor,
+                   noise: torch.Tensor) -> np.ndarray:
+        """A one-member program trains ``module`` in place on padded blocks
+        (n_pad, L, C) whose first ``n`` rows are real, with its draws
+        (epochs, n_pad) and (epochs, n_batches, B, latent): the module's
+        parameters and running statistics are copied straight into the
+        program's state and, trained, back into the module's own tensors.
+        Returns the (epochs, 4) history, read under ``program.history``."""
+        own = module.state_dict()
+        views = {name: t[0] for name, t in {**self.state.leaves,
+                                            **self.state.stats}.items()}
+        with span("program.load"), torch.no_grad():
+            for name, t in own.items():
+                views[name].copy_(t)
+            self.start(None, Xm[None], Xl[None], torch.full_like(self.n_real, n),
+                       perms[None], noise[None])
+        self.graph.run(self.epochs)
+        with span("program.history"), torch.no_grad():
+            for name, t in own.items():
+                t.copy_(views[name])
+            # a copy: on the CPU ``.cpu()`` would alias the program's buffer
+            return self.hist[0].to("cpu", copy=True).numpy()
 
     def free(self) -> None:
         self.graph.free()
@@ -317,15 +345,19 @@ def fleet_program(lay, members: int, n_pad: int, epochs: int, batch_size: int,
                   lr: float, weight_decay: float, grad_clip: float,
                   store_dtype: Optional[torch.dtype],
                   compute_dtype: Optional[torch.dtype], flat_opt: bool, device,
-                  dtype: torch.dtype) -> FleetProgram:
-    """The cached program of this configuration."""
+                  dtype: torch.dtype, cache: Optional[ProgramCache] = None
+                  ) -> FleetProgram:
+    """The cached program of this configuration, in ``cache`` (default
+    ``PROGRAMS``; the single trainer keeps its one-member programs in
+    ``train.trainer.PROGRAMS``)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (tuple(sorted(lay.hyper.items())), members, n_pad, epochs, batch_size, lr,
            weight_decay, grad_clip, store_dtype, compute_dtype, bool(flat_opt),
            device, dtype, math_mode())
-    return PROGRAMS.get(key, lambda: FleetProgram(
+    cache = PROGRAMS if cache is None else cache
+    return cache.get(key, lambda: FleetProgram(
         lay, members, n_pad, epochs, batch_size, lr, weight_decay, grad_clip,
         store_dtype, compute_dtype, flat_opt, device, dtype))
 
@@ -721,6 +753,11 @@ def _launch_block(Xm, Xl, n_real, lay, summary_spec, draws, epochs, batch_size, 
     program = fleet_program(lay, T, n_pad, epochs, batch_size, lr, weight_decay,
                             grad_clip, store_dtype, compute_dtype, flat_opt, device,
                             dtype)
+    # the state and the blocks are on the device already; the program's load
+    # copies the draws from the host (the salts with bfloat16 storage only)
+    salts = [draws["salts"]] if store_dtype is not None else []
+    count_h2d(*(t for t in (draws["perms"], draws["noise"], *salts)
+                if t.device.type == "cpu"))
     with span("fleet_train", device_range=True):
         hist = program.run(state, draws["salts"], Xm_d, Xl_d, n_d, draws["perms"],
                            draws["noise"])

@@ -18,8 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.lesion_vae import LesionConditionedVAE
-from .trainer import TrainedVAE
+from ..models.lesion_vae import LesionConditionedVAE, TrainedVAE
 
 
 def save_vae(path: str | Path, model: TrainedVAE,

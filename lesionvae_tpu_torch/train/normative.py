@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.fleet import FleetState, fleet_forward
-from .trainer import TrainedVAE
+from ..models.lesion_vae import TrainedVAE
 
 # rows of every member that one eval forward of the fleet takes: eval-mode
 # BatchNorm couples no rows, so chunks give the same values and bound the

@@ -40,6 +40,7 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Sequence
 
+import numpy as np
 import torch
 
 from ..ops import adam, conv1d, masked_bn, sr_adam
@@ -50,6 +51,14 @@ from ..utils.profiling import span
 #: built from device state, in this process
 COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0,
                           "fetched_members": 0}
+
+
+def betas(epochs: int):
+    """Per-epoch KLD weights as float32 values, as the JAX program holds
+    them (lesionvae_tpu/train/trainer.py:138-140)."""
+    return [float(np.float32(0.1 + 1.9 * (ep / (epochs - 1))))
+            if epochs > 1 else 1.0 for ep in range(epochs)]
+
 
 
 def counted_wrappers():

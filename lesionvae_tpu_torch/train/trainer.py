@@ -18,76 +18,50 @@ numbers; tests inject the JAX package's own draws (``perms=``, ``noise=``).
 The run never waits for the device: losses, the finite check and the
 epoch sums stay on it until the history is read at the end.
 
-The run is one device program (``TrainProgram``, the counterpart of the JAX
-package's ``_train_program``): every tensor an epoch touches lives in the
+The run is one device program: the module trains as a fleet of one member,
+on the cached one-member ``train.batched.FleetProgram`` of its
+configuration (the counterpart of the JAX package's ``_train_program``).
+Its step is the fleet's step (``train.batched.fleet_step``): the port's
+convolution, masked BatchNorm + ReLU and optimizer kernels on the card,
+their plain versions on the CPU, with the module's arithmetic (the masked
+ELBO, clip -> decay -> Adam, the unbiased running variance), so a fleet
+member equals the module trained by ``train_loop``
+(tests/test_torch_fleet.py).  Every tensor an epoch touches lives in the
 program's buffers, the epoch body reads its permutation, noise and KLD
 weight through a device epoch counter, and on ``cuda`` each epoch is one
 replay of a captured CUDA graph (``train.program``).  ``train_loop`` is the
-same arithmetic as a Python loop of eager launches: the data-parallel steps
-(``axis``), with a collective in every step, run it, and it is the
-reference the graph is held against.
+module's arithmetic as a Python loop of eager launches (cuDNN convolutions,
+``MaskedBatchNorm``): the data-parallel steps (``axis``), with a collective
+in every step, run it, and it is the reference the program is held
+against.
 
 Spans (``utils.profiling.span``): ``vae.init`` (the module's init and the
-draws, on the CPU), ``vae.upload`` (module, blocks and draws to the device)
-and ``vae_train`` (the run, the counterpart of the fleet's ``fleet_train``;
-a host range only, like the others).
+draws, on the CPU), ``vae.upload`` (module, blocks and draws to the device),
+``vae_train`` (the run, the counterpart of the fleet's ``fleet_train``;
+a host range only, like the others) and, inside it, the program's
+``program.load`` and ``program.epoch`` and ``program.history`` (the
+history's read, where the host waits for the card).
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import pandas as pd
 import torch
 
 from ..models.elbo import elbo
-from ..models.lesion_vae import LesionConditionedVAE
+from ..models.fleet import layout
+from ..models.lesion_vae import LesionConditionedVAE, TrainedVAE
 from ..ops import adam
 from ..utils.logging import get_logger
-from ..utils.precision import full_fp32, math_mode
+from ..utils.precision import full_fp32
 from ..utils.profiling import span
-from .program import COUNTS, EpochGraph, ProgramCache, count_h2d
+from .batched import fleet_program
+from .program import COUNTS, ProgramCache, betas, count_h2d
 
 log = get_logger("train")
-
-
-@dataclasses.dataclass
-class TrainedVAE:
-    """A trained model: the module holds the weights and the BatchNorm
-    running stats."""
-
-    module: LesionConditionedVAE
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.module.parameters()).device
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return next(self.module.parameters()).dtype
-
-    def as_tensor(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x))
-        return x.to(device=self.device, dtype=self.dtype)
-
-    def apply(self, x_micro, x_lesion, eps=None, generator=None):
-        """Eval-mode forward (running BN stats), sampling z ~ q(z|x) with
-        ``eps`` or the generator; the reference's eval forward samples too."""
-        full_fp32(self.device)
-        self.module.eval()
-        with torch.no_grad():
-            return self.module(self.as_tensor(x_micro), self.as_tensor(x_lesion),
-                               eps=eps, generator=generator)
-
-    def encode(self, x_micro, x_lesion):
-        full_fp32(self.device)
-        self.module.eval()
-        with torch.no_grad():
-            return self.module.encode(self.as_tensor(x_micro),
-                                      self.as_tensor(x_lesion))
 
 
 class ClipDecayAdam:
@@ -156,13 +130,6 @@ class ClipDecayAdam:
         self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
-def betas(epochs: int):
-    """Per-epoch KLD weights as float32 values, as the JAX program holds
-    them (trainer.py:138-140)."""
-    return [float(np.float32(0.1 + 1.9 * (ep / (epochs - 1))))
-            if epochs > 1 else 1.0 for ep in range(epochs)]
-
-
 def train_step(module: LesionConditionedVAE, opt: ClipDecayAdam, xb_m, xb_l,
                mask, eps, beta, axis=None) -> torch.Tensor:
     """One batch: train-mode forward (advances BN running stats), ELBO with
@@ -214,10 +181,12 @@ def train_loop(module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
                n: int, perms: torch.Tensor, noise: torch.Tensor, epochs: int,
                batch_size: int, lr: float, weight_decay: float, grad_clip: float,
                axis=None) -> np.ndarray:
-    """``train_module`` as a Python loop of eager launches, epoch by epoch:
-    the form of the data-parallel steps (``axis``: this rank trains its
-    block of each batch's rows, ``train_step``), and the reference the
-    program is held against (the same operations in the same order)."""
+    """``train_module`` as a Python loop of eager launches over the module,
+    epoch by epoch (``train_step``: cuDNN convolutions, ``MaskedBatchNorm``,
+    ``ClipDecayAdam``): the form of the data-parallel steps (``axis``: this
+    rank trains its block of each batch's rows), and the reference the
+    one-member program is held against (the same arithmetic in other
+    kernels)."""
     n_pad = Xm.shape[0]
     n_batches = n_pad // batch_size
     opt = ClipDecayAdam(module, lr, weight_decay, grad_clip)
@@ -245,123 +214,9 @@ def train_loop(module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
     return torch.stack(hist).cpu().numpy()
 
 
-class TrainProgram:
-    """A whole training run of one static configuration as one device
-    program: the counterpart of lesionvae_tpu/train/trainer.py:127-207.
-
-    Buffers: a module of the configuration whose parameters are views of
-    its ``ClipDecayAdam``'s flat buffer (with ``mu``, ``nu``, ``count``),
-    its BatchNorm statistics, the padded data ``Xm`` / ``Xl``, the run's
-    permutations and noise, the KLD weights ``beta_t``, the (epochs, 4)
-    history and the epoch counter ``ep``.  ``epoch`` is the body of one
-    epoch: the ``n_batches`` steps of ``train_step`` unrolled, the epoch's
-    permutation, noise, KLD weight and history row taken through ``ep``,
-    which it advances.  ``run`` copies a module and a run's inputs in,
-    runs the epochs (one graph replay each on ``cuda``) and copies the
-    trained module out."""
-
-    def __init__(self, n: int, n_pad: int, hyper: Tuple[Tuple[str, int], ...],
-                 compute_dtype: Optional[torch.dtype], epochs: int,
-                 batch_size: int, lr: float, weight_decay: float, grad_clip: float,
-                 device: torch.device, dtype: torch.dtype):
-        self.n, self.epochs, self.batch_size = n, epochs, batch_size
-        self.n_batches = n_pad // batch_size
-        h = dict(hyper)
-        with torch.device("meta"):      # no draw: the weights are copied in
-            module = LesionConditionedVAE(**h, compute_dtype=compute_dtype)
-        self.module = module.to_empty(device=device).to(dtype)
-        self.opt = ClipDecayAdam(self.module, lr, weight_decay, grad_clip)
-        self.stats = list(self.module.buffers())
-        new = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
-        self.Xm = new(n_pad, h["seq_len"], h["micro_ch"])
-        self.Xl = new(n_pad, h["seq_len"], h["lesion_ch"])
-        self.perms = new(epochs, n_pad, dt=torch.int64)
-        self.noise = new(epochs, self.n_batches, batch_size, h["latent"])
-        self.beta_t = torch.tensor(betas(epochs), dtype=dtype, device=device)
-        self.hist = new(epochs, 4)
-        self.ep = new(1, dt=torch.int64)
-        self.graph = EpochGraph(self.epoch, self.state(), device)
-
-    def state(self) -> List[torch.Tensor]:
-        """The tensors an epoch carries to the next."""
-        o = self.opt
-        return [o.flat, o.mu, o.nu, o.count, *self.stats, self.hist, self.ep]
-
-    def buffers(self) -> List[torch.Tensor]:
-        """Every tensor the body reads or writes."""
-        o = self.opt
-        return self.state() + [o.g, o._work, o.sq, o.g_norm, self.Xm, self.Xl,
-                               self.perms, self.noise, self.beta_t]
-
-    def epoch(self) -> None:
-        B = self.batch_size
-        perm = self.perms.index_select(0, self.ep)[0]
-        Xm_ep = self.Xm.index_select(0, perm)
-        Xl_ep = self.Xl.index_select(0, perm)
-        mask_ep = (perm < self.n).to(self.Xm.dtype)
-        noise = self.noise.index_select(0, self.ep)[0]
-        beta = self.beta_t.index_select(0, self.ep)
-        sums = self.Xm.new_zeros(4)
-        for b in range(self.n_batches):
-            sl = slice(b * B, (b + 1) * B)
-            sums = sums + train_step(self.module, self.opt, Xm_ep[sl], Xl_ep[sl],
-                                     mask_ep[sl], noise[b], beta[0])
-        seen = sums[3]
-        avg = torch.where(seen > 0, sums[:3] / seen, torch.nan)
-        self.hist.index_copy_(0, self.ep, torch.cat([avg, beta])[None])
-        self.ep.add_(1)
-
-    @torch.no_grad()
-    def load(self, module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
-             perms: torch.Tensor, noise: torch.Tensor) -> None:
-        """A run's start: ``module``'s weights and statistics, zero moments
-        and step count, epoch 0, and the run's data and draws."""
-        for dst, src in zip(self.opt.params + self.stats,
-                            list(module.parameters()) + list(module.buffers())):
-            dst.copy_(src)
-        for t in (self.opt.mu, self.opt.nu, self.opt.count, self.hist, self.ep):
-            t.zero_()
-        for dst, src in ((self.Xm, Xm), (self.Xl, Xl), (self.perms, perms),
-                         (self.noise, noise)):
-            dst.copy_(src)
-
-    def run(self, module: LesionConditionedVAE, Xm: torch.Tensor, Xl: torch.Tensor,
-            perms: torch.Tensor, noise: torch.Tensor) -> np.ndarray:
-        """Train ``module`` in place; returns the (epochs, 4) history."""
-        with span("program.load"):
-            self.load(module, Xm, Xl, perms, noise)
-        self.graph.run(self.epochs)
-        with torch.no_grad():
-            for dst, src in zip(list(module.parameters()) + list(module.buffers()),
-                                self.opt.params + self.stats):
-                dst.copy_(src)
-        with span("program.history"):
-            # a copy: on the CPU .numpy() would share the program's buffer
-            return self.hist.cpu().numpy().copy()
-
-    def free(self) -> None:
-        self.graph.free()
-
-
-#: the trainer's programs by static configuration, as lru_cache(maxsize=16)
-#: holds the JAX package's
+#: the trainer's one-member fleet programs by static configuration, as
+#: lru_cache(maxsize=16) holds the JAX package's
 PROGRAMS = ProgramCache(16)
-
-
-def train_program(n: int, n_pad: int, module: LesionConditionedVAE, epochs: int,
-                  batch_size: int, lr: float, weight_decay: float, grad_clip: float,
-                  device, dtype: torch.dtype) -> TrainProgram:
-    """The cached program of this configuration (``module`` gives the
-    widths and the compute dtype)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    hyper = tuple(sorted(module.hyperparameters().items()))
-    key = (n, n_pad, hyper, module.compute_dtype, epochs, batch_size, lr,
-           weight_decay, grad_clip, device, dtype, math_mode())
-    return PROGRAMS.get(key, lambda: TrainProgram(
-        n, n_pad, hyper, module.compute_dtype, epochs, batch_size, lr, weight_decay,
-        grad_clip, device, dtype))
 
 
 def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
@@ -370,17 +225,21 @@ def train_module(module: LesionConditionedVAE, Xm: torch.Tensor,
                  weight_decay: float, grad_clip: float, axis=None) -> np.ndarray:
     """Train ``module`` in place on padded device tensors (n_pad, L, C)
     whose first ``n`` rows are real.  Returns the (epochs, 4) history
-    [loss, recon, kld, beta].  The run is the cached ``TrainProgram`` of its
-    configuration: one graph replay an epoch on ``cuda``.  ``axis``: this
-    rank trains its block of each batch's rows with a collective every
-    step, which a graph cannot hold over gloo: ``train_loop``."""
+    [loss, recon, kld, beta].  The run is the cached one-member
+    ``FleetProgram`` of its configuration (in ``PROGRAMS``; one graph replay
+    an epoch on ``cuda``), loaded with ``module``'s weights and statistics;
+    the trained ones are copied back into ``module``'s own tensors.
+    ``axis``: this rank trains its block of each batch's rows with a
+    collective every step, which a graph cannot hold over gloo:
+    ``train_loop``."""
     if axis is not None:
         return train_loop(module, Xm, Xl, n, perms, noise, epochs, batch_size, lr,
                           weight_decay, grad_clip, axis)
-    program = train_program(n, Xm.shape[0], module, epochs, batch_size, lr,
-                            weight_decay, grad_clip, Xm.device, Xm.dtype)
-    return program.run(module, Xm, Xl, perms.to(Xm.device),
-                       noise.to(Xm.device, Xm.dtype))
+    program = fleet_program(layout(**module.hyperparameters()), 1, Xm.shape[0], epochs,
+                            batch_size, lr, weight_decay, grad_clip, None,
+                            module.compute_dtype, False, Xm.device, Xm.dtype,
+                            cache=PROGRAMS)
+    return program.run_module(module, Xm, Xl, n, perms, noise)
 
 
 def train_lesion_vae(X_micro: np.ndarray, X_lesion: np.ndarray,

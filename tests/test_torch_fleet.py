@@ -200,9 +200,10 @@ def _fleet_inputs(T=3, n_pad=32, B=8, epochs=2, seed=0):
 
 
 def test_fleet_member_equals_member_trained_alone_f64():
-    """Float64: every member of the fleet against ``train_module`` on that
-    member alone with the same weights, scattered-pad permutations and
-    noise, to 1e-10 in history, weights and BatchNorm statistics."""
+    """Float64: every member of the fleet against the module trained alone
+    by the eager module route (``train_loop``: the module's convolutions and
+    ``MaskedBatchNorm``) with the same weights, scattered-pad permutations
+    and noise, to 1e-10 in history, weights and BatchNorm statistics."""
     B, epochs = 8, 2
     Xm, Xl, n_real, sds, perms, noise = _fleet_inputs(B=B, epochs=epochs)
     handle = tb.launch_many_vaes(
@@ -213,7 +214,7 @@ def test_fleet_member_equals_member_trained_alone_f64():
     for i, n in enumerate(n_real):
         alone = LesionConditionedVAE(**HYPER).double()
         alone.load_state_dict({k: v.double() for k, v in sds[i].items()})
-        h = ttrainer.train_module(
+        h = ttrainer.train_loop(
             alone, torch.from_numpy(Xm[i]).double(), torch.from_numpy(Xl[i]).double(),
             int(n), perms[i], noise[i].double(), epochs, B, LR, 1e-3, 2.0)
         np.testing.assert_allclose(hist[i], h, rtol=1e-10, atol=1e-10)

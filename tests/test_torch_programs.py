@@ -1,11 +1,14 @@
-"""Training as one device program (``train/program.py``, ``TrainProgram``,
-``FleetProgram``) on the CPU, where the epoch body runs eagerly.
+"""Training as one device program (``train/program.py``, ``FleetProgram``)
+on the CPU, where the epoch body runs eagerly.  The single trainer
+(``train_module``) runs the one-member fleet program (the ``trainer``
+cases).
 
 - against the JAX package's own programs (``_train_program`` in float64,
   ``_fleet_program`` in float32 with float32 or bfloat16 storage and the
   flat optimizer), with the JAX initial weights and draws carried across;
-- against the port's eager loops (``train_loop``, ``train_fleet``), bit for
-  bit: the same operations in the same order;
+- against the port's eager fleet loop (``train_fleet``), bit for bit: the
+  same operations in the same order; the single trainer also against the
+  eager module route (``train_loop``) in float64;
 - the properties a CUDA graph needs, checked without a card: every buffer
   keeps its storage across an epoch, the warm-up before a capture leaves the
   state as it found it, the device epoch counter selects each epoch's
@@ -78,20 +81,44 @@ def _trainer_case(n=20, batch_size=8, epochs=2, seed=3, dtype=torch.float64):
 
 
 def _trainer_program(c):
-    return ttrainer.train_program(c["n"], c["Xm"].shape[0], c["module"], c["epochs"],
-                                  c["batch_size"], LR, WD, CLIP, "cpu", c["Xm"].dtype)
+    """The one-member fleet program ``train_module`` runs for the case."""
+    return tb.fleet_program(layout(**HYPER), 1, c["Xm"].shape[0], c["epochs"],
+                            c["batch_size"], LR, WD, CLIP, None, None, False, "cpu",
+                            c["Xm"].dtype, cache=ttrainer.PROGRAMS)
+
+
+def _member_state(c):
+    """The case's module as a one-member ``FleetState``."""
+    return FleetState.from_state_dicts([c["module"].state_dict()], layout(**HYPER),
+                                       c["Xm"].dtype, None, "cpu")
+
+
+def _member_inputs(c):
+    """The case's blocks, row count and draws with the member axis."""
+    return (c["Xm"][None], c["Xl"][None], torch.tensor([c["n"]]), c["perms"][None],
+            c["noise"][None])
 
 
 def _run_trainer_program(c):
-    """(trained state_dict, history, program) of the program form."""
+    """(trained state_dict, history, program) of ``train_module``."""
     module = LesionConditionedVAE(**HYPER).to(c["Xm"].dtype)
     module.load_state_dict(c["module"].state_dict())
-    program = _trainer_program(c)
-    hist = program.run(module, c["Xm"], c["Xl"], c["perms"], c["noise"])
-    return module.state_dict(), hist, program
+    hist = ttrainer.train_module(module, c["Xm"], c["Xl"], c["n"], c["perms"],
+                                 c["noise"], c["epochs"], c["batch_size"], LR, WD, CLIP)
+    return module.state_dict(), hist, _trainer_program(c)
 
 
 def _run_trainer_loop(c):
+    """(trained state_dict, history, optimizer) of the eager fleet loop at
+    one member from the case's module."""
+    state = _member_state(c)
+    opt = LowmemOptimizer(state, LR, WD, CLIP)
+    hist = tb.train_fleet(state, opt, *_member_inputs(c), c["epochs"], c["batch_size"])
+    return state.state_dict(0), hist[0].numpy(), opt
+
+
+def _run_module_loop(c):
+    """(trained state_dict, history) of the eager module route."""
     module = LesionConditionedVAE(**HYPER).to(c["Xm"].dtype)
     module.load_state_dict(c["module"].state_dict())
     hist = ttrainer.train_loop(module, c["Xm"], c["Xl"], c["n"], c["perms"], c["noise"],
@@ -212,25 +239,24 @@ def test_program_matches_the_jax_program(form):
         n, B, epochs, seed = 20, 8, 3, 3
         ((j_params, j_stats, j_opt), j_hist), tm, perms, noise, (Xm, Xl), start = \
             _jax_trainer(n, B, epochs, seed)
-        program = ttrainer.train_program(n, Xm.shape[0], tm, epochs, B, LR, WD, CLIP,
-                                         "cpu", torch.float64)
-        hist = program.run(tm, Xm, Xl, perms, noise)
+        ttrainer.PROGRAMS.clear()
+        hist = ttrainer.train_module(tm, Xm, Xl, n, perms, noise, epochs, B, LR, WD, CLIP)
         np.testing.assert_allclose(hist, np.asarray(j_hist), rtol=1e-8, atol=1e-8)
         want = from_jax_params(_np64(j_params), _np64(j_stats))
         got = tm.state_dict()
         for name, w in want.items():
             np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=0, atol=1e-8,
                                        err_msg=name)
-        # moments: the program's flat buffers, parameter by parameter
+        # moments: the one-member program's buffers, parameter by parameter
+        (program,) = ttrainer.PROGRAMS.programs.values()
+        lay = program.state.layout
         for which in ("mu", "nu"):
             m_want = from_jax_params(_np64(j_opt[which]), _np64(j_stats))
-            flat = getattr(program.opt, which)
-            off = 0
-            for name, p in program.module.named_parameters():
-                np.testing.assert_allclose(flat[off:off + p.numel()].view_as(p).numpy(),
-                                           m_want[name].numpy(), rtol=0, atol=1e-8,
-                                           err_msg=f"{which} {name}")
-                off += p.numel()
+            for name, (buf, off, shape) in lay.leaves.items():
+                rows = getattr(program.opt, f"{which}_{'w' if buf == 'weights' else 'a'}")
+                got_m = rows[0, off:off + m_want[name].numel()].view(shape)
+                np.testing.assert_allclose(got_m.numpy(), m_want[name].numpy(), rtol=0,
+                                           atol=1e-8, err_msg=f"{which} {name}")
         assert int(program.opt.count) == int(j_opt["count"]) == epochs * 3
         moved = from_jax_params(_np64(start[0]), _np64(start[1]))
         assert max(float((want[k] - moved[k]).abs().max()) for k in want) > 1e-4
@@ -310,14 +336,17 @@ def test_program_matches_the_jax_program(form):
 def test_program_equals_the_eager_loop_bit_for_bit(form):
     """The program form and the eager loop run the same operations in the
     same order: parameters, moments, step counts, BatchNorm statistics and
-    history equal bit for bit."""
+    history equal bit for bit (the single trainer's one-member program
+    against ``train_fleet`` at one member)."""
     if form == "trainer":
         c = _trainer_case()
         got, h_got, program = _run_trainer_program(c)
-        want, h_want = _run_trainer_loop(c)
+        want, h_want, opt = _run_trainer_loop(c)
         np.testing.assert_array_equal(h_got, h_want)
         for name, w in want.items():
             assert torch.equal(got[name], w), name
+        for name in ("mu_w", "nu_w", "mu_a", "nu_a", "count"):
+            assert torch.equal(getattr(program.opt, name), getattr(opt, name)), name
         assert int(program.opt.count) == c["epochs"] * 3
         return
     c = _fleet_case(form.split("_")[1])
@@ -332,6 +361,25 @@ def test_program_equals_the_eager_loop_bit_for_bit(form):
     assert not torch.equal(state.weights, _fresh_state(c).weights)
 
 
+@pytest.mark.parametrize("n,batch_size,epochs", [(20, 8, 3), (13, 4, 2)])
+def test_the_single_trainer_equals_the_eager_module_route_f64(n, batch_size, epochs):
+    """``train_module`` (the one-member fleet program: the fleet's
+    convolutions, masked BatchNorm and optimizer) against ``train_loop``
+    (the module's convolutions, ``MaskedBatchNorm`` and ``ClipDecayAdam``)
+    from the same weights and draws, a partial batch of pad rows each epoch:
+    history, weights and BatchNorm statistics to 1e-10 in float64."""
+    c = _trainer_case(n=n, batch_size=batch_size, epochs=epochs)
+    got, h_got, _program = _run_trainer_program(c)
+    want, h_want = _run_module_loop(c)
+    np.testing.assert_allclose(h_got, h_want, rtol=1e-10, atol=1e-10)
+    assert list(got) == list(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=0, atol=1e-10,
+                                   err_msg=name)
+    start = c["module"].state_dict()
+    assert max(float((want[k] - start[k]).abs().max()) for k in want) > 1e-4
+
+
 # ------------------------------------------------------------ (c) fixed storage
 def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
@@ -341,13 +389,12 @@ def _ptrs(tensors):
 def test_every_buffer_keeps_its_storage_across_an_epoch(form):
     """A graph replays fixed addresses: one epoch of the body writes every
     buffer in place (parameters, moments, step counts, statistics, history,
-    the counter), and the module's parameters stay views of the flat
-    buffer."""
+    the counter), and the leaves stay views of the state's buffers."""
     if form == "trainer":
         c = _trainer_case()
         program = _trainer_program(c)
-        program.load(c["module"], c["Xm"], c["Xl"], c["perms"], c["noise"])
-        extra = list(program.module.parameters()) + list(program.module.buffers())
+        program.load(_member_state(c), None, *_member_inputs(c))
+        extra = list(program.state.leaves.values()) + list(program.state.stats.values())
     else:
         c = _fleet_case(form.split("_")[1])
         program = _fleet_program(c)
@@ -361,11 +408,10 @@ def test_every_buffer_keeps_its_storage_across_an_epoch(form):
     assert int(program.ep) == 1
     # the epoch did write the state in place
     assert not all(torch.equal(a, b) for a, b in zip(program.graph.state, state0))
-    if form == "trainer":
-        flat = program.opt.flat
-        for p in program.module.parameters():
-            assert p.data_ptr() >= flat.data_ptr()
-            assert p.data_ptr() < flat.data_ptr() + flat.numel() * flat.element_size()
+    for name, leaf in program.state.leaves.items():
+        buf = getattr(program.state, program.state.layout.leaves[name][0])
+        assert buf.data_ptr() <= leaf.data_ptr()
+        assert leaf.data_ptr() < buf.data_ptr() + buf.numel() * buf.element_size()
 
 
 # ------------------------------------------------------------ (d) the warm-up
@@ -377,7 +423,7 @@ def test_warm_up_leaves_the_state_bit_identical(form):
     if form == "trainer":
         c = _trainer_case()
         program = _trainer_program(c)
-        program.load(c["module"], c["Xm"], c["Xl"], c["perms"], c["noise"])
+        program.load(_member_state(c), None, *_member_inputs(c))
     else:
         c = _fleet_case("bf16")
         program = _fleet_program(c)
@@ -394,8 +440,10 @@ def test_warm_up_leaves_the_state_bit_identical(form):
     program.graph.body = body
     program.graph.run(c["epochs"])
     if form == "trainer":
-        want, h_want = _run_trainer_loop(c)
-        np.testing.assert_array_equal(program.hist.numpy(), h_want)
+        want, h_want, _ = _run_trainer_loop(c)
+        np.testing.assert_array_equal(program.hist[0].numpy(), h_want)
+        for name, w in want.items():
+            assert torch.equal(program.state.state_dict(0)[name], w), name
     else:
         ref, h_want, _ = _run_fleet_loop(c)
         assert torch.equal(program.hist, h_want)
@@ -411,11 +459,11 @@ def test_the_epoch_counter_selects_each_epochs_draws(form):
     if form == "trainer":
         c = _trainer_case(epochs=2)
         program = _trainer_program(c)
-        program.load(c["module"], c["Xm"], c["Xl"], c["perms"], c["noise"])
+        program.load(_member_state(c), None, *_member_inputs(c))
         program.epoch()
         program.epoch()
-        _, h_want = _run_trainer_loop(c)
-        got = program.hist.numpy()
+        _, h_want, _ = _run_trainer_loop(c)
+        got = program.hist[0].numpy()
     else:
         c = _fleet_case("f32", epochs=2)
         program = _fleet_program(c)

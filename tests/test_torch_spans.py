@@ -96,11 +96,17 @@ def test_a_fleet_launch_opens_its_spans_in_order(chunks):
 
 @pytest.mark.parametrize("epochs", [1, 3])
 def test_the_single_trainer_opens_its_spans_in_order(epochs):
+    """A single job, through its one-member fleet program: the spans in
+    order, one module built on the host, no member fetched, and the bytes
+    of the module, the real rows and the draws staged, no more."""
+    tprog.reset_counts()
     events, _counts = _profiled(lambda: _single(epochs))
     top = _children(events)
     assert _names(top) == ["vae.init", "vae.upload", "vae_train"]
     assert _names(_children(events, top[2])) == (
         ["program.load"] + ["program.epoch"] * epochs + ["program.history"])
+    assert (tprog.COUNTS["host_modules"], tprog.COUNTS["fetched_members"]) == (1, 0)
+    assert tprog.COUNTS["h2d_bytes"] == _single_bytes(epochs)
 
 
 @pytest.mark.parametrize("run", [_fleet, _single])
@@ -166,10 +172,10 @@ def _member_bytes():
     return 4 * sum(sizes)
 
 
-def _draw_bytes(members, lowmem=False):
+def _draw_bytes(members, lowmem=False, epochs=E):
     """Permutations (int64), noise (float32) and, with bf16 storage, salts."""
-    perms = 8 * members * E * N
-    noise = 4 * members * E * (N // B) * B * LAT
+    perms = 8 * members * epochs * N
+    noise = 4 * members * epochs * (N // B) * B * LAT
     return perms + noise + (8 * members if lowmem else 0)
 
 
@@ -184,11 +190,11 @@ def _fleet_bytes(**kw):
     return blocks + 8 * T + T * _member_bytes() + _draw_bytes(T, lowmem)
 
 
-def _single_bytes():
+def _single_bytes(epochs=E):
     module = LesionConditionedVAE(seq_len=L, micro_ch=CM, lesion_ch=CL, latent=LAT)
     weights = sum(t.nbytes for t in (*module.parameters(), *module.buffers()))
     n = N - 3
-    return weights + 4 * n * L * (CM + CL) + 8 * E * N + 4 * E * (N // B) * B * LAT
+    return weights + 4 * n * L * (CM + CL) + _draw_bytes(1, epochs=epochs)
 
 
 @pytest.mark.parametrize("form", [{}, {"upload_chunks": 2}, {"quantize_upload": True},
