@@ -74,7 +74,9 @@ Phases; any failure exits non-zero before the result line is printed:
      dw with db), at the eight layers' shapes of the cohort path's step (64
      members x batch 64, inputs laid out as the step lays them; member 0
      alone too, as the single VAE runs a layer: y and dh bit-equal to its
-     64-member launch, dw and db to the tolerance) and at four
+     64-member launch, dw and db to the tolerance; members 0-1 and 0-7
+     alone, y and dh bit-equal: together every float32 forward tile) and at
+     four
      edge shapes, float32 and bf16: each output's error against the float64
      product at most CONV_PLAIN_RATIO times the plain version's, and in
      float32 within KERNEL_TOL (see CONV_PLAIN_RATIO), a second call the
@@ -106,7 +108,9 @@ Phases; any failure exits non-zero before the result line is printed:
       ``score`` CLI stage on ``cuda`` serving a saved model, held against a
       CPU float32 ``score_subjects``; the training (a fleet of one member)
       must launch the gather and norm once a step, the update twice
-      (weights, BatchNorm leaves), the convolution kernels 14 + 8 times and
+      (weights, BatchNorm leaves), the convolution kernels 14 + 8 times
+      (each conv_fwd on a tile smaller than the full one:
+      ``conv_fwd_small_tiles`` 14 a step, 0 on the ``vae-cohort`` path) and
       the masked BatchNorm's cluster kernels seven times each (the kernels
       line's ``launches_by_path`` gives them under ``vae``);
    e. the cohort fleet at full width: a profiles cohort for the 16 geometry
@@ -376,6 +380,17 @@ def hold_conv_launches(path: str, steps: int, bn: dict) -> dict:
              f"steps and {evals} eval forwards, {a_step} a step; {CONV_A_STEP} a step and "
              "8 conv_fwd an eval forward expected")
     return {**got, "eval_forwards": evals, "a_step": a_step}
+
+
+def hold_small_tiles(path: str, want: int) -> None:
+    """The float32 conv_fwd launches on a tile smaller than the full one
+    since the last reset (``train.program.COUNTS``) held to ``want``, or the
+    script fails."""
+    from lesionvae_tpu_torch.train import program
+
+    got = program.COUNTS["conv_fwd_small_tiles"]
+    if got != want:
+        fail(f"{path}: {got} conv_fwd launches on a smaller tile, {want} expected")
 
 
 def graph_counts() -> str:
@@ -1414,6 +1429,9 @@ EDGE_CONV_SHAPES = ((3, 40, 1, 3, 3, False), (2, 7, 12, 130, 70, True),
 # summed in float64 and meets 1e-5 either way)
 CONV_PLAIN_RATIO = 2.0
 CONV_DW_LITERAL_TOL = 1e-4
+# members of the cases held bit-equal to the same members of the 64-member
+# launch: at the eight layers' shapes they take every float32 forward tile
+FEW_MEMBERS = (1, 2, 8)
 # timed groups of 20 graph replays a reading in the script's timings (the
 # benchmark's own default is 25, and it also reads each layer)
 CONV_TIMING_REPS = 5
@@ -1452,11 +1470,13 @@ def conv1d_errors() -> dict:
     the float64 product at the eight layers' shapes (64 members: the
     fleet's step) and EDGE_CONV_SHAPES, float32 and bf16, to the tolerance
     above; a second call the same bits; NaN through.  Each layer's member 0
-    also alone, as the single VAE (a fleet of one member) runs it: the
-    forward and dh tile by the output channels alone, so they must repeat
-    member 0's bits at 64 members; dw and db split the rows by the member
-    count, and are held to the tolerance.  Returns the largest |kernel -
-    float64| and the readings."""
+    also alone, as the single VAE (a fleet of one member) runs it, and its
+    first FEW_MEMBERS members: the float32 forward and dh take a smaller
+    tile where the grid of few members is small (``fwd_f32_tile``), and
+    every tile sums an output in the same order, so they must repeat those
+    members' bits at 64 members, and the cases must take every tile; dw and
+    db split the rows by the member count, and are held to the tolerance at
+    one member.  Returns the largest |kernel - float64| and the readings."""
     from lesionvae_tpu_torch.benchmarks.conv_timing import (OUTPUTS, conv_case, kernel_run,
                                                              plain_run)
     from lesionvae_tpu_torch.ops import conv1d
@@ -1468,6 +1488,7 @@ def conv1d_errors() -> dict:
     cases += [("edge", {"members": T, "batch": N, "shape": (L, ci, co, t)})
               for T, N, L, ci, co, t in EDGE_CONV_SHAPES]
     acc = {"worst": 0.0, "ratio": 0.0, "bounded": 0.0, "literal_dw": 0.0, "plain_dw": 0.0}
+    tiles = set()
 
     def hold(c, where, outs=OUTPUTS) -> list:
         """The kernels' outputs ``outs`` of case ``c`` held to the tolerance;
@@ -1516,10 +1537,29 @@ def conv1d_errors() -> dict:
                 continue
             one = {k: v[:1] if torch.is_tensor(v) else v for k, v in c.items()}
             alone = hold(one, f"{where}, member 0 alone", ("dw", "db"))
-            for out, g, g64 in zip(OUTPUTS[:2], alone, got):
-                if g is not None and bits_differ(g, g64[:1]):
-                    fail(f"conv1d kernel at {where}: {out} of member 0 alone differs from "
-                         f"its 64-member launch in {bits_differ(g, g64[:1])} elements")
+            for T in (64, *FEW_MEMBERS):
+                if T == 1:
+                    mine = alone
+                elif T < 64:
+                    f = {k: v[:T] if torch.is_tensor(v) else v for k, v in c.items()}
+                    mine = [conv1d.conv_fwd(f["h"], f["w"], f["b"], f["transposed"]),
+                            conv1d.conv_fwd(f["dy"], f["w"], None, not f["transposed"])
+                            if f["need_dh"] else None]
+                else:
+                    mine = got
+                for out, g, g64 in zip(OUTPUTS[:2], mine, got):
+                    if g is None:
+                        continue
+                    if dtype == torch.float32:
+                        tiles.add(conv1d.fwd_f32_tile(T, g.shape[1] * g.shape[2], g.shape[3]))
+                    if bits_differ(g, g64[:T]):
+                        fail(f"conv1d kernel at {where}: {out} of members 0-{T - 1} alone "
+                             f"differs from its 64-member launch in "
+                             f"{bits_differ(g, g64[:T])} elements")
+    want = {t for c in (16, 32, 64) for t in conv1d.fwd_f32_tiles(c)}
+    if tiles != want:
+        fail(f"conv1d kernel: the few-member cases took the float32 tiles {sorted(tiles)}, "
+             f"not every tile {sorted(want)}")
     for dtype in (torch.float32, torch.bfloat16):
         conv1d_nan_check(dtype)
     worst, ratio, bounded = acc["worst"], acc["ratio"], acc["bounded"]
@@ -1530,10 +1570,12 @@ def conv1d_errors() -> dict:
           f"plain version's error (largest ratio {ratio:.3f}), float32 within {KERNEL_TOL} "
           f"(largest {bounded:.3e}; dw against max(1, |ref|) alone {literal_dw:.3e} within "
           f"{CONV_DW_LITERAL_TOL}, the plain version's {plain_dw:.3e}), a second call the "
-          f"same bits, NaN through; each layer's member 0 alone (one member x batch 64, as "
-          f"the single VAE trains): y and dh bit-equal to its 64-member launch, dw and db "
-          f"held as above; max abs err {worst:.3e}")
+          f"same bits, NaN through; each layer's first {list(FEW_MEMBERS)} members alone "
+          f"(x batch 64; one member as the single VAE trains): y and dh bit-equal to their "
+          f"64-member launch on the float32 tiles {sorted(tiles)} (rows, channels, threads), "
+          f"dw and db of member 0 held as above; max abs err {worst:.3e}")
     return {"max_abs_err": worst, "largest_ratio_to_plain": ratio,
+            "f32_forward_tiles": sorted(tiles),
             "largest_f32_error": bounded, "f32_dw_error_against_ref_alone": literal_dw,
             "f32_dw_plain_error_against_ref_alone": plain_dw}
 
@@ -1970,6 +2012,7 @@ def check_vae(root: Path, cfg, tract: str) -> dict:
     if fleet_kernels != want:
         fail(f"vae: the fleet's kernels launched {fleet_kernels} times in {run_steps} "
              f"training steps, {want} expected")
+    hold_small_tiles("vae", CONV_A_STEP["conv_fwd"] * run_steps)
     print(f"[path] vae stage on cuda: {len(cfg.timepoints)} timepoints x "
           f"{VAE_ROWS} rows, {SINGLE_EPOCHS} epochs, {steps} train steps in "
           f"{spans['vae.train']:.2f}s ({steps / spans['vae.train']:.1f} steps/s); "
@@ -2106,6 +2149,7 @@ def check_cohort_cli(root: Path, cfg, common) -> tuple:
     bn_a_step = (sum(v for k, v in got.items() if k != "bn_apply")
                  + got["bn_stats"] // 2) / steps
     conv["vae-cohort"] = hold_conv_launches("vae-cohort", steps, got)
+    hold_small_tiles("vae-cohort", 0)
     out = root / "results" / "vae_cohort"
     members = [(t, tp) for t in cfg.geometry_tracts for tp in cfg.timepoints]
     for tract, tp in members:

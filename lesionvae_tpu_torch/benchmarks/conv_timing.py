@@ -1,10 +1,11 @@
 """Device time of the fleet's convolution kernels (``ops/csrc/conv1d.cu``)
 at the eight layers of the cohort path's fleet step.
 
-    python -m lesionvae_tpu_torch.benchmarks.conv_timing [--reps 25]
+    python -m lesionvae_tpu_torch.benchmarks.conv_timing [--reps 25] [--members 64]
 
-For float32 and bf16, on the card, at 64 members x batch 64 x each layer's
-(L, C_in, C_out) of ``utils.cost_model.conv_layers``, inputs laid out as the
+For float32 and bf16, on the card, at 64 members (``--members``; 1 is the
+single VAE's step) x batch 64 x each layer's (L, C_in, C_out) of
+``utils.cost_model.conv_layers``, inputs laid out as the
 step hands them (dec_t1's input is fc_dec's rows as a transposed view; the
 weights are views of a wider buffer, as the fleet's leaves are):
 
@@ -202,13 +203,16 @@ def _by_layer(cases, reps: int) -> dict:
     return layers
 
 
-def timings(dtype: torch.dtype, reps: int = 25, by_layer: bool = True) -> dict:
-    """The readings of the module docstring for one compute dtype (ms):
-    the step's eight layers as four graphs in turns (the kernels' forward,
-    their backward, the chain's forward + backward, the library's), and,
-    with ``by_layer``, each layer's (chip_smoke.py leaves those out)."""
+def timings(dtype: torch.dtype, reps: int = 25, by_layer: bool = True,
+            members: int = MEMBERS) -> dict:
+    """The readings of the module docstring for one compute dtype (ms) at
+    ``members`` members: the step's eight layers as four graphs in turns
+    (the kernels' forward, their backward, the chain's forward + backward,
+    the library's), and, with ``by_layer``, each layer's (chip_smoke.py
+    leaves those out)."""
     full_fp32(torch.device("cuda"))
-    cases = [conv_case(name, dtype, 400 + i) for i, name in enumerate(conv_layers())]
+    cases = [conv_case(name, dtype, 400 + i, members=members)
+             for i, name in enumerate(conv_layers())]
     chains = [_chain(c)[1] for c in cases]
     libraries = [_library(c)[1] for c in cases]
 
@@ -225,8 +229,9 @@ def timings(dtype: torch.dtype, reps: int = 25, by_layer: bool = True) -> dict:
         "library": lambda: [f() for f in libraries]}, reps)
     mean = {k: sum(v) / len(v) for k, v in step.items()}
     torch.cuda.empty_cache()
-    bound = conv_bound_ms(MEMBERS, BATCH, compute_dtype=dtype)
-    out = {"ms": mean["forward"] + mean["backward"], "forward_ms": mean["forward"],
+    bound = conv_bound_ms(members, BATCH, compute_dtype=dtype)
+    out = {"members": members, "ms": mean["forward"] + mean["backward"],
+           "forward_ms": mean["forward"],
            "backward_ms": mean["backward"], "chain_ms": mean["chain"],
            "library_ms": mean["library"], "step_readings": step,
            "launches_a_step": launches(cases),
@@ -244,13 +249,15 @@ def main(argv=()) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=25,
                     help="timed groups of 20 replays a reading (the median is kept)")
+    ap.add_argument("--members", type=int, default=MEMBERS,
+                    help="members of the fleet step (1: the single VAE's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("this benchmark times the kernels on an NVIDIA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    out = {str(dt).split(".")[-1]: timings(dt, args.reps)
+    out = {str(dt).split(".")[-1]: timings(dt, args.reps, members=args.members)
            for dt in (torch.float32, torch.bfloat16)}
     print(json.dumps({"card": card, "readings": out}))
     return out

@@ -30,7 +30,9 @@ batched product the stacked model ran before these kernels, and
 ``conv1d_backward_plain``); on CUDA tensors they launch the kernels
 (``conv_fwd`` for the forward and dh, ``conv_wgrad`` for dw and db) and
 raise on inputs the kernels do not take; nothing falls back.  Each wrapper
-counts its launches.  The kernels sum in another order than cuBLAS does
+counts its launches, and ``COUNTS`` the float32 ``conv_fwd`` launches that
+took a tile smaller than the full one (``fwd_f32_tile``: a grid of few
+members, the single VAE's).  The kernels sum in another order than cuBLAS does
 (float32: FP32 FMA; bf16: tensor cores with float32 accumulation, one
 rounding of each output), so the card holds them to their plain versions
 within a tolerance, not bit for bit; their own order is fixed, so two
@@ -48,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from .cuda_build import count_launch, load
+from .cuda_build import Count, count_launch, load
 
 TAPS, PAD = 5, 2                # the convolutions' kernel size and padding
 # csrc/conv1d.cu: the channel tiles of the weight-gradient kernel (float32:
@@ -58,6 +60,13 @@ TAPS, PAD = 5, 2                # the convolutions' kernel size and padding
 WGRAD_F32_IN, WGRAD_BF16_OUT, WGRAD_BF16_IN = 16, 64, 32
 TARGET_BLOCKS, MIN_SPLIT_ROWS = 1056, 128
 VECTOR_BYTES = 16               # csrc/conv1d.cu: a staging thread's load
+# csrc/conv1d.cu: the float32 conv_fwd's tiles, (output channels, rows a
+# thread, threads), 8 output channels a thread: the full tile (fwd_tile's
+# channels, 4 rows a thread, 256 threads: 8192 outputs a block) and the
+# smaller ones, each with half the outputs of the one before
+F32_CHANNELS, F32_FULL_ROWS, F32_FULL_THREADS = 8, 4, 256
+F32_SMALL_TILES = ((16, 2, 256), (16, 1, 256), (16, 1, 128), (16, 1, 64), (16, 1, 32))
+SMS = 132                       # the H100's SMs
 
 
 # ------------------------------------------------------------ plain version
@@ -114,9 +123,34 @@ def weight_dims(w: torch.Tensor, transpose: bool) -> Tuple[int, int]:
 
 
 def fwd_tile(c_out: int) -> int:
-    """Output channels a block of ``conv_fwd`` (and of the float32
-    ``conv_wgrad``) takes: 16, 32 or 64 (csrc/conv1d.cu: fwd_bn)."""
+    """Output channels a block of the bf16 ``conv_fwd``, of the float32
+    one's full tile and of the float32 ``conv_wgrad`` takes: 16, 32 or 64
+    (csrc/conv1d.cu: fwd_bn)."""
     return 16 if c_out <= 16 else (32 if c_out <= 32 else 64)
+
+
+def fwd_f32_tiles(c_out: int) -> Tuple[Tuple[int, int, int], ...]:
+    """(rows, output channels, threads) a block of each float32 ``conv_fwd``
+    tile takes at ``c_out`` output channels, in the order ``fwd_f32_tile``
+    tries them: the full tile, then F32_SMALL_TILES (csrc/conv1d.cu:
+    F32_FNS, f32_rows)."""
+    tiles = ((fwd_tile(c_out), F32_FULL_ROWS, F32_FULL_THREADS), *F32_SMALL_TILES)
+    return tuple((threads // (bn // F32_CHANNELS) * tm, bn, threads)
+                 for bn, tm, threads in tiles)
+
+
+def fwd_f32_tile(T: int, rows: int, c_out: int) -> Tuple[int, int, int]:
+    """The float32 ``conv_fwd`` tile of a launch over T members of ``rows``
+    rows (csrc/conv1d.cu: f32_tile): the full tile where its grid has a
+    block for every one of the card's SMS SMs, else the first smaller tile
+    whose grid has, else the smallest.  A function of the shapes alone;
+    every tile sums each output in the same order, so the choice moves no
+    bit."""
+    tiles = fwd_f32_tiles(c_out)
+    for bm, bn, threads in tiles:
+        if -(-rows // bm) * -(-c_out // bn) * T >= SMS:
+            return bm, bn, threads
+    return tiles[-1]
 
 
 def wgrad_splits(T: int, rows: int, c_in: int, c_out: int, dtype: torch.dtype) -> int:
@@ -152,10 +186,13 @@ def _lib():
 
 
 # kernel functions in the order of lesionvae_conv1d_attributes
-KERNEL_FUNCTIONS = ("conv_fwd_f32<16>", "conv_fwd_f32<32>", "conv_fwd_f32<64>",
+KERNEL_FUNCTIONS = ("conv_fwd_f32<16,4,256>", "conv_fwd_f32<32,4,256>",
+                    "conv_fwd_f32<64,4,256>",
                     "conv_fwd_bf16<16>", "conv_fwd_bf16<32>", "conv_fwd_bf16<64>",
                     "conv_wgrad_f32<16>", "conv_wgrad_f32<32>", "conv_wgrad_f32<64>",
-                    "conv_wgrad_bf16", "conv_wgrad_finish<float>", "conv_wgrad_finish<bf16>")
+                    "conv_wgrad_bf16", "conv_wgrad_finish<float>", "conv_wgrad_finish<bf16>",
+                    *(f"conv_fwd_f32<{bn},{tm},{threads}>"
+                      for bn, tm, threads in F32_SMALL_TILES))
 
 
 def attributes(L: int) -> dict:
@@ -240,6 +277,8 @@ def conv_fwd(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             None if b is None else b.data_ptr(), 0 if b is None else b.stride(0),
             y.data_ptr(), T, N, L, c_in, c_out, _stream(h)), "forward")
     count_launch(conv_fwd)
+    if h.dtype == torch.float32 and fwd_f32_tile(T, N * L, c_out) != fwd_f32_tiles(c_out)[0]:
+        count_launch(SMALL_TILE_LAUNCHES)
     return y
 
 
@@ -277,6 +316,10 @@ WRAPPERS = (conv_fwd, conv_wgrad)
 for _w in WRAPPERS:
     _w.launches = 0
     _w.captured = 0
+# the kernels' counts beside their wrappers', shown in train.program.COUNTS:
+# the float32 conv_fwd launches that took a tile smaller than the full one
+COUNTS = {"conv_fwd_small_tiles": 0}
+SMALL_TILE_LAUNCHES = Count(COUNTS, "conv_fwd_small_tiles")
 
 
 # ------------------------------------------------------------ autograd

@@ -23,19 +23,25 @@
 //    of dy with the kernel flipped along k and transposed in (in, out), so
 //    the same kernel takes dy, the leaf's strides swapped and the flip
 //    negated, and no bias.  An implicit GEMM: a block takes BM rows of one
-//    member (rows are (n, l), n outer; float32 BM = 8192 / BN, bf16 256)
-//    and BN output channels (16, 32 or 64, by C_out).  The rows it needs, its own and the two-row
+//    member (rows are (n, l), n outer; bf16 256) and BN output channels
+//    (16, 32 or 64, by C_out; float32: the tile of f32_tile, below).  The
+//    rows it needs, its own and the two-row
 //    halo of each sample in it, are one contiguous range of the member's
 //    padded rows (each sample with two zero rows before and after it), so
 //    they are staged into shared memory, the halo's zeros written by the
 //    load, BK = 16 input channels at a time with the weight's 5 x 16 x BN
 //    tile; output row r at tap k reads staged row P(r) - P(r0) + k, where
 //    P(r) = n (L + 4) + l + 2.
-//    - float32: FP32 FMA on the CUDA cores, 256 threads, each 4 rows x 8
+//    - float32: FP32 FMA on the CUDA cores, each thread TM rows x 8
 //      channels in registers (two groups of 4, one in each half of the
 //      tile, so that 8 neighbouring threads read 128 contiguous bytes of
 //      the weight tile), summed in the order (chunk of 16 input channels,
-//      tap, channel).
+//      tap, channel).  The full tile, 256 threads of 4 rows (BM = 8192 /
+//      BN), where its grid gives every SM a block; a smaller grid (few
+//      members: the single VAE's T = 1) takes 16 channels and fewer rows a
+//      block, so that the grid reaches the SMs.  Rows and channels are only
+//      cut otherwise among blocks and threads: every tile sums each output
+//      in the same order, to the same bits.
 //    - bf16: mma.sync m16n8k16 with float32 accumulation, 8 warps each
 //      32 rows x BN channels, A and B fragments by ldmatrix (a lane gives
 //      its row's address, so the padded-row indirection costs nothing).
@@ -76,10 +82,12 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int TAPS = 5;
-constexpr int TILE = 8192;            // outputs a float32 conv_fwd block: BM x BN
 constexpr int BF16_ROWS = 256;        // rows a bf16 conv_fwd block
 constexpr int BK = 16;                // input channels a staged chunk
-constexpr int F32_THREADS = 256;
+constexpr int F32_THREADS = 256;      // the full float32 conv_fwd tile's threads,
+constexpr int F32_TM = 4;             // its rows a thread,
+constexpr int F32_TN = 8;             // and every float32 conv_fwd tile's channels a thread
+constexpr int SMS = 132;              // the H100's SMs
 constexpr int BF16_THREADS = 128;     // a bf16 conv_wgrad block
 constexpr int FWD_BF16_WARPS = 8;
 constexpr int F32_ROW = 20;           // a staged float32 row: 16 channels + 4 (80 bytes)
@@ -111,6 +119,12 @@ struct Weight {
   long long member, in, out, tap;
   int flip;          // 1: tap k reads the leaf at 4 - k
 };
+
+// rows a float32 conv_fwd block takes: bn / F32_TN threads side by side
+// along the output channels, each F32_TN channels x tm rows
+__host__ __device__ constexpr int f32_rows(int bn, int tm, int threads) {
+  return threads / (bn / F32_TN) * tm;
+}
 
 __host__ __device__ constexpr int staged_rows(int rows, int L) {
   return rows + 4 + 4 * ((rows - 1 + L - 1) / L);
@@ -214,15 +228,15 @@ __device__ __forceinline__ void stage_w(T* ws, const T* wm, const Weight& w, int
 }
 
 // ------------------------------------------------------------ conv_fwd
-template <int BN>
-__global__ void __launch_bounds__(F32_THREADS)
+template <int BN, int TM, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     conv_fwd_f32(const float* __restrict__ h, Act ha, int hvec, const float* __restrict__ w,
                  Weight wt, const float* __restrict__ bias, long long bias_member,
                  float* __restrict__ y, Geometry g) {
-  constexpr int BM = TILE / BN, TM = 4, TN = 8;
-  constexpr int TX = BN / TN, TY = F32_THREADS / TX;
+  constexpr int BM = f32_rows(BN, TM, THREADS), TN = F32_TN;
+  constexpr int TX = BN / TN, TY = THREADS / TX;
   constexpr int WROW = BN + 4;   // a staged weight row, 16-byte aligned
-  static_assert(TY * TM == BM, "a block's rows");
+  static_assert(TX * TY == THREADS && TY * TM == BM, "a block's rows");
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.z, r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int r_end = min(r0 + BM, g.R);
@@ -233,7 +247,7 @@ __global__ void __launch_bounds__(F32_THREADS)
   int* src = reinterpret_cast<int*>(xs + staged_rows(BM, g.L) * F32_ROW);
   const float* hm = h + t * ha.member;
   const float* wm = w + t * wt.member;
-  for (int s = threadIdx.x; s < rows; s += F32_THREADS) src[s] = source_offset(p0 + s, g, ha);
+  for (int s = threadIdx.x; s < rows; s += THREADS) src[s] = source_offset(p0 + s, g, ha);
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   int xrow[TM];
@@ -663,10 +677,24 @@ __global__ void __launch_bounds__(FINISH_THREADS)
 // ------------------------------------------------------------ host side
 int fwd_bn(int cout) { return cout <= 16 ? 16 : (cout <= 32 ? 32 : 64); }
 
-size_t fwd_shared(int bn, int L, bool bf) {
-  const size_t staged = staged_rows(bf ? BF16_ROWS : TILE / bn, L);
-  return bf ? static_cast<size_t>(TAPS) * bn * BF16_ROW * 2 + staged * (BF16_ROW * 2 + 4)
-            : static_cast<size_t>(TAPS) * BK * (bn + 4) * 4 + staged * (F32_ROW * 4 + 4);
+// a float32 conv_fwd tile: output channels, rows a thread, threads
+struct F32Tile {
+  int bn, tm, threads;
+};
+
+long long f32_blocks(const F32Tile& t, int T, int R, int cout) {
+  const int rows = f32_rows(t.bn, t.tm, t.threads);
+  return static_cast<long long>((R + rows - 1) / rows) * ((cout + t.bn - 1) / t.bn) * T;
+}
+
+size_t f32_fwd_shared(const F32Tile& t, int L) {
+  return static_cast<size_t>(TAPS) * BK * (t.bn + 4) * 4 +
+         staged_rows(f32_rows(t.bn, t.tm, t.threads), L) * (F32_ROW * 4 + 4);
+}
+
+size_t bf16_fwd_shared(int bn, int L) {
+  return static_cast<size_t>(TAPS) * bn * BF16_ROW * 2 +
+         staged_rows(BF16_ROWS, L) * (BF16_ROW * 2 + 4);
 }
 
 size_t wgrad_shared(int bo, int L, bool bf) {
@@ -685,19 +713,52 @@ struct KernelFn {
   size_t (*shared)(int L);
 };
 
+using F32Fwd = void (*)(const float*, Act, int, const float*, Weight, const float*, long long,
+                       float*, Geometry);
+
+struct F32Fn {
+  F32Tile tile;
+  F32Fwd fn;
+};
+
+#define F32_FN(BN, TM, THREADS) {{BN, TM, THREADS}, conv_fwd_f32<BN, TM, THREADS>}
+
+// every float32 conv_fwd kernel function with its tile: the N_FULL full
+// tiles (fwd_bn channels, 4 rows a thread, 256 threads: 8192 outputs a
+// block), then the smaller ones, 16 output channels each, each with half
+// the outputs of the one before: 4096, 2048, 1024, 512, 256 a block
+const F32Fn F32_FNS[] = {F32_FN(16, F32_TM, F32_THREADS), F32_FN(32, F32_TM, F32_THREADS),
+                         F32_FN(64, F32_TM, F32_THREADS),
+                         F32_FN(16, 2, 256), F32_FN(16, 1, 256), F32_FN(16, 1, 128),
+                         F32_FN(16, 1, 64),  F32_FN(16, 1, 32)};
+#undef F32_FN
+constexpr int N_FULL = 3, N_F32 = sizeof(F32_FNS) / sizeof(F32_FNS[0]);
+
+// the float32 conv_fwd tile of a launch, from its shapes alone: the full
+// tile where its grid has a block for every SM, else the first smaller tile
+// whose grid has, else the smallest
+const F32Fn& f32_tile(int T, int R, int cout) {
+  int full = 0;
+  while (F32_FNS[full].tile.bn != fwd_bn(cout)) ++full;
+  if (f32_blocks(F32_FNS[full].tile, T, R, cout) >= SMS) return F32_FNS[full];
+  for (int i = N_FULL; i < N_F32; ++i) {
+    if (f32_blocks(F32_FNS[i].tile, T, R, cout) >= SMS) return F32_FNS[i];
+  }
+  return F32_FNS[N_F32 - 1];
+}
+
+#define F32_KERNEL(i)                                                                  \
+  {reinterpret_cast<const void*>(F32_FNS[i].fn), F32_FNS[i].tile.threads,              \
+   [](int L) { return f32_fwd_shared(F32_FNS[i].tile, L); }}
+
 const KernelFn KERNELS[] = {
-    {reinterpret_cast<const void*>(conv_fwd_f32<16>), F32_THREADS,
-     [](int L) { return fwd_shared(16, L, false); }},
-    {reinterpret_cast<const void*>(conv_fwd_f32<32>), F32_THREADS,
-     [](int L) { return fwd_shared(32, L, false); }},
-    {reinterpret_cast<const void*>(conv_fwd_f32<64>), F32_THREADS,
-     [](int L) { return fwd_shared(64, L, false); }},
+    F32_KERNEL(0), F32_KERNEL(1), F32_KERNEL(2),
     {reinterpret_cast<const void*>(conv_fwd_bf16<16>), FWD_BF16_WARPS * 32,
-     [](int L) { return fwd_shared(16, L, true); }},
+     [](int L) { return bf16_fwd_shared(16, L); }},
     {reinterpret_cast<const void*>(conv_fwd_bf16<32>), FWD_BF16_WARPS * 32,
-     [](int L) { return fwd_shared(32, L, true); }},
+     [](int L) { return bf16_fwd_shared(32, L); }},
     {reinterpret_cast<const void*>(conv_fwd_bf16<64>), FWD_BF16_WARPS * 32,
-     [](int L) { return fwd_shared(64, L, true); }},
+     [](int L) { return bf16_fwd_shared(64, L); }},
     {reinterpret_cast<const void*>(conv_wgrad_f32<16>), 16 / WG_TO * WG_BI,
      [](int L) { return wgrad_shared(16, L, false); }},
     {reinterpret_cast<const void*>(conv_wgrad_f32<32>), 32 / WG_TO * WG_BI,
@@ -709,7 +770,9 @@ const KernelFn KERNELS[] = {
     {reinterpret_cast<const void*>(conv_wgrad_finish<float>), FINISH_THREADS,
      [](int) { return size_t{0}; }},
     {reinterpret_cast<const void*>(conv_wgrad_finish<bf16>), FINISH_THREADS,
-     [](int) { return size_t{0}; }}};
+     [](int) { return size_t{0}; }},
+    F32_KERNEL(3), F32_KERNEL(4), F32_KERNEL(5), F32_KERNEL(6), F32_KERNEL(7)};
+#undef F32_KERNEL
 constexpr int N_KERNELS = sizeof(KERNELS) / sizeof(KERNELS[0]);
 
 bool bad_geometry(int T, int N, int L, int cin, int cout) {
@@ -744,13 +807,12 @@ extern "C" int lesionvae_conv_fwd(const void* h, int bf, long long h_member, int
   const Geometry g{N, L, N * L, cin, cout};
   const Act ha{h_member, h_n, h_l, h_c};
   const Weight wt{w_member, w_in, w_out, w_tap, flip};
-  const int bn = fwd_bn(cout);
-  const size_t shared = fwd_shared(bn, L, bf != 0);
-  if (shared > MAX_SHARED) return static_cast<int>(cudaErrorInvalidValue);
-  const int bm = bf ? BF16_ROWS : TILE / bn;
-  const dim3 grid((g.R + bm - 1) / bm, (cout + bn - 1) / bn, T);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf) {
+    const int bn = fwd_bn(cout);
+    const size_t shared = bf16_fwd_shared(bn, L);
+    if (shared > MAX_SHARED) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((g.R + BF16_ROWS - 1) / BF16_ROWS, (cout + bn - 1) / bn, T);
     const bf16 *hp = static_cast<const bf16*>(h), *wp = static_cast<const bf16*>(w),
                *bp = static_cast<const bf16*>(bias);
     bf16* yp = static_cast<bf16*>(y);
@@ -760,14 +822,16 @@ extern "C" int lesionvae_conv_fwd(const void* h, int bf, long long h_member, int
       default: conv_fwd_bf16<64><<<grid, FWD_BF16_WARPS * 32, shared, s>>>(hp, ha, hvec, wp, wt, bp, bias_member, yp, g);
     }
   } else {
-    const float *hp = static_cast<const float*>(h), *wp = static_cast<const float*>(w),
-                *bp = static_cast<const float*>(bias);
-    float* yp = static_cast<float*>(y);
-    switch (bn) {
-      case 16: conv_fwd_f32<16><<<grid, F32_THREADS, shared, s>>>(hp, ha, hvec, wp, wt, bp, bias_member, yp, g); break;
-      case 32: conv_fwd_f32<32><<<grid, F32_THREADS, shared, s>>>(hp, ha, hvec, wp, wt, bp, bias_member, yp, g); break;
-      default: conv_fwd_f32<64><<<grid, F32_THREADS, shared, s>>>(hp, ha, hvec, wp, wt, bp, bias_member, yp, g);
-    }
+    const F32Fn& f = f32_tile(T, g.R, cout);
+    const F32Tile& t = f.tile;
+    const F32Fwd kernel = f.fn;
+    const size_t shared = f32_fwd_shared(t, L);
+    if (shared > MAX_SHARED) return static_cast<int>(cudaErrorInvalidValue);
+    const int bm = f32_rows(t.bn, t.tm, t.threads);
+    const dim3 grid((g.R + bm - 1) / bm, (cout + t.bn - 1) / t.bn, T);
+    kernel<<<grid, t.threads, shared, s>>>(
+        static_cast<const float*>(h), ha, hvec, static_cast<const float*>(w), wt,
+        static_cast<const float*>(bias), bias_member, static_cast<float*>(y), g);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -822,9 +886,10 @@ extern "C" int lesionvae_conv_wgrad(const void* h, int bf, long long h_member, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: 3 ints a kernel function, in the order of KERNELS (conv_fwd_f32
-// <16, 32, 64>, conv_fwd_bf16 <16, 32, 64>, conv_wgrad_f32
-// <16, 32, 64>, conv_wgrad_bf16, conv_wgrad_finish <float, bf16>):
+// out: 3 ints a kernel function, in the order of KERNELS (conv_fwd_f32's
+// full tiles <16, 32, 64>, conv_fwd_bf16 <16, 32, 64>, conv_wgrad_f32
+// <16, 32, 64>, conv_wgrad_bf16, conv_wgrad_finish <float, bf16>, then
+// conv_fwd_f32's smaller tiles, as F32_FNS lists them):
 // registers a thread, local memory bytes a thread, blocks an SM holds at
 // the shared memory of a layer of length L (0 where it does not fit)
 extern "C" int lesionvae_conv1d_attributes(int L, int* out) {

@@ -116,6 +116,23 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+class Count:
+    """A count of launches of one kind that no wrapper counts alone, kept
+    in ``counts[key]`` and counted as a wrapper's launches are
+    (``count_launch``; a graph that recorded one adds it at every replay)."""
+
+    def __init__(self, counts: dict, key: str):
+        self.counts, self.key, self.captured = counts, key, 0
+
+    @property
+    def launches(self) -> int:
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.counts[self.key] = n
+
+
 def sass(name: str) -> str:
     """The machine code (SASS) of the library of ``csrc/<name>.cu``, built
     on first use, as ``cuobjdump -sass`` prints it."""

@@ -24,9 +24,11 @@ the initial weights and statistics, the host draws; counted alike on the
 CPU, where nothing crosses), the ``LesionConditionedVAE`` modules built with
 an init on the CPU (``host_modules``: the single trainer's; a fleet builds
 none) and the fleet members built from the trained state on the device at
-``FleetHandle.fetch`` (``fetched_members``).  A kernel wrapper counted
-with ``ops.cuda_build.count_launch`` adds its launches recorded in a graph
-to its count once a replay.
+``FleetHandle.fetch`` (``fetched_members``), and the kernels' own counts
+(``ops.conv1d.COUNTS``: ``conv_fwd_small_tiles``, the float32 ``conv_fwd``
+launches that took a tile smaller than the full one).  A kernel wrapper or
+count kept with ``ops.cuda_build.count_launch`` adds its launches recorded
+in a graph to its count once a replay.
 
 Spans (``utils.profiling.span``): ``program.load`` around a run's copy-in,
 ``program.capture`` around the warm-up and capture, ``program.epoch``
@@ -37,7 +39,7 @@ read.  None opens inside a captured body.
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import ChainMap, OrderedDict
 from typing import Callable, Dict, Hashable, Sequence
 
 import numpy as np
@@ -48,9 +50,9 @@ from ..utils.profiling import span
 
 #: captures and replays of epoch graphs, bytes staged from host memory to a
 #: launch's device, modules built with an init on the CPU, fleet members
-#: built from device state, in this process
-COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0,
-                          "fetched_members": 0}
+#: built from device state, then the kernels' own counts, in this process
+COUNTS = ChainMap({"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0,
+                   "fetched_members": 0}, conv1d.COUNTS)
 
 
 def betas(epochs: int):
@@ -62,12 +64,15 @@ def betas(epochs: int):
 
 
 def counted_wrappers():
-    """The kernel wrappers an epoch graph may record (``count_launch``)."""
-    return (sr_adam.sr_adam_step, *masked_bn.WRAPPERS, *adam.WRAPPERS, *conv1d.WRAPPERS)
+    """The kernel wrappers and counts an epoch graph may record
+    (``count_launch``)."""
+    return (sr_adam.sr_adam_step, *masked_bn.WRAPPERS, *adam.WRAPPERS, *conv1d.WRAPPERS,
+            conv1d.SMALL_TILE_LAUNCHES)
 
 
 def reset_counts() -> None:
-    COUNTS.update(dict.fromkeys(COUNTS, 0))
+    for counts in COUNTS.maps:
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def count_h2d(*host) -> None:

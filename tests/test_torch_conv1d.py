@@ -182,19 +182,50 @@ def _staged_rows(rows, L):
     return rows + 4 + 4 * ((rows - 1 + L - 1) // L)
 
 
+def _cu_f32_tiles():
+    """csrc/conv1d.cu's F32_FNS table: (output channels, rows a thread,
+    threads) of each float32 conv_fwd kernel function, in its order."""
+    table = re.search(r"const F32Fn F32_FNS\[\] = \{(.*?)\};", _CU, re.S).group(1)
+    value = {"F32_TM": _cu_constant("F32_TM"), "F32_THREADS": _cu_constant("F32_THREADS")}
+    return tuple(tuple(int(value.get(a, a)) for a in t)
+                 for t in re.findall(r"F32_FN\((\w+), (\w+), (\w+)\)", table))
+
+
 def test_kernel_source_holds_the_same_constants_and_geometry():
     """csrc/conv1d.cu's taps and weight-gradient channel tiles are the
-    host's, its output tiles by C_out are ``fwd_tile``'s, and its row
-    geometry and row split are the ones the mirrors below write out."""
+    host's, its output tiles by C_out are ``fwd_tile``'s, its float32
+    forward tiles, their rule and the kernel function of each are
+    ``fwd_f32_tile``'s, and its row geometry and row split are the ones the
+    mirrors below write out."""
     for name, value in (("TAPS", conv1d.TAPS), ("WG_BI", conv1d.WGRAD_F32_IN),
-                        ("WH_BO", conv1d.WGRAD_BF16_OUT), ("WH_BI", conv1d.WGRAD_BF16_IN)):
+                        ("WH_BO", conv1d.WGRAD_BF16_OUT), ("WH_BI", conv1d.WGRAD_BF16_IN),
+                        ("SMS", conv1d.SMS), ("F32_THREADS", conv1d.F32_FULL_THREADS),
+                        ("F32_TM", conv1d.F32_FULL_ROWS), ("F32_TN", conv1d.F32_CHANNELS)):
         assert _cu_constant(name) == value, name
     assert "int fwd_bn(int cout) { return cout <= 16 ? 16 : (cout <= 32 ? 32 : 64); }" in _CU
     assert [conv1d.fwd_tile(c) for c in (1, 16, 17, 32, 33, 640)] == [16, 16, 32, 32, 64, 64]
+    full = tuple((c, conv1d.F32_FULL_ROWS, conv1d.F32_FULL_THREADS) for c in (16, 32, 64))
+    assert _cu_f32_tiles() == full + conv1d.F32_SMALL_TILES
+    assert "constexpr int N_FULL = 3, N_F32 = sizeof(F32_FNS) / sizeof(F32_FNS[0]);" in _CU
+    assert ("#define F32_FN(BN, TM, THREADS) {{BN, TM, THREADS}, "
+            "conv_fwd_f32<BN, TM, THREADS>}") in _CU
+    assert "return threads / (bn / F32_TN) * tm;" in _CU
+    assert "while (F32_FNS[full].tile.bn != fwd_bn(cout)) ++full;" in _CU
+    assert "if (f32_blocks(F32_FNS[full].tile, T, R, cout) >= SMS) return F32_FNS[full];" in _CU
+    assert "if (f32_blocks(F32_FNS[i].tile, T, R, cout) >= SMS) return F32_FNS[i];" in _CU
+    assert "return F32_FNS[N_F32 - 1];" in _CU
+    # the attribute query's order (KERNELS), as KERNEL_FUNCTIONS names it
+    assert "    F32_KERNEL(0), F32_KERNEL(1), F32_KERNEL(2),\n" in _CU
+    assert "    F32_KERNEL(3), F32_KERNEL(4), F32_KERNEL(5), F32_KERNEL(6), F32_KERNEL(7)};" in _CU
+    assert conv1d.KERNEL_FUNCTIONS[-5:] == tuple(f"conv_fwd_f32<{bn},{tm},{th}>"
+                                                 for bn, tm, th in conv1d.F32_SMALL_TILES)
+    assert ("return static_cast<long long>((R + rows - 1) / rows) * ((cout + t.bn - 1) / t.bn) "
+            "* T;") in _CU
     assert _PADDED in _CU and _STAGED in _CU
     assert "*ra = static_cast<int>(static_cast<long long>(g.R) * sp / splits);" in _CU
     assert "*rb = static_cast<int>(static_cast<long long>(g.R) * (sp + 1) / splits);" in _CU
-    assert "staged_rows(bf ? BF16_ROWS : TILE / bn, L)" in _CU
+    assert "staged_rows(f32_rows(t.bn, t.tm, t.threads), L)" in _CU
+    assert "staged_rows(BF16_ROWS, L)" in _CU
     assert "staged_rows(WG_BR, g.L)" in _CU and "staged_rows(WH_BR, g.L)" in _CU
 
 
@@ -257,10 +288,11 @@ def _mirror_wgrad(h, dy, splits, stage):
                                           (40, 1, 3, 3), (2, 48, 20, 70)])
 def test_kernel_tiles_read_the_rows_the_plain_version_reads(N, L, cin, cout):
     """The kernels' row geometry, in float64 numpy: the forward's tiles
-    (the float32 ones at every tile width the card picks by C_out, and the
-    bf16 ones) and the weight gradient's split ranges and stages (float32
-    and bf16) give the plain version's y, dw and db, at ragged tiles, short
-    samples (L = 1, 12, 25) and narrow and odd channel counts."""
+    (the float32 ones at every row count a tile of ``fwd_f32_tile`` takes,
+    the full tiles by C_out and the smaller ones, and the bf16 ones) and
+    the weight gradient's split ranges and stages (float32 and bf16) give
+    the plain version's y, dw and db, at ragged tiles, short samples (L = 1,
+    12, 25) and narrow and odd channel counts."""
     rng = np.random.default_rng(N * L)
     h = rng.normal(size=(1, N, L, cin))
     w = rng.normal(size=(1, cout, cin, conv1d.TAPS))
@@ -269,9 +301,9 @@ def test_kernel_tiles_read_the_rows_the_plain_version_reads(N, L, cin, cout):
     ht, wt, bt, dyt = map(torch.from_numpy, (h, w, b, dy))
     want = conv1d.conv1d_plain(ht, wt, bt, False)[0].numpy()
     W = w[0].transpose(2, 1, 0)                   # (5, C_in, C_out) at tap k
-    tile = _cu_constant("TILE")
-    for bm in sorted({tile // 16, tile // 32, tile // 64, tile // conv1d.fwd_tile(cout),
-                      _cu_constant("BF16_ROWS")}):
+    f32 = {bm for c in (16, 32, 64) for bm, _bn, _threads in conv1d.fwd_f32_tiles(c)}
+    assert sorted(f32) == [16, 32, 64, 128, 256, 512]
+    for bm in sorted({*f32, _cu_constant("BF16_ROWS")}):
         np.testing.assert_allclose(_mirror_fwd(h[0], W, b[0], bm), want, atol=1e-12)
     dw, db = conv1d.conv_wgrad_plain(ht, dyt, False)
     for dtype, stage in ((torch.float32, _cu_constant("WG_BR")),
@@ -313,6 +345,96 @@ def test_wgrad_splits_at_the_paths_shapes():
         assert got == PATH_SPLITS[name], name
         assert all(64 * L // s >= conv1d.MIN_SPLIT_ROWS for s in got)
     assert conv1d.wgrad_splits(1, 7, 3, 3, torch.float32) == 1
+
+
+def _path_launches(T, batch):
+    """(rows, C_out) of the float32 conv_fwd launches of a training step at
+    the full widths (eight forwards and the six dx; micro_c1 and lesion_c1
+    take the input data) and of an eval forward (the eight forwards)."""
+    train, evals = [], []
+    for name, (L, cin, cout, _t) in tcm.conv_layers().items():
+        train.append((batch * L, cout))
+        evals.append((batch * L, cout))
+        if name not in tcm.CONV_INPUT_LAYERS:
+            train.append((batch * L, cin))
+    return train, evals
+
+
+def _blocks(T, rows, c_out, tile):
+    bm, bn, _threads = tile
+    return -(-rows // bm) * -(-c_out // bn) * T
+
+
+# the float32 forward's one tile before the rule, (rows, output channels,
+# threads) by C_out: 8192 outputs a block, 256 threads
+FULL_TILES = {16: (512, 16, 256), 32: (256, 32, 256), 64: (128, 64, 256)}
+
+
+@pytest.mark.parametrize("batch", [64, 960])
+def test_fwd_f32_tile_keeps_the_full_tile_on_the_fleets_path(batch):
+    """64 members (the cohort fleet), a training batch of 64 or a member's
+    960 padded rows (the summary's eval forwards): all 22 launches (14 a
+    training step, 8 an eval forward) take the tile every launch took
+    before the rule, so the fleet's kernels, grids and bits stay."""
+    train, evals = _path_launches(64, batch)
+    assert len(train) == 14 and len(evals) == 8
+    for rows, c_out in train + evals:
+        tile = conv1d.fwd_f32_tile(64, rows, c_out)
+        assert tile == conv1d.fwd_f32_tiles(c_out)[0] == FULL_TILES[conv1d.fwd_tile(c_out)]
+        assert _blocks(64, rows, c_out, tile) >= 384
+
+
+def test_fwd_f32_tile_fills_the_sms_at_one_member():
+    """The single VAE (one member, batch 64): each of its 14 launches a
+    step takes a smaller tile, and each grid has a block for every SM,
+    where the full tile gave 6-50 blocks."""
+    train, _evals = _path_launches(1, 64)
+    before, after = [], []
+    for rows, c_out in train:
+        tile = conv1d.fwd_f32_tile(1, rows, c_out)
+        assert tile != conv1d.fwd_f32_tiles(c_out)[0]
+        before.append(_blocks(1, rows, c_out, conv1d.fwd_f32_tiles(c_out)[0]))
+        after.append(_blocks(1, rows, c_out, tile))
+    assert sorted(before) == [6, 6, 12, 12, 12, 13, 24, 25, 25, 25, 26, 26, 50, 50]
+    assert min(after) >= conv1d.SMS == 132
+
+
+def test_fwd_f32_tile_is_a_function_of_the_shapes():
+    """The tile reads T, the rows and C_out alone: at every shape it is
+    the first of the full tile and F32_SMALL_TILES whose grid has SMS
+    blocks (the smallest where none has), and each tile it returns is one
+    the kernel source instantiates."""
+    import inspect
+
+    assert list(inspect.signature(conv1d.fwd_f32_tile).parameters) == ["T", "rows", "c_out"]
+    rng = np.random.default_rng(21)
+    known = {t for c in (16, 32, 64) for t in conv1d.fwd_f32_tiles(c)}
+    assert len(known) == 3 + len(conv1d.F32_SMALL_TILES)
+    for _ in range(2000):
+        T, rows = int(rng.integers(1, 65)), int(rng.integers(1, 8000))
+        c_out = int(rng.integers(1, 300))
+        tile = conv1d.fwd_f32_tile(T, rows, c_out)
+        ladder = conv1d.fwd_f32_tiles(c_out)
+        fits = [t for t in ladder if _blocks(T, rows, c_out, t) >= conv1d.SMS]
+        assert tile == (fits[0] if fits else ladder[-1]) and tile in known
+        assert conv1d.fwd_f32_tile(T, rows, c_out) == tile
+
+
+def test_small_tile_launches_show_in_the_programs_counts():
+    """The count of float32 conv_fwd launches on a smaller tile is a kernel
+    count of ``train.program.COUNTS``: an epoch graph counts it as a
+    wrapper's launches (``launches``, and ``captured`` at every replay),
+    and it is reset with the program's counts."""
+    from lesionvae_tpu_torch.train import program
+
+    program.reset_counts()
+    assert conv1d.SMALL_TILE_LAUNCHES in program.counted_wrappers()
+    assert conv1d.SMALL_TILE_LAUNCHES.captured == 0
+    conv1d.SMALL_TILE_LAUNCHES.launches += 14          # as a replay of a one-member step adds
+    assert dict(program.COUNTS)["conv_fwd_small_tiles"] == conv1d.SMALL_TILE_LAUNCHES.launches == 14
+    program.COUNTS["captures"] += 1
+    program.reset_counts()
+    assert set(dict(program.COUNTS).values()) == {0}
 
 
 def test_wrappers_take_only_cuda_tensors():
