@@ -176,16 +176,12 @@ Phases; any failure exits non-zero before the result line is printed:
       which the single VAE's graph (its one-member fleet program: the
       fleet's kernels) is held against the module's eager route (cuDNN,
       ``MaskedBatchNorm``); the single VAE's graph must repeat bit for bit
-      and equal ``train_fleet`` at one member bit for bit; (b) host ms,
-      device ms, kernels and host launch calls a step of both forms
-      (``benchmarks/vae_step_profile.py --route bmm|graph``): the single
-      VAE, 4 float32 members, 64 bf16-storage members (and their graph with
-      bf16 compute), the 64-member float32-storage graph, the fleet's with
-      device ms by layer; (c) the fleet's SR
-      Adam launches counted at each replay; (d) ``warm_compile``: a fleet
+      and equal ``train_fleet`` at one member bit for bit; (b) the fleet's SR
+      Adam launches counted at each replay; (c) ``warm_compile``: a fleet
       launch (one capture) and then the real launch with no new capture,
       and the geometry kernel launched at every chunk shape of 3c's plan
-      with no row refined; (e) ``torch.cuda.max_memory_allocated``;
+      with no row refined; (d) ``torch.cuda.max_memory_allocated``.  A
+      step's readout by layer is ``benchmarks/vae_step_profile.py``'s;
 4. kernel timings (CUDA events) at the shapes the main paths gave each
    kernel, beside each kernel's bound, printed as one ``{"kernels": [...]}``
    line (the resident kernel per K and form, with the nominal bound and
@@ -203,7 +199,9 @@ Phases; any failure exits non-zero before the result line is printed:
    runs it, beside the leaves' copies alone as an informative floor:
    ``benchmarks/adam_timing.py``).
 
-The last line of stdout is ``{"ok": true, "device": {...}}``.
+Each phase ends in a ``[time] <phase> <seconds>`` line (``1_build`` to
+``4_conv1d``), the run in ``[time] chip_smoke.py wall``.  The last line of
+stdout is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -226,11 +224,9 @@ import numpy as np
 import torch
 
 from lesionvae_tpu_torch.io.synth import generate_cohort
+from lesionvae_tpu_torch.utils.cost_model import kernel_bound_ms
 from lesionvae_tpu_torch.utils.profiling import device_ms
 
-# NVIDIA H100 SXM data sheet, dense: FP32 outside the tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-5     # |kernel - plain| <= KERNEL_TOL * max(1, |plain|)
 PATH_TOL = 1e-4       # cuda vs cpu float32 stage, same form
 SEED = 0
@@ -407,6 +403,14 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints ``[time] <name> <seconds>`` when the phase ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {name} {time.perf_counter() - t0:.1f}", flush=True)
+
+
 # ---------------------------------------------------------------- machine code
 # per kernel: an instruction of its hot loop, what unit of work the loop
 # body does, and how often the instruction occurs in it per unit (geometry:
@@ -532,27 +536,17 @@ def radius_nan_check() -> None:
           "NaN pad row and NaN in an empty lesion ignored")
 
 
-def radius_bound_ms(inputs) -> tuple[float, str]:
-    """Least time for this run's work: Σ_b min(count_b, N)·D pairs of 3 FMA
-    + 1 max (7 FP32 operations) against the bytes each input and output
-    needs once (only the counted surface rows)."""
+def radius_bound_ms(inputs) -> dict:
+    """Least time for this run's work (``utils.cost_model.kernel_bound_ms``):
+    Σ_b min(count_b, N)·D pairs of 3 FMA + 1 max (7 FP32 operations; 4
+    instructions: a multiply, two FMAs, a max) against the bytes each input
+    and output needs once (only the counted surface rows)."""
     surface, counts, _c, directions = inputs
     B, N, _ = surface.shape
     D = directions.shape[0]
     n_pts = int(counts.clamp(0, N).sum())
-    ops = 7.0 * n_pts * D
     nbytes = 12 * n_pts + 4 * B + 12 * B + 12 * D + 4 * B * D
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def radius_issue_bound_ms(inputs) -> float:
-    """Least time to issue the kernel's work: 4 instructions a counted
-    point-direction pair (a multiply, two FMAs, a max) over 132 SMs x 4
-    schedulers x 32 lanes x 1.98 GHz."""
-    surface, counts, _c, directions = inputs
-    pairs = int(counts.clamp(0, surface.shape[1]).sum()) * directions.shape[0]
-    return 1e3 * 4 * pairs / (132 * 4 * 32 * 1.98e9)
+    return kernel_bound_ms(nbytes, 7.0 * n_pts * D, 4 * n_pts * D)
 
 
 # ---------------------------------------------------------------- resident Adam
@@ -795,10 +789,8 @@ def sr_adam_at_path_shape(members: int, lay) -> dict:
     plain_ms = device_ms(lambda: sr_adam.sr_adam_step_plain(p, m, v, gr, base,
                                                             *scalars, c),
                          reps=3, inner=2)
-    bound, by, issue = sr_adam.bound_ms(members * n)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "issue_bound_ms": issue, "members": members, "row": n,
-            "max_abs_err": worst}
+    return {"ms": ms, "plain_ms": plain_ms, **sr_adam.bound_ms(members * n),
+            "members": members, "row": n, "max_abs_err": worst}
 
 
 
@@ -1877,17 +1869,15 @@ def geometry_timings(chunks) -> dict:
     ms = device_ms(lambda: g.streamline_metrics_stacked(*f32_in))
     plain_ms = device_ms(lambda: g.streamline_metrics_stacked_plain(*f32_in), reps=3, inner=2)
     u16_ms = device_ms(lambda: g.streamline_metrics_stacked_u16(*u16_in))
-    bound, by = g.bound_ms(lens, P)
     stage_ms = sum(device_ms(lambda c=c: g.streamline_metrics_stacked(*c[1]), reps=5, inner=10)
                    for c in chunks)
-    stage_bound = sum(g.bound_ms(c[3], c[0])[0] for c in chunks)
+    u16 = g.bound_ms(lens, P, u16=True)
+    stage = [g.bound_ms(c[3], c[0]) for c in chunks]
     return {"S": int(f32_in[0].shape[0]), "P": P, "lanes": g.block_streamlines(P)[0],
-            "ms": ms, "plain_ms": plain_ms, "u16_ms": u16_ms, "bound_ms": bound,
-            "bound_by": by, "u16_bound_ms": g.bound_ms(lens, P, u16=True)[0],
-            "issue_bound_ms": g.issue_bound_ms(lens, P),
-            "u16_issue_bound_ms": g.issue_bound_ms(lens, P, u16=True),
-            "stage_ms": stage_ms, "stage_bound_ms": stage_bound,
-            "stage_issue_bound_ms": sum(g.issue_bound_ms(c[3], c[0]) for c in chunks),
+            "ms": ms, "plain_ms": plain_ms, "u16_ms": u16_ms, **g.bound_ms(lens, P),
+            "u16_bound_ms": u16["bound_ms"], "u16_issue_bound_ms": u16["issue_bound_ms"],
+            "stage_ms": stage_ms, "stage_bound_ms": sum(b["bound_ms"] for b in stage),
+            "stage_issue_bound_ms": sum(b["issue_bound_ms"] for b in stage),
             "launches_timed": len(chunks), "max_abs_err": max(err, err16),
             "bits_differ": differ + differ16}
 
@@ -2957,9 +2947,6 @@ def check_parallel(cohort_root: Path, cfg, with_vae: bool) -> dict:
 # of that reading and the member-against-alone bounds (ALONE_TOL in history,
 # ALONE_MOVE of each tensor's movement in L2)
 PROGRAM_EPOCHS = 2
-# the step profile: steps read a form (vae_step_profile rounds the graph
-# form's up to whole epochs of 15 steps)
-PROFILE_STEPS = {"single": 45, "fleet": 15}
 
 
 def run_readings(got, ref, start) -> dict:
@@ -2998,11 +2985,9 @@ def hold_near(label: str, got: dict, eager: dict) -> str:
 
 def check_programs(cohort_root: Path, cfg) -> dict:
     """Phase 3i: (a) the single VAE and the bf16-storage 64-member fleet,
-    PROGRAM_EPOCHS epochs at full width, graph against eager; (b) host ms,
-    device ms and launches a step of both forms (``vae_step_profile``);
-    (c) the SR Adam kernel counted at each replay; (d) ``warm_compile``
-    launches, then the real launch with no new capture; (e) peak memory."""
-    from lesionvae_tpu_torch.benchmarks import vae_step_profile as prof
+    PROGRAM_EPOCHS epochs at full width, graph against eager; (b) the SR
+    Adam kernel counted at each replay; (c) ``warm_compile`` launches, then
+    the real launch with no new capture; (d) peak memory."""
     from lesionvae_tpu_torch.models.fleet import FleetState, layout
     from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
     from lesionvae_tpu_torch.ops import geometry, sr_adam
@@ -3080,7 +3065,7 @@ def check_programs(cohort_root: Path, cfg) -> dict:
     print(f"[programs] single VAE, {n0} rows x {PROGRAM_EPOCHS} epochs at full width, "
           f"graph against eager: {json.dumps(out['single'])}")
 
-    # (a) and (c) the 64-member fleet, bf16 storage
+    # (a) and (b) the 64-member fleet, bf16 storage
     draws = batched.member_draws(T, n_pad, lay.hyper, PROGRAM_EPOCHS, VAE_BATCH, VAE_SEED)
     start = FleetState.from_state_dicts(draws["state_dicts"], lay, torch.float32,
                                         torch.bfloat16, "cpu")
@@ -3129,34 +3114,7 @@ def check_programs(cohort_root: Path, cfg) -> dict:
     del Xz, Xlz
     torch.cuda.empty_cache()
 
-    # (b) a step of each form, read the same way
-    steps_read = {}
-    for label, fn in (
-            ("single_eager", lambda: prof.main(PROFILE_STEPS["single"], "bmm")),
-            ("single_graph", lambda: prof.main(PROFILE_STEPS["single"], "graph")),
-            ("fleet4_f32_eager", lambda: prof.main_fleet(4, "f32", "f32",
-                                                         PROFILE_STEPS["fleet"], "bmm")),
-            ("fleet4_f32_graph", lambda: prof.main_fleet(4, "f32", "f32",
-                                                         PROFILE_STEPS["fleet"], "graph")),
-            ("fleet64_bf16_eager", lambda: prof.main_fleet(64, "bf16", "f32",
-                                                           PROFILE_STEPS["fleet"], "bmm")),
-            ("fleet64_f32_graph", lambda: prof.main_fleet(64, "f32", "f32",
-                                                          PROFILE_STEPS["fleet"], "graph")),
-            ("fleet64_bf16_graph", lambda: prof.main_fleet(64, "bf16", "f32",
-                                                           PROFILE_STEPS["fleet"], "graph")),
-            ("fleet64_bf16_compute_graph", lambda: prof.main_fleet(
-                64, "bf16", "bf16", PROFILE_STEPS["fleet"], "graph"))):
-        r = fn()
-        steps_read[label] = {k: r[k] for k in (
-            "host_ms_per_step", "device_ms_per_step", "device_busy_share",
-            "kernel_launches_per_step", "host_launch_calls_per_step", "steps")
-            if k in r} | {k: r[k] for k in ("graph_captures", "graph_replays",
-                                            "peak_device_gb", "layer_ms_per_step") if k in r}
-        torch.cuda.empty_cache()
-    out["per_step"] = steps_read
-    print(f"[programs] per step, eager against graph: {json.dumps(steps_read)}")
-
-    # (d) warm_compile, then the real launch: no new capture
+    # (c) warm_compile, then the real launch: no new capture
     batched.PROGRAMS.clear()
     kw = dict(latent_dim=VAE_LATENT, epochs=PROGRAM_EPOCHS, batch_size=VAE_BATCH,
               seed=VAE_SEED, normalize_on_device=True, store_dtype=torch.bfloat16,
@@ -3226,11 +3184,13 @@ def run_vae_paths(root: Path, cfg) -> tuple:
     kernels' by stage, their launches a training step of the cohort path,
     the optimizer kernels' launches by path and the convolution kernels' by
     stage."""
-    single = check_vae(root, cfg, cfg.tracts[0])
+    with phase("3d_vae"):
+        single = check_vae(root, cfg, cfg.tracts[0])
     common = ["--config", str(root / "config.json"), "--base-path", str(root),
               "--seed", str(VAE_SEED), "--device", "cuda"]
-    sr, bn, bn_a_step, cohort, conv = check_cohort_cli(root, cfg, common)
-    check_cohort_against_cpu(root, cfg)
+    with phase("3e_vae_cohort"):
+        sr, bn, bn_a_step, cohort, conv = check_cohort_cli(root, cfg, common)
+        check_cohort_against_cpu(root, cfg)
     torch.cuda.empty_cache()
     bn = {"vae": single["masked_bn"], **bn}
     conv = {"vae": single["conv1d"], **conv}
@@ -3268,53 +3228,62 @@ def main(argv=None) -> int:
             mp_context=multiprocessing.get_context("spawn")))
         t_cohort = time.perf_counter()
         writers = start_cohort(cohort_root, cfg, pool, profiles=not args.skip_vae)
-        t0 = time.perf_counter()
-        built = cuda_build.build(cuda_build.SOURCES)
-        print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s")
-        sass_lines()
-        masked_bn_sass_lines()
-        adam_sass = adam_sass_lines()
-        conv_sass = conv1d_sass_lines()
+        with phase("1_build"):
+            print(f"[build] {sorted(cuda_build.build(cuda_build.SOURCES))}")
+        with phase("1_sass"):
+            sass_lines()
+            masked_bn_sass_lines()
+            adam_sass = adam_sass_lines()
+            conv_sass = conv1d_sass_lines()
 
         # 2. kernels against their plain versions
-        shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
-                  for B in (1, 3, 13)] + [(2000, 2000, 104)]
-        # N and counts on and beside the kernel's chunk of points, D on and
-        # beside its tile of directions
-        chunk = radius.CHUNK
-        shapes += [(D, N, 5) for D in (1023, 1024, 1025)
-                   for N in (chunk - 1, chunk, chunk + 1, 2 * chunk, 3 * chunk + 7)]
-        errs = [radius_error(radius_case(D, N, B, seed=i))
-                for i, (D, N, B) in enumerate(shapes)]
-        full = radius_case(2000, 2000, 104, seed=1234)
-        radius_same_bits(full)
-        print(f"[kernels] radius vs plain at {len(shapes)} shapes: max abs err "
-              f"{max(errs):.3e} (tol {KERNEL_TOL} x max(1,|plain|))")
-        radius_nan_check()
-        resident_worst = resident_errors()
-        sr_worst = sr_adam_errors()
-        geo_worst = geometry_errors()
-        bn_worst = masked_bn_errors()
-        adam_checks = {"grad_sq_norm": adam_norm_errors(), "adam_step": adam_step_errors()}
-        conv_checks = conv1d_errors()
-        for w in writers:
-            w.result()
-        pool.shutdown()
+        with phase("2_radius"):
+            shapes = [(D, N, B) for D in (256, 512, 2000) for N in (1, 200, 333)
+                      for B in (1, 3, 13)] + [(2000, 2000, 104)]
+            # N and counts on and beside the kernel's chunk of points, D on
+            # and beside its tile of directions
+            chunk = radius.CHUNK
+            shapes += [(D, N, 5) for D in (1023, 1024, 1025)
+                       for N in (chunk - 1, chunk, chunk + 1, 2 * chunk, 3 * chunk + 7)]
+            errs = [radius_error(radius_case(D, N, B, seed=i))
+                    for i, (D, N, B) in enumerate(shapes)]
+            full = radius_case(2000, 2000, 104, seed=1234)
+            radius_same_bits(full)
+            print(f"[kernels] radius vs plain at {len(shapes)} shapes: max abs err "
+                  f"{max(errs):.3e} (tol {KERNEL_TOL} x max(1,|plain|))")
+            radius_nan_check()
+        with phase("2_resident_adam"):
+            resident_worst = resident_errors()
+        with phase("2_sr_adam"):
+            sr_worst = sr_adam_errors()
+        with phase("2_geometry"):
+            geo_worst = geometry_errors()
+        with phase("2_masked_bn"):
+            bn_worst = masked_bn_errors()
+        with phase("2_adam"):
+            adam_checks = {"grad_sq_norm": adam_norm_errors(),
+                           "adam_step": adam_step_errors()}
+        with phase("2_conv1d"):
+            conv_checks = conv1d_errors()
+        with phase("2_cohort_wait"):
+            for w in writers:
+                w.result()
+            pool.shutdown()
         print(f"[path] {'bundle' if args.skip_vae else 'bundle and profiles'} cohort "
               f"({len(cfg.geometry_tracts)} tracts, 37 subjects x 4 timepoints) written "
               f"by {len(writers)} tasks, done {time.perf_counter() - t_cohort:.1f}s "
               "after their start")
-        full_ms = device_ms(lambda: radius.sample_radii(*full))
-        full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
-        full_bound, full_by = radius_bound_ms(full)
-        print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
-              + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
-                            "bound_ms": full_bound, "bound_by": full_by,
-                            "issue_bound_ms": radius_issue_bound_ms(full),
-                            "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
+        with phase("2_radius_full_scale"):
+            full_ms = device_ms(lambda: radius.sample_radii(*full))
+            full_plain_ms = device_ms(lambda: radius.sample_radii_plain(*full))
+            print("[kernels] radius full-scale B=104 D=2000 N=2000 counts~U[0,2000]: "
+                  + json.dumps({"ms": full_ms, "plain_ms": full_plain_ms,
+                                **radius_bound_ms(full),
+                                "pairs": int(full[1].clamp(0, 2000).sum()) * 2000}))
 
         # 3. the main paths
-        with tempfile.TemporaryDirectory(prefix="lesionvae_smoke_") as tmp:
+        with phase("3a_lesion"), \
+                tempfile.TemporaryDirectory(prefix="lesionvae_smoke_") as tmp:
             root = Path(tmp)
             t0 = time.perf_counter()
             generate_cohort(root, cfg, seed=SEED, volume_shape=(VOLUME,) * 3,
@@ -3328,8 +3297,10 @@ def main(argv=None) -> int:
             shutil.copy(root / "results" / "lesion_sh_heme_comprehensive" / les,
                         own["lesion_cuda"])
             shutil.copy(root / "results_cpu" / les, own["lesion_cpu"])
-        probe, probe_launches = check_probe()
-        geo = check_geometry(cohort_root, cfg)
+        with phase("3b_probe"):
+            probe, probe_launches = check_probe()
+        with phase("3c_geometry"):
+            geo = check_geometry(cohort_root, cfg)
         sr_launches, bn_launches, bn_a_step, opt_launches, conv_launches = 0, {}, None, {}, {}
         all_phase = {"launches": {"radius": 0, "geometry": 0}}
         if args.skip_vae:
@@ -3338,24 +3309,28 @@ def main(argv=None) -> int:
         else:
             (sr_launches, bn_launches, bn_a_step, opt_launches,
              conv_launches) = run_vae_paths(cohort_root, cfg)
-            all_phase = check_all(
-                cohort_root, cohort_root / "results" / "vae_cohort",
-                cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
-                own["lesion_cpu"], own)
+            with phase("3f_all"):
+                all_phase = check_all(
+                    cohort_root, cohort_root / "results" / "vae_cohort",
+                    cohort_root / "results" / "geometry_cpu" / GEO_CSVS[0],
+                    own["lesion_cpu"], own)
             opt_launches["all"] = {k: all_phase["launches"][k]
                                    for k in ("grad_sq_norm", "adam_step")}
             conv_launches["all"] = all_phase["launches"]["conv1d"]
-            check_chunks()
+            with phase("3g_chunks"):
+                check_chunks()
             torch.cuda.empty_cache()
-        check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
+        with phase("3h_parallel"):
+            check_parallel(cohort_root, cfg, with_vae=not args.skip_vae)
         if not args.skip_vae:
-            check_programs(cohort_root, cfg)
+            with phase("3i_programs"):
+                check_programs(cohort_root, cfg)
 
     # 4. kernel timings at the main paths' shapes
-    err = radius_error(path_inputs)
-    ms = device_ms(lambda: radius.sample_radii(*path_inputs))
-    plain_ms = device_ms(lambda: radius.sample_radii_plain(*path_inputs))
-    bound, by = radius_bound_ms(path_inputs)
+    with phase("4_radius"):
+        err = radius_error(path_inputs)
+        ms = device_ms(lambda: radius.sample_radii(*path_inputs))
+        plain_ms = device_ms(lambda: radius.sample_radii_plain(*path_inputs))
     surface, counts, _c, directions = path_inputs
     print(f"[kernels] main-path radius inputs: B={surface.shape[0]} "
           f"N={surface.shape[1]} D={directions.shape[0]} "
@@ -3368,18 +3343,21 @@ def main(argv=None) -> int:
     # the fleet's optimizer pass at the cohort path's shape: 64 members x the
     # weight elements of one member
     from lesionvae_tpu_torch.models.fleet import layout
-    sr = sr_adam_at_path_shape(COHORT_MEMBERS, layout(100, 13, 3, VAE_LATENT))
+    with phase("4_sr_adam"):
+        sr = sr_adam_at_path_shape(COHORT_MEMBERS, layout(100, 13, 3, VAE_LATENT))
     print("[kernels] SR Adam at the cohort path's shape: " + json.dumps(sr))
     # the geometry kernel at the path's largest chunk and over all its chunks
-    gt = geometry_timings(geo["chunks"])
+    with phase("4_geometry"):
+        gt = geometry_timings(geo["chunks"])
     print("[kernels] geometry at the path's largest chunk and over the stage's "
           "launches: " + json.dumps(gt))
     # the fleet step's seven BatchNorm + ReLU layers, float32 and bf16
     # activations
     from lesionvae_tpu_torch.benchmarks import masked_bn_timing
 
-    bn_t = {"f32": masked_bn_timing.timings(torch.float32),
-            "bf16": masked_bn_timing.timings(torch.bfloat16)}
+    with phase("4_masked_bn"):
+        bn_t = {"f32": masked_bn_timing.timings(torch.float32),
+                "bf16": masked_bn_timing.timings(torch.bfloat16)}
     print("[kernels] masked BatchNorm + ReLU over the seven layers of a 64-member fleet "
           f"step (ms; bounds by ops.masked_bn.bound_ms): {json.dumps(bn_t)}; {card}")
     bn_f32 = bn_t["f32"]
@@ -3387,17 +3365,19 @@ def main(argv=None) -> int:
     # shapes, and the fleet's optimizer step against the parent's chain
     from lesionvae_tpu_torch.benchmarks import adam_timing
 
-    opt_t = adam_timing.timings()
+    with phase("4_adam"):
+        opt_t = adam_timing.timings()
     print("[kernels] optimizer kernels (ms; bounds by ops.adam): " + json.dumps(opt_t))
     norm_t, upd_t = opt_t["grad_sq_norm_f32"], opt_t["adam_step_weights"]
     # the fleet step's eight convolutions, float32 and bf16: the kernels
     # graph-replayed, in turns with the chain they replaced and F.conv1d
     from lesionvae_tpu_torch.benchmarks import conv_timing
 
-    conv_short = {dt: {k: v for k, v in conv_timing.timings(
-                      dtype, reps=CONV_TIMING_REPS, by_layer=False).items()
-                      if k not in ("bound", "bound_by_layer")}
-                  for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    with phase("4_conv1d"):
+        conv_short = {dt: {k: v for k, v in conv_timing.timings(
+                          dtype, reps=CONV_TIMING_REPS, by_layer=False).items()
+                          if k not in ("bound", "bound_by_layer")}
+                      for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
     print("[kernels] conv1d over the eight convolutions of a 64-member fleet step (ms, "
           "replayed from CUDA graphs in turns with the replaced chain and F.conv1d; bounds "
           "by utils.cost_model.conv_bound_ms; per layer: benchmarks/conv_timing.py): "
@@ -3412,8 +3392,7 @@ def main(argv=None) -> int:
         "launches": launches + all_phase["launches"]["radius"],
         "launches_by_path": {"lesion": launches, "all": all_phase["launches"]["radius"]},
         "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "issue_bound_ms": radius_issue_bound_ms(path_inputs), "library_ms": None}, {
+        "plain_ms": plain_ms, **radius_bound_ms(path_inputs), "library_ms": None}, {
         "name": "resident_adam", "route": "cuda",
         "source": "lesionvae_tpu_torch/ops/csrc/resident_adam.cu",
         "replaces": "benchmarks/pallas_opt_probe.py:118",

@@ -21,8 +21,7 @@ weights are views of a wider buffer, as the fleet's leaves are):
   (``conv1d_plain``: pad + unfold + ``baddbmm``, and its autograd backward)
   and the one PyTorch call for the same function, ``F.conv1d`` with a group
   a member over the members' channels side by side, (N, T*C, L), and its
-  backward (cuDNN; ``benchmarks/vae_step_profile.py::conv_grouped`` without
-  its layout copies);
+  backward (cuDNN, without the layout copies around it);
 - the plain version (``conv1d_plain`` + ``conv1d_backward_plain``, eager, 3
   x 2) over the eight layers;
 - the kernels' launches over one step of the eight layers through

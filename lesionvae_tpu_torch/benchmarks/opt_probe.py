@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.resident_adam import FORMS, resident_adam, resident_adam_plain
+from ..utils.cost_model import kernel_bound_ms
 from ..utils.profiling import device_ms
 
 T_MEMBERS = 64
@@ -45,14 +46,6 @@ RTOL, ATOL = 1e-2, 1e-4  # the JAX probe's own check (pallas_opt_probe.py:176)
 # v': 4; p': sqrt, +EPS, /, *LR, -: 5) and 6 bf16<->f32 conversions
 OPS_PER_ELEMENT_STEP = 20
 BYTES_PER_ELEMENT = 12   # p, m, v as bf16, each read once and written once
-# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# What the card issues.  An SM issues 4 warp instructions a clock (128 lanes)
-# and its special-function unit takes 16 lanes a clock; 67 TFLOP/s is 132 SMs
-# x 128 lanes x 2 (an FMA) x the clock, which makes the clock 1.98 GHz.
-SM_COUNT, ISSUE_LANES, SFU_LANES = 132, 128, 16
-CLOCK_HZ = PEAK_FP32_FLOPS / (SM_COUNT * ISSUE_LANES * 2)
 # Special-function operations an element-step: the reciprocal seed of the
 # quotient and the rsqrt seed of the root; the fast-math form's one rsqrt.
 SFU_PER_ELEMENT_STEP = {"ieee": 2, "fastmath": 1}
@@ -95,22 +88,15 @@ def run_resident(p0, m0, v0, k: int, c: float = GC, form: str = "ieee"):
     return p.float().sum(), p[:1, :LANES]
 
 
-def bound_ms(n: int, k: int, form: str = "ieee"):
-    """Least time for K steps over n elements on an H100 SXM, twice.
-
-    Nominal (the same for both forms, so that rows compare): the larger of
-    12 bytes an element once over 3.35 TB/s and 20 FP32 operations an
-    element-step over 67 TFLOP/s.  Issue: the larger of the same bytes, the
-    form's special-function operations over 132 SMs x 16 lanes x the clock,
-    and the form's least instruction count over 132 SMs x 128 lanes x the
-    clock.  Returns (nominal ms, "bytes" or "operations", issue ms)."""
-    t_bytes = BYTES_PER_ELEMENT * n / PEAK_BYTES_PER_S
-    t_ops = OPS_PER_ELEMENT_STEP * n * k / PEAK_FP32_FLOPS
-    t_sfu = SFU_PER_ELEMENT_STEP[form] * n * k / (SM_COUNT * SFU_LANES * CLOCK_HZ)
-    t_issue = (MIN_INSTRUCTIONS_PER_ELEMENT_STEP[form] * n * k
-               / (SM_COUNT * ISSUE_LANES * CLOCK_HZ))
-    return (1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"),
-            1e3 * max(t_bytes, t_sfu, t_issue))
+def bound_ms(n: int, k: int, form: str = "ieee") -> dict:
+    """Least time for K steps over n elements on the card
+    (``utils.cost_model.kernel_bound_ms``): 12 bytes an element once, 20
+    FP32 operations an element-step (the same for both forms, so that rows
+    compare), and the form's least instructions and special-function
+    operations an element-step for the issue bound."""
+    return kernel_bound_ms(BYTES_PER_ELEMENT * n, OPS_PER_ELEMENT_STEP * n * k,
+                           MIN_INSTRUCTIONS_PER_ELEMENT_STEP[form] * n * k,
+                           SFU_PER_ELEMENT_STEP[form] * n * k)
 
 
 def compare(got, want) -> Dict[str, float]:
@@ -178,7 +164,7 @@ def main(ks: Optional[Sequence[int]] = None, T: int = T_MEMBERS,
             ms = res[f"{name}_ms"]
             res[f"{name}_ms_per_step"] = ms / max(k, 1)
             res[f"{name}_gbps"] = gb_per_step * k / (ms / 1e3)
-        res["bound_ms"], res["bound_by"], res["issue_bound_ms"] = bound_ms(n, k, form)
+        res.update(bound_ms(n, k, form))
         res["launches"] = resident_adam.launches - launched
         print(f"[opt_probe {form} K={k:3d}] plain {res['plain_ms']:9.3f} ms "
               f"({res['plain_ms_per_step']:.3f} ms/step, "

@@ -15,8 +15,7 @@ depend on T, on activations (T, N, L, C) with the channels last: every
 member's convolution is ``ops.conv1d.fleet_conv1d`` (on the card the
 hand-written kernels of ``ops/csrc/conv1d.cu``, one launch a layer for all
 members; cuDNN runs a grouped convolution as one set of kernels a group, so
-its launches grow with T; ``benchmarks/vae_step_profile.py --fleet --route``
-reads that form and the ``torch.func.vmap`` one beside this), the dense
+its launches grow with T), the dense
 layers are batched products, BatchNorm and the ReLU after it are
 ``ops.masked_bn.masked_bn_relu`` (on the card the hand-written kernels of
 ``ops/csrc/masked_bn.cu``).  Every member sees only
@@ -53,7 +52,7 @@ ENCODERS = {"micro": ("micro_c1", "micro_b1", "micro_c2", "micro_b2",
 #: bn_relu, pool, resize, dense; loss, backward, optimizer) and after the
 #: convolutions' backward (conv_backward, inside backward), so a profile
 #: of a step reads its device time by layer
-#: (``benchmarks/vae_step_profile.py --fleet`` sets it); off, no range is opened
+#: (``benchmarks/vae_step_profile.py`` sets it); off, no range is opened
 LAYER_RANGES = False
 
 

@@ -44,8 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import count_launch, load
-from .sr_adam import (CLOCK_HZ, ISSUE_LANES, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS,
-                      SM_COUNT, consts)
+from ..utils.cost_model import kernel_bound_ms
+from .sr_adam import consts
 
 THREADS = 256                  # csrc/adam.cu: THREADS (a tile's logical lanes)
 TILE_ROWS, TILE_COLS = 32, 64  # csrc/adam.cu: TILE_R, TILE_C
@@ -456,21 +456,13 @@ for _w in WRAPPERS:
     _w.captured = 0
 
 
-def _ms(t_bytes: float, t_ops: float, t_issue: float) -> dict:
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "issue_bound_ms": 1e3 * max(t_bytes, t_issue)}
-
-
 def adam_bound_ms(elements: int) -> dict:
-    """Least time of the update over ``elements`` on an H100 SXM: the larger
-    of 28 bytes an element over 3.35 TB/s and 16 FP32 operations over 67
-    TFLOP/s (``bound_by`` says which), and the issue bound, the larger of
-    the same bytes and the least instruction count over 132 SMs x 128 lanes
-    x the clock."""
-    return _ms(UPDATE_BYTES_PER_ELEMENT * elements / PEAK_BYTES_PER_S,
-               UPDATE_OPS_PER_ELEMENT * elements / PEAK_FP32_FLOPS,
-               UPDATE_MIN_INSTRUCTIONS * elements / (SM_COUNT * ISSUE_LANES * CLOCK_HZ))
+    """Least time of the update over ``elements`` on the card
+    (``utils.cost_model.kernel_bound_ms``): 28 bytes, 16 FP32 operations and
+    the least instruction count an element."""
+    return kernel_bound_ms(UPDATE_BYTES_PER_ELEMENT * elements,
+                           UPDATE_OPS_PER_ELEMENT * elements,
+                           UPDATE_MIN_INSTRUCTIONS * elements)
 
 
 def norm_bytes(grads: Sequence[torch.Tensor], dsts: Sequence[Optional[torch.Tensor]]
@@ -484,11 +476,9 @@ def norm_bytes(grads: Sequence[torch.Tensor], dsts: Sequence[Optional[torch.Tens
 
 def norm_bound_ms(grads: Sequence[torch.Tensor],
                   dsts: Sequence[Optional[torch.Tensor]]) -> dict:
-    """Least time of ``grad_sq_norm`` on these arguments on an H100 SXM:
-    ``norm_bytes`` over 3.35 TB/s against a square and an add an element
-    over 67 TFLOP/s; the issue bound counts the same two, a load and a
-    store an element."""
+    """Least time of ``grad_sq_norm`` on these arguments on the card
+    (``utils.cost_model.kernel_bound_ms``): ``norm_bytes``, a square and an
+    add an element, and for the issue the same two, a load and a store."""
     elements = sum(x.numel() for x in grads)
-    return _ms(norm_bytes(grads, dsts) / PEAK_BYTES_PER_S,
-               NORM_OPS_PER_ELEMENT * elements / PEAK_FP32_FLOPS,
-               (NORM_OPS_PER_ELEMENT + 2) * elements / (SM_COUNT * ISSUE_LANES * CLOCK_HZ))
+    return kernel_bound_ms(norm_bytes(grads, dsts), NORM_OPS_PER_ELEMENT * elements,
+                           (NORM_OPS_PER_ELEMENT + 2) * elements)

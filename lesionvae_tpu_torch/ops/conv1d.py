@@ -66,7 +66,7 @@ VECTOR_BYTES = 16               # csrc/conv1d.cu: a staging thread's load
 # smaller ones, each with half the outputs of the one before
 F32_CHANNELS, F32_FULL_ROWS, F32_FULL_THREADS = 8, 4, 256
 F32_SMALL_TILES = ((16, 2, 256), (16, 1, 256), (16, 1, 128), (16, 1, 64), (16, 1, 32))
-SMS = 132                       # the H100's SMs
+SMS = 132                       # csrc/conv1d.cu: SMS, the card's (cost_model.H100_SMS)
 
 
 # ------------------------------------------------------------ plain version

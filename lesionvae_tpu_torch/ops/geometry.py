@@ -39,6 +39,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils.cost_model import kernel_bound_ms
 from .cuda_build import load
 
 METRIC_NAMES = (
@@ -367,12 +368,6 @@ def streamline_metrics_stacked_u16_plain(codes, p0, lo, sc, lengths,
 # ------------------------------------------------------------ the kernel
 # CUDA's opt-in limit of dynamic shared memory a block on an H100
 _MAX_SHARED = 232448
-# the card, for ``bound_ms`` and ``issue_bound_ms``: NVIDIA H100 SXM data
-# sheet, HBM3 and FP32 outside the tensor cores; 132 SMs of 4 schedulers,
-# each issuing one warp instruction (32 lanes) a cycle at 1.98 GHz boost
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_LANE_INSTRUCTIONS_PER_S = 132 * 4 * 1.98e9 * 32
 # FP32 operations of the formula, counted in csrc/geometry.cu with a
 # quotient, a root or an arc cosine as one: a real point takes 96 in pass 1
 # (segment 30, derivatives and curvature 42, torsion 19, sums and bbox 5...)
@@ -402,13 +397,15 @@ OPS_PER_POINT, OPS_PER_POINT_U16, OPS_PER_STREAMLINE = 136, 148, 200
 ISSUE_PER_POINT, ISSUE_PER_POINT_U16, ISSUE_PER_STREAMLINE = 181, 196, 550
 
 
-def bound_ms(lengths, P: int, u16: bool = False) -> tuple[float, str]:
+def bound_ms(lengths, P: int, u16: bool = False) -> dict:
     """Least time for one launch over a chunk with these ``lengths`` (its
-    streamlines' real point counts) at ``P`` points, on an H100 SXM: the
-    larger of the bytes it must move (each real point once: 12 bytes, or in
-    u16 mode 6 a delta and 36 a streamline; 4 bytes of length and 19 x 4 of
-    output a streamline) over 3.35 TB/s and its FP32 operations over
-    67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    streamlines' real point counts) at ``P`` points, on the card
+    (``utils.cost_model.kernel_bound_ms``): the bytes it must move (each
+    real point once: 12 bytes, or in u16 mode 6 a delta and 36 a
+    streamline; 4 bytes of length and 19 x 4 of output a streamline), its
+    FP32 operations (``OPS_PER_POINT``...) and its least instructions
+    (``ISSUE_PER_POINT``... a real point, ``ISSUE_PER_STREAMLINE`` a
+    streamline).  Pad points count nothing."""
     n = np.clip(np.asarray(lengths, np.int64), 1, P)
     S, points = len(n), int(n.sum())
     if u16:
@@ -417,20 +414,9 @@ def bound_ms(lengths, P: int, u16: bool = False) -> tuple[float, str]:
         nbytes = 12 * points
     nbytes += (4 + 4 * len(STACKED_NAMES)) * S
     ops = (OPS_PER_POINT_U16 if u16 else OPS_PER_POINT) * points + OPS_PER_STREAMLINE * S
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
-
-
-def issue_bound_ms(lengths, P: int, u16: bool = False) -> float:
-    """Least time for the card to issue the instructions of one launch over
-    a chunk with these ``lengths`` at ``P`` points: ``ISSUE_PER_POINT`` (or
-    ``ISSUE_PER_POINT_U16``) a real point and ``ISSUE_PER_STREAMLINE`` a
-    streamline, over 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz.  Pad
-    points count nothing."""
-    n = np.clip(np.asarray(lengths, np.int64), 1, P)
-    per_point = ISSUE_PER_POINT_U16 if u16 else ISSUE_PER_POINT
-    work = per_point * int(n.sum()) + ISSUE_PER_STREAMLINE * len(n)
-    return 1e3 * work / PEAK_LANE_INSTRUCTIONS_PER_S
+    issue = (ISSUE_PER_POINT_U16 if u16 else ISSUE_PER_POINT) * points \
+        + ISSUE_PER_STREAMLINE * S
+    return kernel_bound_ms(nbytes, ops, issue)
 
 
 def stream_floats(P: int, lanes: int) -> int:

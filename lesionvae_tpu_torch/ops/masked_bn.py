@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.cost_model import kernel_bound_ms, masked_bn_bytes
 from .cuda_build import count_launch, load
 
 LANES, ROWS_A_LANE = 32, 8     # csrc/masked_bn.cu: LANES, J (the order of the sums)
@@ -523,30 +524,19 @@ for _w in WRAPPERS:
 
 def bound_ms(T: int, batch_size: int = 64, seq_len: int = 100,
              compute_dtype: Optional[torch.dtype] = None) -> dict:
-    """The least time of the fleet step's seven BatchNorm + ReLU layers on an
-    H100 SXM, forward (training) and backward: the larger of the bytes of
-    ``utils.cost_model.masked_bn_bytes`` over 3.35 TB/s and the FP32
-    operations over 67 TFLOP/s (``bound_by`` says which), and the issue
-    bound, the larger of the same bytes and the least instruction count
-    over 132 SMs x 128 lanes x the clock."""
-    from ..utils.cost_model import masked_bn_bytes
-    from .sr_adam import CLOCK_HZ, ISSUE_LANES, PEAK_FP32_FLOPS, SM_COUNT
-
+    """The least time of the fleet step's seven BatchNorm + ReLU layers on the
+    card, forward (training) and backward, each
+    ``utils.cost_model.kernel_bound_ms`` of the bytes of
+    ``utils.cost_model.masked_bn_bytes`` and the FP32 operations and least
+    instructions an element."""
     cost = masked_bn_bytes(T, batch_size, seq_len, compute_dtype)
     n = cost["elements"]
     bf16 = compute_dtype == torch.bfloat16
     instr = {"forward": MIN_INSTRUCTIONS["stats0"] + MIN_INSTRUCTIONS["stats1"]
              + MIN_INSTRUCTIONS["apply_bf16" if bf16 else "apply"],
              "backward": MIN_INSTRUCTIONS["grad_sums"] + MIN_INSTRUCTIONS["grad_apply"]}
-    out = {}
-    for part, ops in (("forward", OPS_FORWARD), ("backward", OPS_BACKWARD)):
-        t_bytes = cost[f"{part}_ms"]
-        t_ops = 1e3 * ops * n / PEAK_FP32_FLOPS
-        t_issue = 1e3 * instr[part] * n / (SM_COUNT * ISSUE_LANES * CLOCK_HZ)
-        out[part] = {"bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                     "issue_bound_ms": max(t_bytes, t_issue)}
-    return out
+    return {part: kernel_bound_ms(cost[f"{part}_bytes"], ops * n, instr[part] * n)
+            for part, ops in (("forward", OPS_FORWARD), ("backward", OPS_BACKWARD))}
 
 
 # ------------------------------------------------------------ autograd

@@ -36,17 +36,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils.cost_model import kernel_bound_ms
 from .cuda_build import count_launch, load
 
 MASK32 = 0xFFFFFFFF
 BF16_MAX = 3.3895313892515355e38
 VEC = 8                   # bf16 per 16-byte load: rows start on such a boundary
-# the card, for ``bound_ms``: NVIDIA H100 SXM data sheet, HBM3 and FP32
-# outside the tensor cores; 132 SMs issue 128 lanes a clock each
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-SM_COUNT, ISSUE_LANES = 132, 128
-CLOCK_HZ = PEAK_FP32_FLOPS / (SM_COUNT * ISSUE_LANES * 2)
 # device-memory traffic: p, m, v read and written (6 x 2) and g read (2).
 # The 4-byte word of the index table an element is not counted: the members
 # share one table (11 MB at full width), which comes from device memory once
@@ -231,16 +226,10 @@ sr_adam_step.launches = 0
 sr_adam_step.captured = 0
 
 
-def bound_ms(elements: int) -> Tuple[float, str, float]:
-    """Least time for one step over ``elements`` on an H100 SXM, twice:
-    nominal, the larger of 14 bytes an element (p, m, v, g; the shared index
-    table is left out) over 3.35 TB/s and 24 FP32
-    operations over 67 TFLOP/s; and issue, the larger of the same bytes and
-    the least instruction count over 132 SMs x 128 lanes x the clock.
-    Returns (nominal ms, "bytes" or "operations", issue ms)."""
-    t_bytes = BYTES_PER_ELEMENT * elements / PEAK_BYTES_PER_S
-    t_ops = OPS_PER_ELEMENT * elements / PEAK_FP32_FLOPS
-    t_issue = (MIN_INSTRUCTIONS_PER_ELEMENT * elements
-               / (SM_COUNT * ISSUE_LANES * CLOCK_HZ))
-    return (1e3 * max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes",
-            1e3 * max(t_bytes, t_issue))
+def bound_ms(elements: int) -> dict:
+    """Least time for one step over ``elements`` on the card
+    (``utils.cost_model.kernel_bound_ms``): 14 bytes an element (p, m, v,
+    g; the shared index table is left out), 24 FP32 operations and the
+    least instruction count an element."""
+    return kernel_bound_ms(BYTES_PER_ELEMENT * elements, OPS_PER_ELEMENT * elements,
+                           MIN_INSTRUCTIONS_PER_ELEMENT * elements)

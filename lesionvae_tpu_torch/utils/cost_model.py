@@ -19,10 +19,13 @@ smaller kernels and writes more intermediates than that.
 - **FLOPs**: matrix and convolution MACs x 2 (forward) x 3 (forward +
   backward).
 
-Peaks: one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data sheet
+The card: one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data sheet
 (dense, no sparsity), not readings: 3.35 TB/s of HBM3, 989 TFLOP/s in bf16,
 67 TFLOP/s in float32 outside the tensor cores (the port computes float32
-with TF32 off).  The key names are the JAX package's.
+with TF32 off), 132 SMs, each issuing 128 FP32 lanes and 16 special-function
+lanes a clock at the 1.98 GHz boost clock.  This module is the one place
+that holds them: every kernel's least time is ``kernel_bound_ms`` over the
+kernel's own counts.  The key names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,11 +37,46 @@ import torch
 H100_HBM_GBPS = 3350.0
 H100_BF16_TFLOPS = 989.0
 H100_FP32_TFLOPS = 67.0
+H100_SMS = 132
+H100_ISSUE_LANES = 128     # FP32 lanes an SM issues a clock: 4 schedulers x 32
+H100_SFU_LANES = 16        # special-function lanes an SM a clock
+H100_CLOCK_GHZ = 1.98      # boost clock
 
 
 def peak_tflops(compute_dtype: Optional[torch.dtype]) -> float:
     """The card's peak for the step's matrix products."""
     return H100_BF16_TFLOPS if compute_dtype == torch.bfloat16 else H100_FP32_TFLOPS
+
+
+def _bytes_ms(nbytes: float) -> float:
+    return 1e3 * nbytes / (H100_HBM_GBPS * 1e9)
+
+
+def _ops_ms(ops: float, compute_dtype: Optional[torch.dtype] = None) -> float:
+    return 1e3 * ops / (peak_tflops(compute_dtype) * 1e12)
+
+
+def kernel_bound_ms(nbytes: float, ops: float, instructions: Optional[float] = None,
+                    special: float = 0.0,
+                    compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """The least time of a kernel's work on the card, from the kernel's own
+    counts: ``nbytes`` of device memory, ``ops`` operations (FP32, or the
+    compute dtype's), and where the kernel has them its least
+    ``instructions`` (a lane's issue slot each) and ``special``-function
+    operations.  ``bound_ms``: the larger of the bytes over the bandwidth
+    and the operations over the peak, ``bound_by`` the larger ("bytes" on a
+    tie).  ``issue_bound_ms``: the larger of the same bytes, the special
+    operations over SMs x 16 lanes x the clock and the instructions over
+    SMs x 128 lanes x the clock; None without an instruction count."""
+    t_bytes, t_ops = _bytes_ms(nbytes), _ops_ms(ops, compute_dtype)
+    issue = None
+    if instructions is not None:
+        clock = H100_CLOCK_GHZ * 1e9
+        issue = max(t_bytes, 1e3 * special / (H100_SMS * H100_SFU_LANES * clock),
+                    1e3 * instructions / (H100_SMS * H100_ISSUE_LANES * clock))
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "issue_bound_ms": issue}
 
 
 def _param_bytes(seq_len, micro_ch, lesion_ch, latent, store_dtype):
@@ -163,9 +201,8 @@ def masked_bn_bytes(T: int, batch_size: int = 64, seq_len: int = 100,
                         "forward_bytes": 2 * item * n, "backward_bytes": 3 * item * n}
     out = {key: sum(v[key] for v in layers.values())
            for key in ("elements", "forward_bytes", "backward_bytes")}
-    rate = H100_HBM_GBPS * 1e9
-    return {"layers": layers, **out, "forward_ms": 1e3 * out["forward_bytes"] / rate,
-            "backward_ms": 1e3 * out["backward_bytes"] / rate}
+    return {"layers": layers, **out, "forward_ms": _bytes_ms(out["forward_bytes"]),
+            "backward_ms": _bytes_ms(out["backward_bytes"])}
 
 
 def conv_layers(seq_len: int = 100, micro_ch: int = 13, lesion_ch: int = 3) -> dict:
@@ -221,23 +258,19 @@ def conv_bytes(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: int =
 def conv_bound_ms(T: int, batch_size: int = 64, seq_len: int = 100, micro_ch: int = 13,
                   lesion_ch: int = 3, compute_dtype: Optional[torch.dtype] = None) -> dict:
     """The least time of the step's convolutions on an H100 SXM: each layer's
-    pass the larger of its bytes (``conv_bytes``) over 3.35 TB/s and its
-    FLOPs (``conv_flops``) over the compute dtype's peak (``peak_tflops``);
-    by layer and pass, summed by pass, ``bound_ms`` over every pass, and
-    ``bound_by`` the term that is larger in the sum."""
+    pass ``kernel_bound_ms`` of its bytes (``conv_bytes``) and its FLOPs
+    (``conv_flops``) at the compute dtype's peak; by layer and pass, summed
+    by pass, ``bound_ms`` over every pass, the two terms summed over every
+    pass (``flops_ms``, ``bytes_ms``) and ``bound_by`` the larger."""
     flops = conv_flops(T, batch_size, seq_len, micro_ch, lesion_ch)
     nbytes = conv_bytes(T, batch_size, seq_len, micro_ch, lesion_ch, compute_dtype)
-    peak, rate = peak_tflops(compute_dtype) * 1e12, H100_HBM_GBPS * 1e9
-    layers, t_ops, t_bytes = {}, 0.0, 0.0
-    for name in flops["layers"]:
-        layers[name] = {}
-        for p in CONV_PASSES:
-            f_ms = 1e3 * flops["layers"][name][p] / peak
-            b_ms = 1e3 * nbytes["layers"][name][p] / rate
-            layers[name][p] = max(f_ms, b_ms)
-            t_ops += f_ms
-            t_bytes += b_ms
+    layers = {name: {p: kernel_bound_ms(nbytes["layers"][name][p], f[p],
+                                        compute_dtype=compute_dtype)["bound_ms"]
+                     for p in CONV_PASSES}
+              for name, f in flops["layers"].items()}
     out = {p: sum(v[p] for v in layers.values()) for p in CONV_PASSES}
     return {"layers": layers, **out, "bound_ms": sum(out.values()),
-            "flops_ms": t_ops, "bytes_ms": t_bytes,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+            "flops_ms": _ops_ms(flops["total"], compute_dtype),
+            "bytes_ms": _bytes_ms(nbytes["total"]),
+            "bound_by": kernel_bound_ms(nbytes["total"], flops["total"],
+                                        compute_dtype=compute_dtype)["bound_by"]}

@@ -202,6 +202,7 @@ def test_kernel_source_holds_the_same_constants_and_geometry():
                         ("SMS", conv1d.SMS), ("F32_THREADS", conv1d.F32_FULL_THREADS),
                         ("F32_TM", conv1d.F32_FULL_ROWS), ("F32_TN", conv1d.F32_CHANNELS)):
         assert _cu_constant(name) == value, name
+    assert conv1d.SMS == tcm.H100_SMS
     assert "int fwd_bn(int cout) { return cout <= 16 ? 16 : (cout <= 32 ? 32 : 64); }" in _CU
     assert [conv1d.fwd_tile(c) for c in (1, 16, 17, 32, 33, 640)] == [16, 16, 32, 32, 64, 64]
     full = tuple((c, conv1d.F32_FULL_ROWS, conv1d.F32_FULL_THREADS) for c in (16, 32, 64))

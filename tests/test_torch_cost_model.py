@@ -99,8 +99,117 @@ def test_optimizer_bytes_of_the_two_kernels(store, item):
         assert bound["bound_by"] == "bytes"
         assert bound["bound_ms"] == pytest.approx(1e3 * got["update_weights"] / 3.35e12)
         assert bound["bound_ms"] == pytest.approx(1.4663, abs=1e-4)
-        assert adam.norm_bound_ms(grads, grads)["bound_ms"] == pytest.approx(
-            1e3 * got["grad_sq_norm"] / 3.35e12)
+        # 35 instructions an element at 132 SMs x 128 lanes x 1.98 GHz issue
+        # in 0.18 ms: the bytes set the issue bound too
+        assert 1e3 * 35 * 64 * w / (132 * 128 * 1.98e9) == pytest.approx(0.1835, abs=1e-4)
+        assert bound["issue_bound_ms"] == bound["bound_ms"]
+        norm = adam.norm_bound_ms(grads, grads)
+        assert norm["bound_ms"] == pytest.approx(1e3 * got["grad_sq_norm"] / 3.35e12)
+        assert norm["issue_bound_ms"] == norm["bound_ms"]
+
+
+# the H100 SXM data sheet's figures, written out: HBM3 bytes/s, FP32 and bf16
+# FLOP/s, SMs, FP32 and special-function lanes an SM a clock, boost clock
+HBM, FP32, BF16, SMS, LANES, SFU, CLOCK = 3.35e12, 67e12, 989e12, 132, 128, 16, 1.98e9
+
+
+def _formula(nbytes, ops, instructions=None, special=0.0, peak=FP32):
+    """max(bytes / bandwidth, operations / peak) and the issue bound,
+    max(bytes / bandwidth, special / (SMs x 16 x clock), instructions /
+    (SMs x 128 x clock)), in ms."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM, 1e3 * ops / peak
+    issue = None if instructions is None else max(
+        t_bytes, 1e3 * special / (SMS * SFU * CLOCK),
+        1e3 * instructions / (SMS * LANES * CLOCK))
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), issue
+
+
+def test_the_card_is_the_data_sheet():
+    assert (tcm.H100_HBM_GBPS * 1e9, tcm.H100_FP32_TFLOPS * 1e12,
+            tcm.H100_BF16_TFLOPS * 1e12) == (HBM, FP32, BF16)
+    assert (tcm.H100_SMS, tcm.H100_ISSUE_LANES, tcm.H100_SFU_LANES,
+            tcm.H100_CLOCK_GHZ * 1e9) == (SMS, LANES, SFU, CLOCK)
+    # a tie goes to the bytes; no instruction count, no issue bound
+    assert tcm.kernel_bound_ms(HBM, FP32) == {"bound_ms": 1e3, "bound_by": "bytes",
+                                              "issue_bound_ms": None}
+    assert tcm.kernel_bound_ms(HBM, FP32 * 1.001)["bound_by"] == "operations"
+
+
+def _kernel_cases():
+    """{kernel: (its module's bound, [(bytes, operations, instructions,
+    special, peak)] from the kernel's own counts)} at the paths' shapes."""
+    from lesionvae_tpu_torch.benchmarks import opt_probe
+    from lesionvae_tpu_torch.models.fleet import layout
+    from lesionvae_tpu_torch.ops import adam, geometry, masked_bn, sr_adam
+
+    el = 64 * 2_741_153
+    lay = layout(100, 13, 3, 10)
+    grads = [torch.empty((64, *shape), device="meta") for _w, _o, shape in lay.leaves.values()]
+    g_el = sum(g.numel() for g in grads)
+    bn = tcm.masked_bn_bytes(64)
+    ins = masked_bn.MIN_INSTRUCTIONS
+    bn_instr = {"forward": ins["stats0"] + ins["stats1"] + ins["apply"],
+                "backward": ins["grad_sums"] + ins["grad_apply"]}
+    lens = np.random.default_rng(64).integers(3, 65, size=4096)
+    S, points = len(lens), int(lens.sum())
+    out = {
+        "adam_update": (adam.adam_bound_ms(el), [(
+            adam.UPDATE_BYTES_PER_ELEMENT * el, adam.UPDATE_OPS_PER_ELEMENT * el,
+            adam.UPDATE_MIN_INSTRUCTIONS * el, 0, FP32)]),
+        "adam_norm": (adam.norm_bound_ms(grads, grads), [(
+            2 * 4 * g_el, adam.NORM_OPS_PER_ELEMENT * g_el,
+            (adam.NORM_OPS_PER_ELEMENT + 2) * g_el, 0, FP32)]),
+        "sr_adam": (sr_adam.bound_ms(el), [(
+            sr_adam.BYTES_PER_ELEMENT * el, sr_adam.OPS_PER_ELEMENT * el,
+            sr_adam.MIN_INSTRUCTIONS_PER_ELEMENT * el, 0, FP32)]),
+        "geometry_f32": (geometry.bound_ms(lens, 64), [(
+            12 * points + 80 * S,
+            geometry.OPS_PER_POINT * points + geometry.OPS_PER_STREAMLINE * S,
+            geometry.ISSUE_PER_POINT * points + geometry.ISSUE_PER_STREAMLINE * S, 0, FP32)]),
+        "geometry_u16": (geometry.bound_ms(lens, 64, u16=True), [(
+            6 * (points - S) + 36 * S + 80 * S,
+            geometry.OPS_PER_POINT_U16 * points + geometry.OPS_PER_STREAMLINE * S,
+            geometry.ISSUE_PER_POINT_U16 * points + geometry.ISSUE_PER_STREAMLINE * S,
+            0, FP32)]),
+        "opt_probe_k30": (opt_probe.bound_ms(64 * 2867200, 30), [(
+            opt_probe.BYTES_PER_ELEMENT * 64 * 2867200,
+            opt_probe.OPS_PER_ELEMENT_STEP * 64 * 2867200 * 30,
+            opt_probe.MIN_INSTRUCTIONS_PER_ELEMENT_STEP["ieee"] * 64 * 2867200 * 30,
+            opt_probe.SFU_PER_ELEMENT_STEP["ieee"] * 64 * 2867200 * 30, FP32)]),
+    }
+    for part, ops in (("forward", masked_bn.OPS_FORWARD), ("backward", masked_bn.OPS_BACKWARD)):
+        out[f"masked_bn_{part}"] = (masked_bn.bound_ms(64)[part], [(
+            bn[f"{part}_bytes"], ops * bn["elements"], bn_instr[part] * bn["elements"], 0,
+            FP32)])
+    for dt, peak in (("f32", FP32), ("bf16", BF16)):
+        dtype = DTYPES[dt][0] if dt == "bf16" else None
+        flops, nbytes = tcm.conv_flops(64), tcm.conv_bytes(64, compute_dtype=dtype)
+        out[f"conv_{dt}"] = (tcm.conv_bound_ms(64, compute_dtype=dtype), [
+            (nbytes["layers"][name][p], flops["layers"][name][p], None, 0, peak)
+            for name in flops["layers"] for p in tcm.CONV_PASSES])
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["adam_update", "adam_norm", "sr_adam", "masked_bn_forward",
+                                    "masked_bn_backward", "geometry_f32", "geometry_u16",
+                                    "conv_f32", "conv_bf16", "opt_probe_k30"])
+def test_kernel_bounds_are_the_one_formula(kernel):
+    """Every kernel module's bound is the data sheet's formula over that
+    kernel's own counts: a dict of the nominal bound, what sets it and the
+    issue bound (the convolutions: summed over their layers' passes)."""
+    got, counts = _kernel_cases()[kernel]
+    want = [_formula(b, o, i, s, peak) for b, o, i, s, peak in counts]
+    assert got["bound_ms"] == pytest.approx(sum(w[0] for w in want), rel=1e-12)
+    if len(want) == 1:
+        assert set(got) == {"bound_ms", "bound_by", "issue_bound_ms"}
+        assert got["bound_by"] == want[0][1]
+        assert got["issue_bound_ms"] == pytest.approx(want[0][2], rel=1e-12)
+    else:
+        f_ms = sum(1e3 * o / peak for _b, o, _i, _s, peak in counts)
+        b_ms = sum(1e3 * b / HBM for b, *_rest in counts)
+        assert (got["flops_ms"], got["bytes_ms"]) == (pytest.approx(f_ms, rel=1e-12),
+                                                      pytest.approx(b_ms, rel=1e-12))
+        assert got["bound_by"] == ("operations" if f_ms > b_ms else "bytes")
 
 
 def _cohort(T=4, n=16, L=8):

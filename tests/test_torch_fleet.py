@@ -7,6 +7,7 @@ bf16 compute and storage options."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,9 @@ from lesionvae_tpu.models import layers as jlayers
 from lesionvae_tpu.train import batched as jb
 from lesionvae_tpu.train import data as jdata
 from lesionvae_tpu_torch.models import layers as tlayers
+from lesionvae_tpu_torch.models import fleet
 from lesionvae_tpu_torch.models.convert import from_jax_params
+from lesionvae_tpu_torch.models.elbo import elbo
 from lesionvae_tpu_torch.models.fleet import FleetState, layout
 from lesionvae_tpu_torch.models.lesion_vae import LesionConditionedVAE
 from lesionvae_tpu_torch.ops import masked_bn
@@ -225,15 +228,52 @@ def test_fleet_member_equals_member_trained_alone_f64():
         assert float((alone.fc_dec.weight - sds[i]["fc_dec.weight"]).abs().max()) > 1e-3
 
 
+def conv_grouped(h: torch.Tensor, leaves, name: str, cd, transpose=False
+                 ) -> torch.Tensor:
+    """``models.fleet._conv`` as one convolution with a group a member: the
+    members' channels side by side, (N, T*C_in, L), and their kernels
+    stacked, (T*C_out, C_in, k)."""
+    w = fleet._widen(leaves[f"{name}.weight"], cd)
+    b = fleet._widen(leaves[f"{name}.bias"], cd)
+    T, N, L, C = h.shape
+    if transpose:
+        # (T, in, out, k) -> (T, out, in, k), reversed along k
+        w = w.flip(3).transpose(1, 2)
+    assert w.shape[3] == tlayers.KERNEL
+    x = h.permute(1, 0, 3, 2).reshape(N, T * C, L)
+    y = F.conv1d(x, w.reshape(-1, C, tlayers.KERNEL), b.reshape(-1),
+                 padding=tlayers.PADDING, groups=T)
+    return y.view(N, T, -1, L).permute(1, 0, 3, 2)
+
+
+def fleet_step_vmap(state: FleetState, opt: LowmemOptimizer,
+                    module: LesionConditionedVAE, xm, xl, mask, eps,
+                    beta: float) -> torch.Tensor:
+    """``train.batched.fleet_step`` with the members batched by
+    ``torch.func.vmap``: ``module`` (in train mode) gives the function of one
+    member; each member's BatchNorm writes its own row of the stacked
+    running statistics.  Returns the members' losses."""
+    from torch.func import functional_call, grad, vmap
+
+    def loss_fn(params, stats, xm, xl, mask, eps):
+        xh, mu, logv = functional_call(module, (params, stats), (xm, xl, mask, eps))
+        loss = elbo(xh, xm, mu, logv, beta, mask)[0]
+        return loss, loss
+
+    params = {name: t.detach() for name, t in state.leaves.items()}
+    grads, loss = vmap(grad(loss_fn, has_aux=True))(params, state.stats, xm, xl,
+                                                    mask, eps)
+    opt.step(grads, torch.isfinite(loss))
+    return loss
+
+
 @pytest.mark.parametrize("route", ["grouped", "vmap"])
 def test_other_ways_to_batch_the_members_agree_f64(route, monkeypatch):
-    """The two routes ``benchmarks/vae_step_profile.py --fleet --route`` reads
-    beside the package's batched products, grouped convolutions and
-    ``torch.func.vmap`` of the single member's gradient, take the same three
-    steps: weights and BatchNorm statistics to 1e-11 in float64."""
-    from lesionvae_tpu_torch.benchmarks import vae_step_profile as prof
-    from lesionvae_tpu_torch.models import fleet
-
+    """Two independent ways to batch the members beside the package's
+    kernels, grouped convolutions (``conv_grouped``) and ``torch.func.vmap``
+    of the single member's gradient (``fleet_step_vmap``), take the same
+    three steps as ``fleet_step``: weights and BatchNorm statistics to 1e-11
+    in float64."""
     T, B = 3, 8
     Xm, Xl, _n, sds, _p, noise = _fleet_inputs(T=T, B=B)
     lay = layout(**HYPER)
@@ -252,11 +292,11 @@ def test_other_ways_to_batch_the_members_agree_f64(route, monkeypatch):
 
     want = three_steps(lambda s, o: tb.fleet_step(s, o, xm, xl, mask, eps, 1.0))
     if route == "grouped":
-        monkeypatch.setattr(fleet, "_conv", prof.conv_grouped)
+        monkeypatch.setattr(fleet, "_conv", conv_grouped)
         got = three_steps(lambda s, o: tb.fleet_step(s, o, xm, xl, mask, eps, 1.0))
     else:
         module = LesionConditionedVAE(**HYPER).double().train()
-        got = three_steps(lambda s, o: prof.fleet_step_vmap(
+        got = three_steps(lambda s, o: fleet_step_vmap(
             s, o, module, xm, xl, mask, eps, 1.0))
     for name, a in {**want.leaves, **want.stats}.items():
         np.testing.assert_allclose({**got.leaves, **got.stats}[name].numpy(),

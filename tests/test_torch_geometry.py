@@ -420,18 +420,25 @@ def test_max_points_is_the_shared_memory_limit():
         tg._check(torch.zeros(1, P + 1, 3), None, None, None, None, n, torch.float32)
 
 
-# the card's issue rate that issue_bound_ms divides by: 132 SMs x 4
+# the card's issue rate that the issue bound divides by: 132 SMs x 4
 # schedulers x 32 lanes x 1.98 GHz = 33.45 T lane-instructions/s
 LANE_RATE = 132 * 4 * 32 * 1.98e9
+
+
+def _issue_ms(lens, P, u16=False):
+    return tg.bound_ms(lens, P, u16=u16)["issue_bound_ms"]
 
 
 @pytest.mark.parametrize("u16,per_point", [(False, 181), (True, 196)])
 def test_issue_bound_hand_worked(u16, per_point):
     """Two streamlines of 10 and 20 real points: 30 x 181 (196 with the
     decode) + 2 x 550 lane-instructions."""
+    from lesionvae_tpu_torch.utils import cost_model
+
     want = 1e3 * (30 * per_point + 2 * 550) / LANE_RATE
-    assert tg.issue_bound_ms([10, 20], 32, u16=u16) == pytest.approx(want, rel=1e-12)
-    assert tg.PEAK_LANE_INSTRUCTIONS_PER_S == pytest.approx(LANE_RATE)
+    assert _issue_ms([10, 20], 32, u16=u16) == pytest.approx(want, rel=1e-12)
+    assert (cost_model.H100_SMS * cost_model.H100_ISSUE_LANES * cost_model.H100_CLOCK_GHZ
+            * 1e9 == pytest.approx(LANE_RATE))
 
 
 @pytest.mark.parametrize("u16", [False, True])
@@ -439,10 +446,10 @@ def test_issue_bound_counts_real_points_only(u16):
     """Padding P counts nothing; lengths clip to [1, P] as the kernel
     clips them."""
     lens = np.array([20, 31, 3, 32])
-    at32 = tg.issue_bound_ms(lens, 32, u16=u16)
-    assert tg.issue_bound_ms(lens, 64, u16=u16) == at32
-    assert tg.issue_bound_ms(lens, 128, u16=u16) == at32
-    assert tg.issue_bound_ms([40, 0], 32, u16=u16) == tg.issue_bound_ms([32, 1], 32, u16=u16)
+    at32 = _issue_ms(lens, 32, u16=u16)
+    assert _issue_ms(lens, 64, u16=u16) == at32
+    assert _issue_ms(lens, 128, u16=u16) == at32
+    assert _issue_ms([40, 0], 32, u16=u16) == _issue_ms([32, 1], 32, u16=u16)
 
 
 @pytest.mark.parametrize("P", [32, 64, 256])
@@ -450,9 +457,9 @@ def test_issue_bound_u16_above_f32(P):
     """The decode adds instructions a point: the u16 bound is the larger,
     and both exceed the byte bound at the path's chunk shape."""
     lens = np.random.default_rng(P).integers(3, P + 1, size=4096)
-    f32, u16 = tg.issue_bound_ms(lens, P), tg.issue_bound_ms(lens, P, u16=True)
+    f32, u16 = _issue_ms(lens, P), _issue_ms(lens, P, u16=True)
     assert u16 > f32
-    assert f32 > tg.bound_ms(lens, P)[0]
+    assert f32 > tg.bound_ms(lens, P)["bound_ms"]
 
 
 def _ring_schedule(n, G):

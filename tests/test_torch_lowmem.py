@@ -260,8 +260,11 @@ def test_sr_adam_step_on_cpu_is_the_plain_version_and_skips_members():
 
 
 def test_sr_adam_bound():
-    nominal, by, issue = sr_adam.bound_ms(64 * 2_741_153)
-    assert by == "bytes" and abs(nominal - 0.7331) < 1e-3 and issue >= nominal
+    bound = sr_adam.bound_ms(64 * 2_741_153)
+    assert bound["bound_by"] == "bytes" and abs(bound["bound_ms"] - 0.7331) < 1e-3
+    # 65.5 instructions an element issue in 0.34 ms at 132 x 128 lanes x 1.98 GHz:
+    # under the bytes
+    assert bound["issue_bound_ms"] == bound["bound_ms"]
     lay = layout(100, 13, 3, 10)
     assert (lay.n_weights, lay.n_affine) == (2_741_153, 1_088)
 

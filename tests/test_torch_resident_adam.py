@@ -376,20 +376,19 @@ def test_probe_check_on_cpu_reports_every_k():
     assert [r["k"] for r in res] == [0, 2]
     assert all(r["within_tol"] and r["share_differing"] == 0.0 for r in res)
     assert all(r["checksum_plain"] == r["checksum_resident"] for r in res)
-    ms, by, issue_ms = opt_probe.bound_ms(64 * 2867200, 30)
-    assert by == "operations" and opt_probe.bound_ms(64 * 2867200, 1)[1] == "bytes"
-    np.testing.assert_allclose(opt_probe.bound_ms(64 * 2867200, 1)[0],
-                               12 * 64 * 2867200 / 3.35e12 * 1e3)
+    k30, k1 = opt_probe.bound_ms(64 * 2867200, 30), opt_probe.bound_ms(64 * 2867200, 1)
+    assert k30["bound_by"] == "operations" and k1["bound_by"] == "bytes"
+    np.testing.assert_allclose(k1["bound_ms"], 12 * 64 * 2867200 / 3.35e12 * 1e3)
     # the issue bound: the instructions of 30 steps over 132 SMs x 128 lanes
     # x 1.98 GHz, above the nominal bound; bytes at K = 1 for both forms
-    np.testing.assert_allclose(issue_ms, 27.5 * 64 * 2867200 * 30
-                               / (132 * 128 * 67e12 / (132 * 128 * 2)) * 1e3)
-    assert issue_ms > ms
+    np.testing.assert_allclose(k30["issue_bound_ms"],
+                               27.5 * 64 * 2867200 * 30 / (132 * 128 * 1.98e9) * 1e3)
+    assert k30["issue_bound_ms"] > k30["bound_ms"]
     for form in opt_probe.FORMS:
-        nominal, _by, issue = opt_probe.bound_ms(64 * 2867200, 1, form)
-        assert issue == nominal == opt_probe.bound_ms(64 * 2867200, 1)[0]
-    assert (opt_probe.bound_ms(64 * 2867200, 30, "fastmath")[2]
-            < opt_probe.bound_ms(64 * 2867200, 30, "ieee")[2])
+        bound = opt_probe.bound_ms(64 * 2867200, 1, form)
+        assert bound["issue_bound_ms"] == bound["bound_ms"] == k1["bound_ms"]
+    assert (opt_probe.bound_ms(64 * 2867200, 30, "fastmath")["issue_bound_ms"]
+            < k30["issue_bound_ms"])
 
 
 def test_probe_check_on_cpu_takes_the_fastmath_form():

@@ -1,5 +1,5 @@
 """The step profile's device time by layer
-(``benchmarks/vae_step_profile.py --fleet``): the layer ranges of
+(``benchmarks/vae_step_profile.py``): the layer ranges of
 ``models.fleet`` and ``train.batched.fleet_step``, and the attribution of
 device events to them, eager and through graph replays, on Chrome traces
 written out here (the card's own traces come only from a chip run)."""
