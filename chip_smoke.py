@@ -126,7 +126,9 @@ Phases; any failure exits non-zero before the result line is printed:
       summary, serving), one member of the fleet and the same member trained
       alone by ``train_module`` (its one-member fleet program) against that
       member trained alone by the module's eager route (``train_loop``) on
-      the card, and a uint16-upload and a bf16-compute run;
+      the card, and a uint16-upload and a bf16-compute run; last, the
+      64 members' initial weights on this host by the native pass and by
+      the plain version, timed, the rows bit-equal (an ``[init]`` line);
    f. the whole pipeline (``all --with-vae --no-plots --device cuda`` through
       ``cli.main``): geometry (100 streamlines a bundle) -> lesion (2000
       directions over the cohort's 48^3 volumes) -> the float32 fleet (64
@@ -3178,6 +3180,40 @@ def start_cohort(root: Path, cfg, pool, profiles: bool):
             for group, sids in cfg.subjects_by_group().items() for sid in sids]
 
 
+def check_init_draws(members: int = 64) -> None:
+    """The cohort fleet's initial weights (``train.batched.draw_init``) on
+    this host, the launch's way (into pinned rows touched before): the
+    native pass (timed three times, a launch's draw each) and the plain loop
+    of torch's init calls (once), the rows bit-equal; one ``[init]`` line
+    with the seconds and the counters of the weights each route drew."""
+    from lesionvae_tpu_torch.models.fleet import layout
+    from lesionvae_tpu_torch.train import batched
+    from lesionvae_tpu_torch.train.program import COUNTS
+
+    lay = layout(100, 13, 3, VAE_LATENT)
+    if batched.init_library() is None:
+        fail("the native pass of the initial weights did not build on this host")
+    keys = ("init_draws_native", "init_draws_plain")
+    before = {k: COUNTS[k] for k in keys}
+    rows, seconds = {}, {"native": [], "plain": []}
+    for route, draw in (("native", batched.draw_init_native),) * 3 + (
+            ("plain", batched.draw_init_plain),):
+        out = torch.empty((members, lay.width), pin_memory=True).fill_(1.0)
+        t0 = time.perf_counter()
+        rows[route] = draw(lay, members, VAE_SEED, out)
+        seconds[route].append(round(time.perf_counter() - t0, 4))
+    same = torch.equal(rows["native"].view(torch.int32), rows["plain"].view(torch.int32))
+    counts = {k: COUNTS[k] - before[k] for k in keys}
+    print(f"[init] members={members} draws={members * lay.n_weights} "
+          f"native_s={seconds['native']} plain_s={seconds['plain']} "
+          f"bit_equal={same} counts={counts}", flush=True)
+    if not same:
+        fail("the native initial weights differ from the plain version's")
+    if counts != {"init_draws_native": 3 * members * lay.n_weights,
+                  "init_draws_plain": members * lay.n_weights}:
+        fail(f"init counters {counts}")
+
+
 def run_vae_paths(root: Path, cfg) -> tuple:
     """Paths 3d and 3e over the profiles cohort under ``root``; returns the
     SR Adam kernel's launches on the cohort path, the masked BatchNorm
@@ -3191,6 +3227,7 @@ def run_vae_paths(root: Path, cfg) -> tuple:
     with phase("3e_vae_cohort"):
         sr, bn, bn_a_step, cohort, conv = check_cohort_cli(root, cfg, common)
         check_cohort_against_cpu(root, cfg)
+        check_init_draws()
     torch.cuda.empty_cache()
     bn = {"vae": single["masked_bn"], **bn}
     conv = {"vae": single["conv1d"], **conv}

@@ -1,10 +1,13 @@
-"""Build the package's CUDA C++ sources into C-ABI shared libraries.
+"""Build the package's C++ sources into C-ABI shared libraries.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 ``lesionvae_tpu_torch/_build/lib<name>_<hash>.so`` at first use and is loaded
 with ``ctypes``.  The file name carries a hash of the source, so an edited
 kernel is rebuilt and a stale library is never loaded.  Nothing here runs at
 import time: the CPU tests import every module on hosts without ``nvcc``.
+The host sources (``csrc/<name>.cpp``, ``HOST_SOURCES``) build the same way
+with the host's C++ compiler, their hash taking the machine's architecture
+too; ``load_host`` gives None where they cannot be built.
 
 ``sass(name)`` disassembles a built library with the toolkit's ``cuobjdump``
 and ``inner_loops(text, unit)`` counts, per kernel function, the instructions
@@ -18,11 +21,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import re
+import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..utils.logging import get_logger
 
@@ -42,10 +47,27 @@ SOURCES = ("radius", "resident_adam", "sr_adam", "geometry", "masked_bn", "adam"
 # within a tolerance, as FMA-built products are)
 EXTRA_FLAGS = {"geometry": ["--fmad=false"], "masked_bn": ["--fmad=false"],
                "adam": ["--fmad=false"]}
+#: the host sources of csrc/ (``<name>.cpp``): the fleet's initial-weight
+#: draws (``train.batched.draw_init``), built with no FMA contraction
+HOST_SOURCES = ("init_draws",)
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 
 def flags(name: str) -> List[str]:
+    if name in HOST_SOURCES:
+        return HOST_FLAGS
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def _source(name: str) -> Path:
+    return CSRC / f"{name}.{'cpp' if name in HOST_SOURCES else 'cu'}"
+
+
+def _cxx() -> str:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) on the PATH")
+    return cxx
 
 
 def _nvcc() -> str:
@@ -58,26 +80,30 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The library's path; its name carries a hash of the source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(flags(name)).encode()).hexdigest()[:12]
+    """The library's path; its name carries a hash of the source and flags
+    (and of the machine's architecture for a host source)."""
+    key = _source(name).read_bytes() + " ".join(flags(name)).encode()
+    if name in HOST_SOURCES:
+        key += platform.machine().encode()
+    digest = hashlib.sha256(key).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:
-    """Compile every library of ``names`` not yet built, one ``nvcc`` per
-    source, all started together.  Returns the wall seconds per name built;
-    raises with the compiler's output if any build fails."""
+    """Compile every library of ``names`` not yet built, one compiler
+    (``nvcc``, or the host's for a host source) per source, all started
+    together.  Returns the wall seconds per name built; raises with the
+    compiler's output if any build fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
+    compilers = {n: _cxx() if n in HOST_SOURCES else _nvcc() for n in todo}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compilers[name], *flags(name), "-o", str(tmp), str(_source(name))]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))
@@ -86,7 +112,8 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         output, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{output}")
+            failed.append(f"{Path(compilers[name]).name} {_source(name).name} failed "
+                          f"({proc.returncode}):\n{output}")
             continue
         os.replace(tmp, library_path(name))
         log.info("built %s in %.1fs\n%s", library_path(name).name,
@@ -98,9 +125,22 @@ def build(names: Sequence[str]) -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built on first use."""
+    """The shared library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> Optional[ctypes.CDLL]:
+    """The library of the host source ``csrc/<name>.cpp``, built on first
+    use; None, with a log line saying why, on a host that cannot build or
+    load it."""
+    try:
+        return load(name)
+    except (RuntimeError, OSError) as e:
+        log.warning("host library %s unavailable: %s", name, e)
+        return None
 
 
 def count_launch(wrapper) -> None:

@@ -21,8 +21,9 @@ the stochastic-rounding salts come from CPU generators seeded from ``seed``
 and move to the device once, so a ``cuda`` and a ``cpu`` run see the same
 numbers; ``perms=``, ``noise=``, ``salts=`` and ``state_dicts=`` inject
 others (the tests pass the JAX package's).  No member exists as a module on
-the host: the initial weights are drawn (``draw_init``, with the calls
-torch's module init makes, bit for bit) or the injected ``state_dicts``
+the host: the initial weights are drawn (``draw_init``: one native pass
+over torch's CPU generator stream, bit for bit the calls torch's module
+init makes) or the injected ``state_dicts``
 stacked into one (T, width) row a member (``models.fleet.Layout``), pinned
 and reused across launches on ``cuda``, and cross to the device as one
 copy; ``FleetHandle.fetch`` builds each member on the device from the
@@ -63,6 +64,8 @@ A chunked launch opens a block's spans once a chunk.  ``fleet_train`` and
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from collections import namedtuple
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -74,6 +77,7 @@ from torch.nn import init
 from ..models.elbo import elbo_fleet
 from ..models.fleet import FleetState, fleet_forward, layer_range, layout
 from ..models.lesion_vae import LesionConditionedVAE, TrainedVAE
+from ..ops import cuda_build
 from ..utils.logging import get_logger
 from ..utils.precision import full_fp32, math_mode
 from ..utils.profiling import span
@@ -422,17 +426,103 @@ class FleetHandle:
     __call__ = fetch
 
 
+@functools.lru_cache(maxsize=16)
+def init_segments(lay) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Where a member's initial-weight draws go in its row, in draw order:
+    (offset, count, lo, hi), one entry a weight leaf, each leaf followed by
+    its bias.  The bounds are those of the calls each layer's
+    ``reset_parameters`` makes (``kaiming_uniform_(a=sqrt(5))``, then the
+    bias ``uniform_`` over its weight's fan-in), worked out by torch's own
+    helpers and cast to float32 as ``uniform_`` casts them."""
+    views = lay.split(torch.empty(lay.width, device="meta"))
+    weights = lay.names("weights")
+    gain = init.calculate_gain("leaky_relu", math.sqrt(5))
+    table = []
+    for w, b in zip(weights[0::2], weights[1::2]):
+        fan_in, _ = init._calculate_fan_in_and_fan_out(views[w])
+        std = gain / math.sqrt(fan_in)
+        bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0
+        for name, limit in ((w, math.sqrt(3.0) * std), (b, bound)):
+            if not views[name].is_contiguous():
+                raise ValueError(f"{name} is not contiguous in a member's row")
+            table.append((views[name].storage_offset(), views[name].numel(), -limit, limit))
+    offset, count, lo, hi = zip(*table)
+    out = (np.array(offset, np.int64), np.array(count, np.int64),
+           np.array(lo, np.float32), np.array(hi, np.float32))
+    for a in out:
+        a.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def init_library() -> Optional[ctypes.CDLL]:
+    """The native pass of ``draw_init`` (``ops/csrc/init_draws.cpp``), built
+    on first use; None on a host that cannot build it."""
+    lib = cuda_build.load_host("init_draws")
+    if lib is not None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.draw_segments.argtypes = [ctypes.c_uint32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64]
+        lib.draw_segments.restype = i64
+    return lib
+
+
+def _init_rows(lay, members: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    rows = torch.empty((members, lay.width)) if out is None else out
+    if (rows.shape != (members, lay.width) or rows.dtype != torch.float32
+            or rows.device.type != "cpu" or rows.stride(1) != 1
+            or (members > 1 and rows.stride(0) < lay.width)):
+        raise ValueError(f"init rows must be ({members}, {lay.width}) float32 on the "
+                         f"CPU with unit stride, got {tuple(rows.shape)} {rows.dtype} "
+                         f"on {rows.device}")
+    return rows
+
+
+def _fill_batchnorm(lay, views: Mapping[str, torch.Tensor]) -> None:
+    """BatchNorm scales and running variances 1, shifts and running means
+    0 (no draws)."""
+    for name in (*lay.names("affine"), *lay.stats):
+        views[name].fill_(1.0 if name.endswith((".weight", ".running_var")) else 0.0)
+
+
 def draw_init(lay, members: int, seed: int,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Initial weights of ``members`` VAEs as (members, ``lay.width``)
-    float32 rows on the CPU (into ``out`` when given), member after member
-    from torch's global generator seeded with ``seed`` inside ``fork_rng``:
-    each convolution and dense layer with the calls its ``reset_parameters``
-    makes, in the module's construction order, so the rows are bit for bit
-    the ``state_dict``s of modules built one after the other, with no module
-    built.  BatchNorm scales and running variances 1, shifts and running
-    means 0 (no draws)."""
-    rows = torch.empty((members, lay.width)) if out is None else out
+    float32 rows on the CPU (into ``out`` when given), bit for bit the
+    ``state_dict``s of modules built one after the other from torch's
+    global generator seeded with ``seed``, with no module built and the
+    global generator left as it was: one native pass over torch's CPU
+    stream (``draw_init_native``), or, on a host that cannot build it, the
+    calls the modules' init makes (``draw_init_plain``)."""
+    if init_library() is None:
+        return draw_init_plain(lay, members, seed, out)
+    return draw_init_native(lay, members, seed, out)
+
+
+def draw_init_native(lay, members: int, seed: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``draw_init`` as one pass of ``ops/csrc/init_draws.cpp``: torch's
+    mt19937 seeded as ``torch.manual_seed(seed)`` seeds it and read through
+    ``uniform_``'s float32 transform, member after member, into the leaves
+    of ``init_segments``; torch's generators are not touched."""
+    rows = _init_rows(lay, members, out)
+    offset, count, lo, hi = init_segments(lay)
+    # the seed as torch's generator takes it (its range checked, a negative
+    # one mapped), of which mt19937 keeps the low 32 bits
+    seed32 = torch.Generator().manual_seed(seed).initial_seed() & 0xFFFFFFFF
+    COUNTS["init_draws_native"] += init_library().draw_segments(
+        seed32, rows.data_ptr(), members, rows.stride(0), offset.ctypes.data,
+        count.ctypes.data, lo.ctypes.data, hi.ctypes.data, len(offset))
+    _fill_batchnorm(lay, lay.split(rows))
+    return rows
+
+
+def draw_init_plain(lay, members: int, seed: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of ``draw_init``: member after member from torch's
+    global generator seeded with ``seed`` inside ``fork_rng``, each
+    convolution and dense layer with the calls its ``reset_parameters``
+    makes, in the module's construction order, one leaf a call."""
+    rows = _init_rows(lay, members, out)
     views = lay.split(rows)
     weights = lay.names("weights")
     with torch.random.fork_rng(devices=[]):
@@ -444,8 +534,8 @@ def draw_init(lay, members: int, seed: int,
                 fan_in, _ = init._calculate_fan_in_and_fan_out(weight)
                 bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0
                 init.uniform_(views[b][i], -bound, bound)
-    for name in (*lay.names("affine"), *lay.stats):
-        views[name].fill_(1.0 if name.endswith((".weight", ".running_var")) else 0.0)
+    COUNTS["init_draws_plain"] += members * lay.n_weights
+    _fill_batchnorm(lay, views)
     return rows
 
 
@@ -617,6 +707,10 @@ def launch_many_vaes(Xm: np.ndarray, Xl: np.ndarray, n_real: np.ndarray,
     if store_dtype not in (None, torch.bfloat16) or compute_dtype not in (
             None, torch.bfloat16):
         raise ValueError("store_dtype and compute_dtype are None or torch.bfloat16")
+    if state_dicts is None and device.type == "cuda" and init_library() is None:
+        raise RuntimeError("a launch to cuda draws its initial weights by the native "
+                           "pass (ops/csrc/init_draws.cpp), which this host cannot "
+                           "build (see the log)")
     T, n_pad, seq_len, micro_ch = Xm.shape
     lesion_ch = Xl.shape[3]
     if (n_pad // batch_size) * batch_size != n_pad:

@@ -24,7 +24,9 @@ the initial weights and statistics, the host draws; counted alike on the
 CPU, where nothing crosses), the ``LesionConditionedVAE`` modules built with
 an init on the CPU (``host_modules``: the single trainer's; a fleet builds
 none) and the fleet members built from the trained state on the device at
-``FleetHandle.fetch`` (``fetched_members``), and the kernels' own counts
+``FleetHandle.fetch`` (``fetched_members``), the initial weights drawn by
+``train.batched.draw_init``'s native pass (``init_draws_native``) and by
+its plain version (``init_draws_plain``), and the kernels' own counts
 (``ops.conv1d.COUNTS``: ``conv_fwd_small_tiles``, the float32 ``conv_fwd``
 launches that took a tile smaller than the full one).  A kernel wrapper or
 count kept with ``ops.cuda_build.count_launch`` adds its launches recorded
@@ -50,9 +52,11 @@ from ..utils.profiling import span
 
 #: captures and replays of epoch graphs, bytes staged from host memory to a
 #: launch's device, modules built with an init on the CPU, fleet members
-#: built from device state, then the kernels' own counts, in this process
+#: built from device state, initial weights drawn by each route of
+#: ``draw_init``, then the kernels' own counts, in this process
 COUNTS = ChainMap({"captures": 0, "replays": 0, "h2d_bytes": 0, "host_modules": 0,
-                   "fetched_members": 0}, conv1d.COUNTS)
+                   "fetched_members": 0, "init_draws_native": 0, "init_draws_plain": 0},
+                  conv1d.COUNTS)
 
 
 def betas(epochs: int):
