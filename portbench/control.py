@@ -1,17 +1,21 @@
 """Readings for the limits of a cell's check, outside any measured window.
 
     python3 -m portbench.control --workload <cell> --program-seeds 1,2,... \
-        [--control-seeds 7,8,9] [--faults tf32,half_batch,frozen,altered]
+        [--control-seeds 7,8,9] [--faults control,half_batch,frozen,altered]
 
 For each program seed: the cell's inputs from that seed, one job of the
 program (after one cold job in the process), and its gaps from the plain
 reference (``Job.readings``), as the benchmark's check reads them: the
 lower readings.  For each control seed and fault: the reference put in the
-program's place, computed in TF32 ("tf32", the precision below the
-configuration's float32) or with a fault planted in float32 ("half_batch":
-half of every batch left out, the means over the rest; "frozen": a step that
+program's place, read the same way: the upper readings.  A fault is
+"control" (the reference in the arithmetic one step below the
+configuration's: TF32 below float32, float8 operands below bfloat16), an
+arithmetic of ``reference.model.MODES`` ("float32", "tf32", "bfloat16",
+"fp8"), or one planted in the configuration's arithmetic ("half_batch": half
+of every batch left out, the means over the rest; "frozen": a step that
 returns the parameters unchanged; "altered": one answer altered where it is
-produced), read the same way: the upper readings.  One JSON line a reading.
+produced; "nearest_store": the bfloat16 store rounds to nearest).  One JSON
+line a reading.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import sys
 import time
 
 from . import inputs
+from .reference.model import MODES
 from .run import ROOT, cache_dirs
 
 
@@ -34,7 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--program-seeds", type=seeds, default=[])
     ap.add_argument("--control-seeds", type=seeds, default=[])
-    ap.add_argument("--faults", default="tf32")
+    ap.add_argument("--faults", default="control")
     args = ap.parse_args(argv)
     cache_dirs(ROOT)
 
@@ -60,9 +65,10 @@ def main(argv=None) -> int:
     if args.program_seeds:
         job.release()
     for fault in [f for f in args.faults.split(",") if f]:
-        mode, planted = ("tf32", None) if fault == "tf32" else ("float32", fault)
         for seed in args.control_seeds:
             job = kind.Job(config, traffic, seed)
+            mode, planted = ((fault, None) if fault in MODES else
+                             (job.control, None) if fault == "control" else (job.mode, fault))
             js = inputs.job_seed(seed, 0)
             r = job.readings(job.reference(js, mode, planted), js)
             print(json.dumps({"side": fault, "seed": seed, "readings": r}), flush=True)

@@ -2,12 +2,13 @@
 members whose outputs the check replays, and the comparison with the plain
 reference (``portbench.check``).
 
-A job kind subclasses ``Job`` and gives ``run`` (the timed call into the
-program, returning what a user gets on the host plus the checked members'
-trained weights), ``work`` (the counts the per-layer metrics read),
-``_replay`` (the reference's training of the checked members from the job's
-seed) and ``_summary`` (the reference's normative pass, in ``run``'s
-order)."""
+A job kind subclasses ``Job``, states the configurations' ``storage`` and
+``compute`` it runs (``PRECISIONS``; the reference replays them) and gives
+``run`` (the timed call into the program, returning what a user gets on the
+host plus the checked members' trained weights), ``work`` (the counts the
+per-layer metrics read), ``_replay`` (the reference's training of the
+checked members from the job's seed) and ``_summary`` (the reference's
+normative pass, in ``run``'s order)."""
 
 from __future__ import annotations
 
@@ -26,22 +27,31 @@ from ..reference import model as rmodel
 from ..reference import normalize
 
 NORM_FIELDS = ("median", "mean", "std")
+#: a configuration's ``compute`` -> the reference's arithmetic one step below
+#: it, the check's control (``portbench.control``)
+CONTROL = {"float32": "tf32", "bfloat16": "fp8"}
 
 
 class Job:
     #: where the job kind normalizes the raw blocks: its configurations'
     #: ``normalization``
     NORMALIZATION = ""
+    #: the ``storage`` and ``compute`` values of the configurations it runs
+    PRECISIONS = {"storage": ("float32",), "compute": ("float32",)}
 
     def __init__(self, config: dict, traffic: dict, seed: int, device="cuda"):
         if config["normalization"] != self.NORMALIZATION:
             raise ValueError(f"this job kind normalizes on the {self.NORMALIZATION}, "
                              f"the configuration says {config['normalization']!r}")
-        if (config["storage"], config["compute"]) != ("float32", "float32"):
-            raise ValueError("the job kinds run float32 storage and compute only")
+        for key, runs in self.PRECISIONS.items():
+            if config[key] not in runs:
+                raise ValueError(f"this job kind runs {key} {' or '.join(runs)}, the "
+                                 f"configuration says {config[key]!r}")
         if traffic["loop"] != "closed":
             raise ValueError("the harness runs jobs back to back only (loop 'closed')")
         self.config, self.traffic, self.device = config, traffic, torch.device(device)
+        #: the reference's arithmetic: the configuration's, and its control's
+        self.mode, self.control = config["compute"], CONTROL[config["compute"]]
         self.spans: Dict[str, float] = {}
         self.hyper = {k: int(config[k]) for k in ("seq_len", "micro_ch", "lesion_ch", "latent")}
         self.epochs, self.batch = int(config["epochs"]), int(config["batch_size"])
@@ -109,11 +119,13 @@ class Job:
     def fit_stats(self) -> Dict[str, np.ndarray]:
         return normalize.fit(self.cohort.Xm, self.cohort.n_real)
 
-    def reference(self, job_seed: int, mode: str = "float32",
+    def reference(self, job_seed: int, mode: Optional[str] = None,
                   fault: Optional[str] = None) -> dict:
-        """The reference put in the program's place, computed in ``mode``,
-        with ``fault`` planted: outputs of the checked members as ``run``
-        gives them."""
+        """The reference put in the program's place, computed in ``mode``
+        (``reference.model.MODES``; default the configuration's), with
+        ``fault`` planted: outputs of the checked members as ``run`` gives
+        them."""
+        mode = self.mode if mode is None else mode
         stats = self.fit_stats()
         params, bn, _init, hist, _first, Xz, Xl = self._replay(job_seed, stats, mode, fault)
         with rmodel.precision(mode):
@@ -126,15 +138,16 @@ class Job:
         return {"norm": stats, "hist": hist, "weights": weights, "summary": summary}
 
     def readings(self, out: dict, job_seed: int) -> Dict[str, float]:
-        """The gaps of ``out`` (``run``'s or ``reference``'s) from the float32
-        reference: the normalization of every member; the training of the
-        checked members replayed from the job's seed; their normative pass
-        worked out again from ``out``'s trained weights."""
+        """The gaps of ``out`` (``run``'s or ``reference``'s) from the
+        reference in the configuration's arithmetic: the normalization of
+        every member; the training of the checked members replayed from the
+        job's seed; their normative pass worked out again from ``out``'s
+        trained weights."""
         idx = self.checked
         pick = lambda a: a if len(a) == len(idx) else a[idx]  # noqa: E731
         stats = self.fit_stats()
         r = {"norm": max(check.rel_gap(out["norm"][k], stats[k]) for k in NORM_FIELDS)}
-        params, bn, init, hist, first, Xz, Xl = self._replay(job_seed, stats, "float32", None)
+        params, bn, init, hist, first, Xz, Xl = self._replay(job_seed, stats, self.mode, None)
         w = out["weights"]
         r["hist1"] = check.hist_gap(pick(out["hist"])[:, :1], hist[:, :1])
         r["hist"] = check.hist_gap(pick(out["hist"]), hist, columns=2)
@@ -145,7 +158,7 @@ class Job:
         r["stats_change"] = check.stats_change_gap({k: w[k] for k in bn}, bn, init)
         r["change"] = check.change_gap({k: w[k] for k in params}, params, init, first)
         dev = Xz.device
-        with rmodel.precision("float32"):
+        with rmodel.precision(self.mode):
             ref = self._summary({k: w[k].to(dev) for k in params},
                                 {k: w[k].to(dev) for k in bn}, Xz, Xl, job_seed)
         r["summary"] = max(check.rel_gap(pick(got), want)

@@ -3,7 +3,10 @@ it: every (tract, timepoint) member trained as one program by
 ``train.batched.launch_many_vaes`` with the raw blocks normalized on the
 device and the normative summary after training, then ``fetch()`` (the
 trained members as modules, the history) and the summary and the
-normalization statistics brought to the host."""
+normalization statistics brought to the host.  A configuration's
+``storage`` and ``compute`` "bfloat16" are ``--store bf16`` and ``--dtype
+bf16``: weights and moments stored in bfloat16 with stochastic rounding,
+the forward in mixed precision."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch
 from lesionvae_tpu_torch.train import batched
 
 from ..reference import draws, normative
+from ..reference import store as rstore
 from ..reference import train as rtrain
 from ..reference import model as rmodel
 from ..reference import normalize
@@ -18,10 +22,14 @@ from .common import Job as Base
 
 #: the harness's ranges around the job's calls, and the program's own
 RANGES = ("draws+launch", "fetch", "readback", "fleet_train", "member_summary")
+#: a configuration's dtype name -> ``launch_many_vaes``'s ``store_dtype`` /
+#: ``compute_dtype`` (None: float32)
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 class Job(Base):
     NORMALIZATION = "device"
+    PRECISIONS = {"storage": tuple(DTYPES), "compute": tuple(DTYPES)}
 
     def __init__(self, config, traffic, seed, device="cuda"):
         super().__init__(config, traffic, seed, device)
@@ -35,7 +43,9 @@ class Job(Base):
                 c.Xm, c.Xl, c.n_real, latent_dim=h["latent"], epochs=self.epochs,
                 batch_size=self.batch, seed=job_seed,
                 summary_spec=(c.sham, c.subject, self.n_seg, job_seed),
-                normalize_on_device=True, device=self.device, **self.train_hyper)
+                normalize_on_device=True, store_dtype=DTYPES[self.config["storage"]],
+                compute_dtype=DTYPES[self.config["compute"]], device=self.device,
+                **self.train_hyper)
         with self.span("fetch"):
             models, hist = handle.fetch()
         with self.span("readback"):
@@ -61,11 +71,20 @@ class Job(Base):
         p0, s0, perms, noise = draws.fleet(c.Xm.shape[0], self.n_pad, self.epochs,
                                            self.batch, self.hyper, job_seed, idx)
         params, bn = self.stacked(p0, s0)
+        store, salts = self.config["storage"], None
+        if store == "bfloat16":         # the initial weights stored: round to nearest
+            params = {k: v.to(torch.bfloat16).float() if rstore.is_weight(k) else v
+                      for k, v in params.items()}
+            salts = draws.fleet_salts(c.Xm.shape[0], self.n_pad, self.epochs, self.batch,
+                                      self.hyper["latent"], job_seed, idx)
         init = {k: v.clone() for k, v in {**params, **bn}.items()}
         with rmodel.precision(mode):
             hist, first = rtrain.train(params, bn, Xz, Xl, torch.from_numpy(c.n_real[idx]),
                                        perms, noise, self.epochs, self.batch,
-                                       fault=fault, **self.train_hyper)
+                                       fault=fault, store=store, salts=salts,
+                                       **self.train_hyper)
+        if store == "bfloat16":         # widened exactly, as the program's members are
+            params = {k: v.float() for k, v in params.items()}
         return params, bn, init, hist, first, Xz, Xl
 
     def _summary(self, params, stats, Xz, Xl, job_seed):

@@ -3,7 +3,9 @@ each member's norm, and the float32 update) against their least bytes
 (frozen ``optimizer_bytes``: every gradient element read and written once
 by the gather; g, p, m, v read and p, m, v written once by the update) a
 training step, over the bandwidth, divided by the device time of the
-kernels whose names match ``PATTERN``."""
+kernels whose names match ``PATTERN``.  With bfloat16 storage the update
+here is the BatchNorm leaves' alone: the weights' runs in
+``sr_adam_kernel`` (``sr_adam_roofline``)."""
 
 LAYER = "kernel: ops/adam.py"
 UNIT, SOURCE, MOVES = "%", "device_trace", "train_rows_per_s"
@@ -19,7 +21,8 @@ def least_s(ctx) -> float:
     else:
         per = cost.optimizer_bytes(w["members"], c["seq_len"], c["micro_ch"], c["lesion_ch"],
                                    c["latent"], c["storage"])
-    nbytes = ctx.jobs * w["train_steps"] * (per["grad_sq_norm"] + per["optimizer"])
+    update = per["update_affine"] if c["storage"] == "bfloat16" else per["optimizer"]
+    nbytes = ctx.jobs * w["train_steps"] * (per["grad_sq_norm"] + update)
     return nbytes / cost.HBM_BYTES_PER_S
 
 

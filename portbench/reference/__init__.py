@@ -7,4 +7,6 @@ in which a run draws its weights and noise from a seed.
 
 It imports nothing of the program under test, nor JAX: everything it needs
 is worked out here again from the seed and the inputs.  ``precision``
-selects float32 with TF32 off (the configuration) or TF32 (the control)."""
+selects the configuration's arithmetic (float32 with TF32 off, or the
+fleet's bfloat16 mixed precision) or the control's below it (TF32, float8
+operands); ``store`` the bfloat16 store with stochastic rounding."""

@@ -4,8 +4,9 @@ the fleet's launch draw it (torch's CPU generators).
 - A fleet of T members (``fleet``): the members' initial weights one after
   the other from the global generator seeded with ``seed``; then, from a
   generator seeded with ``seed``, every member's permutations of all its
-  padded rows (``rand(T, epochs, n_pad).argsort``) and reparameterisation
-  noise (T, epochs, n_batches, batch, latent).
+  padded rows (``rand(T, epochs, n_pad).argsort``), reparameterisation
+  noise (T, epochs, n_batches, batch, latent) and stochastic-rounding salt
+  (a uint32 a member, ``randint(0, 2**32, (T,))``).
 - One VAE (``single``): its initial weights from the global generator
   seeded with ``seed``, then, continuing it, each epoch's permutation of
   the real rows with the pad rows kept at the tail, and the noise.
@@ -41,6 +42,17 @@ def fleet(T: int, n_pad: int, epochs: int, batch_size: int, hyper: dict, seed: i
                         generator=gen)
     idx = torch.tensor(list(members))
     return params, stats, perms[idx], noise[idx]
+
+
+def fleet_salts(T: int, n_pad: int, epochs: int, batch_size: int, latent: int, seed: int,
+                members: Sequence[int]) -> torch.Tensor:
+    """The stochastic-rounding salts of the ``members`` of a T-member fleet:
+    the generator of ``fleet``'s permutations and noise, past them."""
+    gen = torch.Generator().manual_seed(seed)
+    torch.rand((T, epochs, n_pad), generator=gen)
+    torch.randn((T, epochs, n_pad // batch_size, batch_size, latent), generator=gen)
+    salts = torch.randint(0, 2 ** 32, (T,), generator=gen, dtype=torch.int64)
+    return salts[torch.tensor(list(members))]
 
 
 def single(n: int, n_pad: int, epochs: int, batch_size: int, hyper: dict, seed: int):

@@ -22,7 +22,7 @@ def reconstruct(p, stats, Xm, Xl, eps) -> torch.Tensor:
             sl = slice(r, r + ROWS)
             xh, _mu, _lv, _ = forward(p, stats, Xm[:, sl], Xl[:, sl], None, eps[..., sl, :],
                                       False)
-            out.append(torch.nan_to_num(xh, nan=0.0))
+            out.append(torch.nan_to_num(xh.to(Xm.dtype), nan=0.0))
     return torch.cat(out, dim=1)
 
 

@@ -62,3 +62,40 @@ def test_step_flops_count_the_models_own_lengths():
     assert c.step_flops(64, B) == pytest.approx(212.2317824e9, rel=1e-12)
     assert c.step_flops(1, B) == pytest.approx(3.3161216e9, rel=1e-12)
     assert c.forward_flops(1, 1, encoder_only=True) < forward
+
+
+def test_the_optimizer_rooflines_count_what_their_own_kernels_move():
+    """``adam_roofline`` counts the gather and, with float32 storage, the
+    whole update (the same sum as before ``sr_adam_roofline`` existed); with
+    bfloat16 storage the BatchNorm leaves' update alone, the weights' 14 B an
+    element going to ``sr_adam_roofline``."""
+    import types
+    from pathlib import Path
+
+    from portbench.spec import Bench
+
+    bench = Bench(Path(__file__).resolve().parents[2])
+    adam, sr = bench.reader("adam_roofline"), bench.reader("sr_adam_roofline")
+    work = {"members": 64, "batch": 64, "train_steps": 600, "eval_rows": [960, 960],
+            "encode_rows": [], "flat_params": False}
+    trace = types.SimpleNamespace(op_seconds=lambda pattern: 0.5)
+
+    def ctx(config):
+        return types.SimpleNamespace(work=work, config=bench.config(config), jobs=2, cost=c,
+                                     trace=trace)
+
+    f32, bf16 = c.optimizer_bytes(64), c.optimizer_bytes(64, store="bfloat16")
+    assert f32["optimizer"] == f32["update_weights"] + f32["update_affine"]
+    assert adam.least_s(ctx("lcvae-fleet-f32")) == (
+        2 * 600 * (f32["grad_sq_norm"] + f32["optimizer"]) / c.HBM_BYTES_PER_S)
+    assert adam.least_s(ctx("lcvae-fleet-bf16")) == (
+        2 * 600 * (bf16["grad_sq_norm"] + bf16["update_affine"]) / c.HBM_BYTES_PER_S)
+    assert bf16["update_weights"] == 64 * 14 * c.parameters()["weights"]
+    assert sr.least_s(ctx("lcvae-fleet-bf16")) == (
+        2 * 600 * bf16["update_weights"] / c.HBM_BYTES_PER_S)
+    assert sr.read(ctx("lcvae-fleet-bf16")) == pytest.approx(
+        100 * sr.least_s(ctx("lcvae-fleet-bf16")) / 0.5)
+    assert sr.read(ctx("lcvae-fleet-f32")) is None
+    idle = ctx("lcvae-fleet-bf16")
+    idle.trace = types.SimpleNamespace(op_seconds=lambda pattern: 0.0)
+    assert sr.read(idle) is None

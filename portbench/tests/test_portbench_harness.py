@@ -24,18 +24,30 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TINY = {"norm": 1e-4, "hist1": 1e-4, "hist1_loss_recon": 1e-4, "hist1_median": 1e-4,
         "hist": 1e-4, "stats": 1e-4, "stats_change": 1e-3, "change": 1e-3, "summary": 1e-4}
+# the tiny bfloat16 fleet on the CPU, compared as its cell on the card is:
+# the program's bfloat16 sums part from the reference's by about 2e-3
+# (hist1) and, over its four steps of stochastic rounding, by 0.19-0.25 in
+# the change; the faults read 0.03-0.12 (half_batch, hist1), 0.2 (altered,
+# norm) and 1 (a state left unchanged)
+TINY_BF16 = {"norm": 1e-4, "hist1": 0.01, "hist1_median": 0.005, "stats_change": 0.01,
+             "change": 0.45}
+TINY_CELLS = ["tiny.fleet", "tiny.single", "tiny.fleet-bf16"]
+LIMITS = {"tiny.fleet": TINY, "tiny.single": TINY, "tiny.fleet-bf16": TINY_BF16}
 
 
 def test_the_cells_and_their_files_are_found_by_name():
     spec = BENCH.spec
-    assert [w["name"] for w in spec["workloads"]] == ["fleet.cohort64", "single.tract"]
+    assert [w["name"] for w in spec["workloads"]] == [
+        "fleet.cohort64", "single.tract", "fleet.pair8", "fleet.cohort64-bf16"]
     for w in spec["workloads"]:
         config = BENCH.config(w["config"])
         job = BENCH.job(config["job"])
         assert hasattr(job, "Job") and job.RANGES
         assert BENCH.traffic(w["traffic"])["loop"] == "closed"
-        assert {"norm", "hist1", "change", "stats_change", "summary"} <= set(
-            BENCH.limits(w["name"]))
+        limits = set(BENCH.limits(w["name"]))
+        assert {"norm", "hist1", "change", "stats_change"} <= limits
+        # a bfloat16 summary is printed, not compared (portbench/check.py)
+        assert ("summary" in limits) == (config["compute"] == "float32")
         assert w["chips"] == 1
         assert {m["name"] for m in BENCH.metrics(w["name"], "end_to_end")} == {
             "train_rows_per_s", "setup_s"}
@@ -71,23 +83,26 @@ def test_benchmark_json_keeps_the_contracts_forms():
 
 def tiny_copy(tmp_path: Path) -> Path:
     """The benchmark's files in a new directory, with a tiny configuration
-    of each job kind, their mixes and limits, a new metric and two new cells
-    added as new files and entries only."""
+    of each job kind and of the bfloat16 fleet, their mixes and limits, a new
+    metric and three new cells added as new files and entries only."""
     root = tmp_path / "checkout"
     root.mkdir()
     shutil.copytree(ROOT / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    for kind, members in (("fleet", {"tracts": 1, "timepoints": ["2d", "9d"],
-                                     "check_members": 2}),
-                          ("single", {"tracts": 1, "timepoints": ["9d"], "check_members": 1})):
-        base = json.loads((ROOT / f"portbench/configs/lcvae-{kind}-f32.json").read_text())
+    fleet = {"tracts": 1, "timepoints": ["2d", "9d"], "check_members": 2}
+    for kind, source, members, limits in (
+            ("fleet", "fleet-f32", fleet, TINY),
+            ("single", "single-f32", {"tracts": 1, "timepoints": ["9d"], "check_members": 1},
+             TINY),
+            ("fleet-bf16", "fleet-bf16", fleet, TINY_BF16)):
+        base = json.loads((ROOT / f"portbench/configs/lcvae-{source}.json").read_text())
         base.update(name=f"tiny-{kind}", seq_len=16, epochs=2, batch_size=16)
         (root / f"portbench/configs/tiny-{kind}.json").write_text(json.dumps(base))
         (root / f"portbench/traffic/tiny-{kind}.json").write_text(json.dumps(
             {"groups": {"Sham": 1, "TBI": 1, "PTE": 1}, "streamlines": 10, "loop": "closed",
              "trace_jobs": 2, **members}))
-        (root / f"portbench/limits/tiny.{kind}.json").write_text(json.dumps(TINY))
+        (root / f"portbench/limits/tiny.{kind}.json").write_text(json.dumps(limits))
         spec["configs"].append({"name": f"tiny-{kind}", "source": "a test",
                                 "file": f"portbench/configs/tiny-{kind}.json",
                                 "reduced": ["seq_len", "epochs", "batch_size"], "why": "a test"})
@@ -121,15 +136,15 @@ def copy(tmp_path_factory):
     return tiny_copy(tmp_path_factory.mktemp("bench"))
 
 
-@pytest.mark.parametrize("cell", ["tiny.fleet", "tiny.single"])
+@pytest.mark.parametrize("cell", TINY_CELLS)
 def test_new_files_run_with_no_edit(copy, cell):
     r = run_copy(copy, cell, False)
     assert list(r) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert r["correct"] is True and r["attempted"] >= 1 and r["failed"] == 0
     assert set(r["metrics"]) == {"train_rows_per_s", "setup_s"}      # no per-layer metric
     assert all(m["value"] > 0 for m in r["metrics"].values())
-    assert set(r["checks"]) == set(TINY)
-    assert all(c["value"] < c["limit"] for c in r["checks"].values())
+    assert set(r["checks"]) == set(LIMITS[cell])
+    assert all(c["value"] < c["limit"] for c in r["checks"].values()), r["checks"]
 
 
 def test_a_traced_run_reports_per_layer_metrics_only(copy):
@@ -329,8 +344,25 @@ def _alter_answer(monkeypatch):
     monkeypatch.setattr(normative, "normative_zscores_fused", altered_z)
 
 
+def _alter_normalization(monkeypatch):
+    """The fleet's normalization median moved by 5% of its scale, as the
+    reference's ``altered`` moves it: the answer a cell that compares no
+    summary (bfloat16) is held to."""
+    from lesionvae_tpu_torch.train import data
+
+    normalize = data.normalize_on_device
+
+    def altered(*a, **k):
+        Xm, Xl, stats = normalize(*a, **k)
+        stats = {**stats, "median": stats["median"].clone()}
+        stats["median"][0, 0] += 0.05 * max(float(stats["median"].abs().max()), 1.0)
+        return Xm, Xl, stats
+
+    monkeypatch.setattr(data, "normalize_on_device", altered)
+
+
 @pytest.mark.parametrize("fault", [_freeze_fleet, _freeze_stats, _half_batch, _alter_answer])
-@pytest.mark.parametrize("cell", ["tiny.fleet", "tiny.single"])
+@pytest.mark.parametrize("cell", TINY_CELLS)
 def test_a_broken_timed_path_is_not_correct(copy, monkeypatch, fault, cell):
     from lesionvae_tpu_torch.train import batched, trainer
 
@@ -338,6 +370,8 @@ def test_a_broken_timed_path_is_not_correct(copy, monkeypatch, fault, cell):
     for cache in (batched.PROGRAMS, trainer.PROGRAMS):
         cache.clear()
     fault(monkeypatch)
+    if fault is _alter_answer and "summary" not in LIMITS[cell]:
+        _alter_normalization(monkeypatch)
     try:
         r = run.run_cell(Bench(copy), cell, 2 ** 35 + 11, 0.01, False, "cpu",
                          log=lambda *a: None)
@@ -349,17 +383,34 @@ def test_a_broken_timed_path_is_not_correct(copy, monkeypatch, fault, cell):
 
 
 # ------------------------------------------- settings the harness must honour
-@pytest.mark.parametrize("part,key,value", [("config", "normalization", "host"),
-                                            ("config", "storage", "bfloat16"),
-                                            ("traffic", "loop", "open")])
-def test_settings_a_job_kind_does_not_run_are_refused(part, key, value):
-    from portbench.jobs import fleet
-
-    w = BENCH.cell("fleet.cohort64")
+@pytest.mark.parametrize("cell,part,key,value", [
+    ("fleet.cohort64", "config", "normalization", "host"),
+    ("fleet.cohort64", "config", "storage", "float16"),
+    ("fleet.cohort64", "traffic", "loop", "open"),
+    ("single.tract", "config", "storage", "bfloat16"),
+    ("single.tract", "config", "compute", "bfloat16")])
+def test_settings_a_job_kind_does_not_run_are_refused(cell, part, key, value):
+    w = BENCH.cell(cell)
     config, traffic = BENCH.config(w["config"]), BENCH.traffic(w["traffic"])
     {"config": config, "traffic": traffic}[part][key] = value
     with pytest.raises(ValueError):
-        fleet.Job(config, traffic, 1, "cpu")
+        BENCH.job(config["job"]).Job(config, traffic, 1, "cpu")
+
+
+def test_the_fleet_runs_the_precisions_it_states():
+    """The bfloat16 cell's configuration is taken (and the reference's
+    arithmetic is its own, its control one step below); the fleet passes
+    its dtypes to the launch."""
+    from portbench.jobs import fleet
+
+    w = BENCH.cell("fleet.cohort64-bf16")
+    config = BENCH.config(w["config"])
+    assert (config["storage"], config["compute"], config["reduced"]) == (
+        "bfloat16", "bfloat16", [])
+    job = fleet.Job(config, {**BENCH.traffic(w["traffic"]), "tracts": 1}, 1, "cpu")
+    assert (job.mode, job.control) == ("bfloat16", "fp8")
+    assert fleet.DTYPES[config["storage"]] is torch.bfloat16
+    assert fleet.DTYPES["float32"] is None
 
 
 def test_tf32_in_force_is_held_to_the_configuration(monkeypatch):

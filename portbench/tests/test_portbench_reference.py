@@ -45,11 +45,13 @@ def test_fleet_draws_are_the_programs():
     T, n_pad = 3, 24
     want = batched.member_draws(T, n_pad, HYPER, E, B, SEED)
     params, stats, perms, noise = draws.fleet(T, n_pad, E, B, HYPER, SEED, [0, 2])
+    salts = draws.fleet_salts(T, n_pad, E, B, HYPER["latent"], SEED, [0, 2])
     for got_p, got_s, sd in zip(params, stats, [want["state_dicts"][i] for i in (0, 2)]):
         for k, v in {**got_p, **got_s}.items():
             assert torch.equal(v, sd[k]), k
     assert torch.equal(perms, want["perms"][[0, 2]])
     assert torch.equal(noise, want["noise"][[0, 2]])
+    assert torch.equal(salts, want["salts"][[0, 2]])
 
 
 def test_summary_noise_is_the_programs():
@@ -206,7 +208,8 @@ def test_the_reference_and_the_yardstick_import_nothing_of_the_program():
         for path in (PORTBENCH / sub).rglob("*.py"):
             assert "lesionvae_tpu_torch" not in set(imports(path)), path
     code = ("import sys; import portbench.reference.train, portbench.reference.normative, "
-            "portbench.reference.normalize, portbench.reference.draws, portbench.cost.counts, "
+            "portbench.reference.normalize, portbench.reference.draws, "
+            "portbench.reference.store, portbench.cost.counts, "
             "portbench.check; tops = {m.split('.')[0] for m in sys.modules}; "
             "print(sorted(tops & {'jax', 'jaxlib', 'flax', 'lesionvae_tpu', "
             "'lesionvae_tpu_torch'}))")
