@@ -11,7 +11,7 @@ weights are views of a wider buffer, as the fleet's leaves are):
 
 - the kernels: the forward (``conv_fwd``), the input gradient (``conv_fwd``
   on dy; none for micro_c1 and lesion_c1, which take the input data) and
-  the weight gradient (``conv_wgrad`` with its finishing launch), captured
+  the weight gradient (``conv_wgrad``; float32 with its finishing launch), captured
   in CUDA graphs and timed by their replays, as the training program runs
   them (``utils.profiling.device_ms``: median of ``reps`` x 20): the step's
   eight layers forward and backward (``ms``), and layer by layer;

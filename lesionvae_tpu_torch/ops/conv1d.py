@@ -54,11 +54,15 @@ from .cuda_build import Count, count_launch, load
 
 TAPS, PAD = 5, 2                # the convolutions' kernel size and padding
 # csrc/conv1d.cu: the channel tiles of the weight-gradient kernel (float32:
-# output channels 16, 32 or 64 by C_out, input channels 16; bf16: 64 x 32)
-# and its split of a member's rows: about TARGET_BLOCKS blocks, each range
-# at least MIN_SPLIT_ROWS rows
+# output channels 16, 32 or 64 by C_out, input channels 16; bf16: 64 x 32,
+# or 32 / 16 where C_out / C_in fit) and its split of a member's rows: about
+# TARGET_BLOCKS blocks, each range at least MIN_SPLIT_ROWS rows; in bf16
+# about WGRAD_BF16_TARGET blocks (four an SM) and at most
+# WGRAD_BF16_MAX_SPLITS, the blocks of one thread-block cluster
+# (WH_MAX_SPLITS), which add their sums
 WGRAD_F32_IN, WGRAD_BF16_OUT, WGRAD_BF16_IN = 16, 64, 32
 TARGET_BLOCKS, MIN_SPLIT_ROWS = 1056, 128
+WGRAD_BF16_TARGET, WGRAD_BF16_MAX_SPLITS = 528, 8
 VECTOR_BYTES = 16               # csrc/conv1d.cu: a staging thread's load
 # csrc/conv1d.cu: the float32 conv_fwd's tiles, (output channels, rows a
 # thread, threads), 8 output channels a thread: the full tile (fwd_tile's
@@ -153,16 +157,28 @@ def fwd_f32_tile(T: int, rows: int, c_out: int) -> Tuple[int, int, int]:
     return tiles[-1]
 
 
+def wgrad_bf16_tile(c_in: int, c_out: int) -> Tuple[int, int]:
+    """(output, input) channels a block of the bf16 ``conv_wgrad`` takes:
+    WGRAD_BF16_OUT x WGRAD_BF16_IN, or 32 / 16 where C_out / C_in fit
+    (csrc/conv1d.cu: wh_bo, wh_bi)."""
+    return (32 if c_out <= 32 else WGRAD_BF16_OUT), (16 if c_in <= 16 else WGRAD_BF16_IN)
+
+
 def wgrad_splits(T: int, rows: int, c_in: int, c_out: int, dtype: torch.dtype) -> int:
     """The contiguous ranges ``conv_wgrad`` cuts each member's ``rows`` rows
     into, one a block: enough blocks to fill the card (about TARGET_BLOCKS
-    over every member and channel tile), each range at least MIN_SPLIT_ROWS
-    rows.  A function of the shapes alone, so the sum's order is too."""
+    over every member and channel tile; bf16: WGRAD_BF16_TARGET), each range
+    at least MIN_SPLIT_ROWS rows, and in bf16 at most WGRAD_BF16_MAX_SPLITS
+    (a cluster's blocks).  A function of the shapes alone, so the sum's
+    order is too."""
     if dtype == torch.bfloat16:
-        tiles = -(-c_out // WGRAD_BF16_OUT) * -(-c_in // WGRAD_BF16_IN)
+        bo, bi = wgrad_bf16_tile(c_in, c_out)
+        tiles = -(-c_out // bo) * -(-c_in // bi)
+        target, most = WGRAD_BF16_TARGET, WGRAD_BF16_MAX_SPLITS
     else:
         tiles = -(-c_out // fwd_tile(c_out)) * -(-c_in // WGRAD_F32_IN)
-    splits = min(-(-TARGET_BLOCKS // (T * tiles)), rows // MIN_SPLIT_ROWS, 65535 // T)
+        target, most = TARGET_BLOCKS, 65535 // T
+    splits = min(-(-target // (T * tiles)), rows // MIN_SPLIT_ROWS, most)
     return max(1, splits)
 
 
@@ -190,7 +206,8 @@ KERNEL_FUNCTIONS = ("conv_fwd_f32<16,4,256>", "conv_fwd_f32<32,4,256>",
                     "conv_fwd_f32<64,4,256>",
                     "conv_fwd_bf16<16>", "conv_fwd_bf16<32>", "conv_fwd_bf16<64>",
                     "conv_wgrad_f32<16>", "conv_wgrad_f32<32>", "conv_wgrad_f32<64>",
-                    "conv_wgrad_bf16", "conv_wgrad_finish<float>", "conv_wgrad_finish<bf16>",
+                    "conv_wgrad_bf16<64,32>", "conv_wgrad_bf16<64,16>",
+                    "conv_wgrad_bf16<32,32>", "conv_wgrad_bf16<32,16>", "conv_wgrad_finish<float>",
                     *(f"conv_fwd_f32<{bn},{tm},{threads}>"
                       for bn, tm, threads in F32_SMALL_TILES))
 
@@ -199,7 +216,7 @@ def attributes(L: int) -> dict:
     """Per kernel function: registers a thread, local memory bytes a thread
     and blocks an SM holds at the shared memory of a layer of length L
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where its shared
-    memory does not fit; the finishing kernels use none)."""
+    memory does not fit; the finishing kernel uses none)."""
     out = (ctypes.c_int * (3 * len(KERNEL_FUNCTIONS)))()
     _raise(_lib().lesionvae_conv1d_attributes(L, out), "attribute query")
     return {name: {"registers": out[3 * i], "local_bytes": out[3 * i + 1],
@@ -284,8 +301,10 @@ def conv_fwd(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 def conv_wgrad(h: torch.Tensor, dy: torch.Tensor,
                transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One call of the weight-gradient kernel and its finishing launch:
-    ``conv_wgrad_plain(h, dy, transpose)``, (dw in the leaf's layout, db)."""
+    """One call of the weight-gradient kernel (float32: its partials launch
+    and its finishing launch; bf16: one launch of clusters, which needs no
+    partials): ``conv_wgrad_plain(h, dy, transpose)``, (dw in the leaf's
+    layout, db)."""
     T, N, L, C = h.shape
     c_out = dy.shape[3]
     shape = (T, C, c_out, TAPS) if transpose else (T, c_out, C, TAPS)
@@ -293,8 +312,9 @@ def conv_wgrad(h: torch.Tensor, dy: torch.Tensor,
     _same("dy", dy, h, (T, N, L, c_out))
     dy = dy.contiguous()
     splits = wgrad_splits(T, N * L, C, c_out, h.dtype)
-    part = torch.empty((T, splits, c_out, C * TAPS), dtype=torch.float32, device=h.device)
-    dbpart = torch.empty((T, splits, c_out), dtype=torch.float64, device=h.device)
+    lead = (T, splits) if h.dtype == torch.float32 else (0, 0)
+    part = torch.empty((*lead, c_out, C * TAPS), dtype=torch.float32, device=h.device)
+    dbpart = torch.empty((*lead, c_out), dtype=torch.float64, device=h.device)
     dw = torch.empty(shape, dtype=h.dtype, device=h.device)
     db = torch.empty((T, c_out), dtype=h.dtype, device=h.device)
     with torch.cuda.device(h.device):
@@ -307,8 +327,8 @@ def conv_wgrad(h: torch.Tensor, dy: torch.Tensor,
     return dw, db
 
 
-# launches of each kernel in this process (conv_wgrad: its partials launch
-# and its finishing launch, counted once); a run sets them to 0 and reads
+# launches of each kernel in this process (conv_wgrad in float32: its
+# partials launch and its finishing launch, counted once); a run sets them to 0 and reads
 # them back to show its path went through the kernels.  A launch recorded
 # into a CUDA graph counts in ``captured`` and joins ``launches`` at every
 # replay (train/program.py)

@@ -331,9 +331,9 @@ def test_input_gradient_is_the_flipped_swapped_convolution():
 
 # the full-width path's layers at 64 members x batch 64: (name, splits a
 # member's rows take in float32 and in bf16)
-PATH_SPLITS = {"micro_c1": (17, 17), "micro_c2": (3, 5), "micro_c3": (2, 3),
-               "lesion_c1": (17, 17), "lesion_c2": (9, 17), "dec_t1": (3, 5),
-               "dec_t2": (5, 9), "dec_t3": (5, 9)}
+PATH_SPLITS = {"micro_c1": (17, 8), "micro_c2": (3, 3), "micro_c3": (2, 2),
+               "lesion_c1": (17, 8), "lesion_c2": (9, 8), "dec_t1": (3, 3),
+               "dec_t2": (5, 5), "dec_t3": (5, 5)}
 
 
 def test_wgrad_splits_at_the_paths_shapes():
@@ -345,7 +345,228 @@ def test_wgrad_splits_at_the_paths_shapes():
                     for dt in (torch.float32, torch.bfloat16))
         assert got == PATH_SPLITS[name], name
         assert all(64 * L // s >= conv1d.MIN_SPLIT_ROWS for s in got)
+        assert got[1] <= conv1d.WGRAD_BF16_MAX_SPLITS
     assert conv1d.wgrad_splits(1, 7, 3, 3, torch.float32) == 1
+
+
+# ------------------------------------------------------------ the bf16 kernels' ring and cluster
+def test_bf16_constants_are_the_sources():
+    """The bf16 weight gradient's cluster bound (WH_MAX_SPLITS) and its
+    channel tiles by C_out and C_in are the host's, and the entry point
+    refuses more splits than a cluster holds."""
+    assert _cu_constant("WH_MAX_SPLITS") == conv1d.WGRAD_BF16_MAX_SPLITS == 8
+    assert "int wh_bo(int cout) { return cout <= 32 ? 32 : WH_BO; }" in _CU
+    assert "int wh_bi(int cin) { return cin <= 16 ? 16 : WH_BI; }" in _CU
+    assert "constexpr int WO = BO / 32, WI = BI / 16, KS = 4 / (WO * WI);" in _CU
+    assert "for (int ks = kslice; ks < (n + 15) / 16; ks += KS) {" in _CU
+    for bo, bi in ((64, 32), (64, 16), (32, 32), (32, 16)):
+        assert f"conv_wgrad_bf16<{bo}, {bi}>" in _CU
+        assert f"conv_wgrad_bf16<{bo},{bi}>" in conv1d.KERNEL_FUNCTIONS
+    assert "(bf && splits > WH_MAX_SPLITS)" in _CU
+    assert "attr[0].val.clusterDim.z = splits;" in _CU
+    assert "constexpr uint32_t BF16_ONES = 0x3F803F80u;" in _CU
+    # 0x3F80 is bfloat16's 1.0: the top half of float32's 1.0
+    assert np.float32(1.0).view(np.uint32) >> 16 == 0x3F80
+
+
+def _ring(items, stages):
+    """The bf16 kernels' ring of ``stages`` slots over ``items`` stages
+    (conv_wgrad_bf16: stages of rows; conv_fwd_bf16: chunks of input
+    channels), as csrc/conv1d.cu writes it: items 0 .. stages - 2 issued
+    (one cp.async group each, empty past the last item) before the loop;
+    at iteration j the thread waits until at most stages - 2 of its groups
+    are in flight, passes the block's barrier, issues item j + stages - 1
+    into slot (j + stages - 1) % stages, commits a group and computes item
+    j from slot j % stages.  Returns the events in order: ("issue", item,
+    slot, j), ("land", item, j) where the wait lets the item's group go, and
+    ("compute", item, slot, j); j is -1 before the loop."""
+    events, groups, landed = [], [], 0
+    for j in range(stages - 1):
+        if j < items:
+            events.append(("issue", j, j % stages, -1))
+        groups.append(j if j < items else None)
+    for j in range(items):
+        while len(groups) - landed > stages - 2:
+            if groups[landed] is not None:
+                events.append(("land", groups[landed], j))
+            landed += 1
+        jn = j + stages - 1
+        if jn < items:
+            events.append(("issue", jn, jn % stages, j))
+        groups.append(jn if jn < items else None)
+        events.append(("compute", j, j % stages, j))
+    return events
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4, "WH_STAGES", "FWD_STAGES"])
+@pytest.mark.parametrize("items", [1, 2, 3, 4, 5, 9, 13, 40])
+def test_bf16_ring_computes_each_stage_once_after_it_lands(items, stages):
+    """The ring's schedule: every item is issued and computed once, each
+    after its copies landed (the wait before the barrier of its iteration),
+    and a slot is written again only in an iteration after the one that
+    computed from it, across the barrier that every warp passes first."""
+    if isinstance(stages, str):
+        name = stages
+        stages = _cu_constant(name)
+        assert f"cp_async_wait<{name} - 2>();" in _CU and f"const int jn = j + {name} - 1;" in _CU
+    events = _ring(items, stages)
+    issued = [e for e in events if e[0] == "issue"]
+    computed = [e for e in events if e[0] == "compute"]
+    assert [e[1] for e in issued] == list(range(items)) == [e[1] for e in computed]
+    for item in range(items):
+        at = {e[0]: events.index(e) for e in events if e[1] == item}
+        assert at["issue"] < at["land"] < at["compute"]
+    for _, item, slot, j in computed:
+        later = [e for e in issued if e[2] == slot and e[1] > item]
+        assert all(e[3] > j for e in later)
+
+
+def _mirror_wgrad_bf16(h, dy, transposed, splits):
+    """One member's bf16 conv_wgrad written out in float64 numpy: channel
+    tiles of ``wgrad_bf16_tile``; ``splits`` ranges of rows, one a block of
+    the tile's cluster, each in stages of WH_BR rows staged as the
+    plain-loads mirror above stages them; a block's KS k-slices (the warps
+    a smaller tile leaves over) each sum every KS-th 16-row step, and their
+    sums are added in k-slice order into G[o, i, k], db from the tensor
+    cores' product of each step's dy^T by a B fragment of ones; then block
+    sp writes outputs [E sp / splits, E (sp + 1) / splits) of the tile, E
+    its real outputs in the leaf's order, each the blocks' sums in split
+    order.  Returns dw in the leaf's layout, db, and how often each element
+    of dw was written."""
+    N, L, C = h.shape
+    R, cout = N * L, dy.shape[-1]
+    dyr = dy.reshape(R, cout)
+    BO, BI = conv1d.wgrad_bf16_tile(C, cout)
+    BR = _cu_constant("WH_BR")
+    KS = 4 // ((BO // 32) * (BI // 16))
+    K = conv1d.TAPS
+    shape = (C, cout, K) if transposed else (cout, C, K)
+    dw, writes, db = np.zeros(shape), np.zeros(shape, dtype=int), np.zeros(cout)
+    ones = np.ones((16, 8))
+    for o0 in range(0, cout, BO):
+        for i0 in range(0, C, BI):
+            no, ni = min(BO, cout - o0), min(BI, C - i0)
+            G = np.zeros((splits, KS, no, ni, K))
+            dbs = np.zeros((splits, KS, no))
+            for sp in range(splits):
+                ra, rb = R * sp // splits, R * (sp + 1) // splits
+                for rs in range(ra, rb, BR):
+                    n = min(BR, rb - rs)
+                    p0 = _padded_row(rs, L) - 2
+                    rows = _padded_row(rs + n - 1, L) - p0 + 3
+                    assert rows <= _staged_rows(BR, L)
+                    xs = _staged(h, p0, rows)[:, i0:i0 + ni]
+                    base = np.array([_padded_row(r, L) - p0 - 2 for r in range(rs, rs + n)])
+                    d = dyr[rs:rs + n, o0:o0 + no]
+                    for ks in range(0, n, 16):
+                        step, at = slice(ks, ks + 16), base[ks:ks + 16]
+                        for k in range(K):
+                            G[sp, ks // 16 % KS, :, :, k] += d[step].T @ xs[at + k]
+                        dbs[sp, ks // 16 % KS] += (d[step].T @ ones[:len(at)])[:, 0]
+            G, dbs = G.sum(axis=1), dbs.sum(axis=1)
+            E = no * ni * K
+            for sp in range(splits):
+                for e in range(E * sp // splits, E * (sp + 1) // splits):
+                    if transposed:
+                        i, rest = divmod(e, no * K)
+                        o, kk = divmod(rest, K)
+                        at, k = (i0 + i, o0 + o, kk), K - 1 - kk
+                    else:
+                        o, rest = divmod(e, ni * K)
+                        i, k = divmod(rest, K)
+                        at = (o0 + o, i0 + i, k)
+                    dw[at] = sum(G[r, o, i, k] for r in range(splits))
+                    writes[at] += 1
+            if i0 == 0:
+                db[o0:o0 + no] = dbs.sum(axis=0)
+    return dw, db, writes
+
+
+@pytest.mark.parametrize("N,L,cin,cout,transposed", [
+    (3, 100, 13, 64, False), (5, 100, 3, 32, False), (2, 25, 70, 130, False),
+    (2, 12, 128, 64, True), (4, 48, 64, 13, True), (40, 1, 3, 3, True), (7, 24, 33, 65, True)])
+def test_bf16_wgrad_cluster_writes_each_output_once_in_the_leafs_layout(N, L, cin, cout,
+                                                                        transposed):
+    """The bf16 weight gradient's row geometry and cluster sum, in float64
+    numpy: at the splits the kernel takes (``wgrad_splits``) and at 1, 3
+    and a cluster's most, the blocks' shares of each tile cover every
+    output of dw once, in the leaf's own layout (reversed along k for a
+    ConvTranspose1d), and give the plain version's dw; db from the product
+    of dy^T by ones gives its db."""
+    rng = np.random.default_rng(N * L + cin)
+    h = rng.normal(size=(1, N, L, cin))
+    dy = rng.normal(size=(1, N, L, cout))
+    want_dw, want_db = conv1d.conv_wgrad_plain(torch.from_numpy(h), torch.from_numpy(dy),
+                                               transposed)
+    path = conv1d.wgrad_splits(64, N * L, cin, cout, torch.bfloat16)
+    for splits in sorted({1, 3, conv1d.WGRAD_BF16_MAX_SPLITS, path}):
+        if splits > N * L:
+            continue
+        dw, db, writes = _mirror_wgrad_bf16(h[0], dy[0], transposed, splits)
+        assert (writes == 1).all(), splits
+        np.testing.assert_allclose(dw, want_dw[0].numpy(), atol=1e-10)
+        np.testing.assert_allclose(db, want_db[0].numpy(), atol=1e-10)
+
+
+@pytest.mark.parametrize("T", [1, 2, 8, 64])
+def test_bf16_wgrad_splits_fit_a_cluster_and_read_the_shapes_alone(T):
+    """wgrad_splits' bf16 branch: about WGRAD_BF16_TARGET blocks over the
+    member's channel tiles, each range at least MIN_SPLIT_ROWS rows, at
+    most a cluster's WGRAD_BF16_MAX_SPLITS, at least 1; the same value at
+    every call from the same shapes."""
+    rng = np.random.default_rng(T)
+    for _ in range(500):
+        rows, cin, cout = int(rng.integers(1, 9000)), int(rng.integers(1, 300)), \
+            int(rng.integers(1, 300))
+        got = conv1d.wgrad_splits(T, rows, cin, cout, torch.bfloat16)
+        tiles = -(-cout // conv1d.WGRAD_BF16_OUT) * -(-cin // conv1d.WGRAD_BF16_IN)
+        want = min(-(-conv1d.WGRAD_BF16_TARGET // (T * tiles)), rows // conv1d.MIN_SPLIT_ROWS,
+                   conv1d.WGRAD_BF16_MAX_SPLITS)
+        assert got == max(1, want) == conv1d.wgrad_splits(T, rows, cin, cout, torch.bfloat16)
+        assert 1 <= got <= conv1d.WGRAD_BF16_MAX_SPLITS
+
+
+@pytest.mark.parametrize("c_in,c_out,want", [
+    (3, 32, (32, 16)), (13, 64, (64, 16)), (16, 16, (32, 16)), (17, 33, (64, 32)),
+    (64, 13, (32, 32)), (128, 128, (64, 32)), (32, 64, (64, 32)), (130, 70, (64, 32))])
+def test_bf16_wgrad_tile_reads_the_channels_alone(c_in, c_out, want):
+    """The bf16 weight gradient's channel tile from C_in and C_out alone
+    (csrc/conv1d.cu: wh_bo, wh_bi): 32 output or 16 input channels where the
+    layer's fit in them, else 64 x 32, so a layer takes as many tiles as the
+    full tile gives it and the rows' split stays the same."""
+    tile = conv1d.wgrad_bf16_tile(c_in, c_out)
+    assert tile == want
+    bo, bi = tile
+    full = -(-c_out // conv1d.WGRAD_BF16_OUT) * -(-c_in // conv1d.WGRAD_BF16_IN)
+    assert -(-c_out // bo) * -(-c_in // bi) == full
+
+
+# csrc/conv1d.cu's bf16 shared memory a block, as written there
+_WH_SLOT = ("return WH_BR * (bo + 8) * 2 + (staged_rows(WH_BR, L) + TAPS) * (bi + 8) * 2 + "
+            "WH_BR * 4;")
+_FWD_SLOT = "return (TAPS * bn + staged_rows(BF16_ROWS, L)) * BF16_ROW * 2;"
+
+
+@pytest.mark.parametrize("L", sorted({L for L, *_ in tcm.conv_layers().values()}))
+def test_bf16_rings_fit_the_blocks_an_sm_at_the_paths_lengths(L):
+    """At each layer length of the step, the bf16 weight gradient's ring of
+    WH_STAGES slots leaves room for three blocks an SM at every channel tile
+    and holds the block's sums for the cluster (BO output channels of BI *
+    5 + 1 floats, and db); the forward's ring of FWD_STAGES chunks and its
+    row table leave room for two blocks an SM at every output tile."""
+    c = {k: _cu_constant(k) for k in ("WH_BR", "WH_STAGES", "TAPS", "BF16_ROWS", "BF16_ROW",
+                                      "FWD_STAGES", "MAX_SHARED")}
+    assert _WH_SLOT in _CU and _FWD_SLOT in _CU
+    assert "constexpr int DROW = BO + 8, XROW = BI + 8, RROW = BI * TAPS + 1;" in _CU
+    for bo, bi in ((64, 32), (64, 16), (32, 32), (32, 16)):
+        slot = (c["WH_BR"] * (bo + 8) * 2
+                + (_staged_rows(c["WH_BR"], L) + c["TAPS"]) * (bi + 8) * 2 + c["WH_BR"] * 4)
+        sums = (bo * (bi * c["TAPS"] + 1) + bo) * 4
+        assert sums <= c["WH_STAGES"] * slot <= c["MAX_SHARED"] // 3, (bo, bi)
+    staged = _staged_rows(c["BF16_ROWS"], L)
+    for bn in (16, 32, 64):
+        fwd = c["FWD_STAGES"] * (c["TAPS"] * bn + staged) * c["BF16_ROW"] * 2 + staged * 4
+        assert fwd <= c["MAX_SHARED"] // 2, bn
 
 
 def _path_launches(T, batch):
